@@ -9,19 +9,29 @@ toolkit. Phases (any failure exits non-zero):
    hand-written kernel from ``cice5_tpu_torch/csrc`` with nvcc, one
    process per source, all started together.
 2. Hold each kernel against its plain PyTorch version on the same CUDA
-   tensors, at the shapes of the main path (384x320): the EVP sweep
-   (float64 at ndte=1 and 120, float32 at 120) and the remap flux kernel
-   (float64 and float32, 5 categories, 18 tracers, an ice-free band so the
-   skip path runs). Kernel and plain times come from CUDA events.
-3. Check the whole path against the plain path on a small input: two
+   tensors, at the shapes of the main paths (384x320), on inputs captured
+   from one step of each model: the EVP sweep (float64 at ndte=1 and 120,
+   float32 at 1 and 120) on the open-boundary BL99 grid and on the gx1
+   tripole seam; the remap flux kernel (float64 and float32, with an
+   ice-free band so the skip path runs) with the BL99 tracer table (18
+   tracers) and the gx1-parity one (19, pond chains of type 2 and 3);
+   the delta-Eddington kernel (float64 and float32 on the captured
+   inputs, float64 with seeded ponds under the level, cesm and topo pond
+   setups; 5 categories, nilyr=4, with an unlit band that must be exact
+   zeros), every output field and every layer on its own scale. Kernel and plain times come
+   from CUDA events.
+3. Check the whole paths against the plain paths on small inputs: two
    float64 steps on the GPU (kernels) and on the CPU (plain versions)
-   from one warmed-up state.
-4. Drive the main path: ``Model`` of the 320x384 BL99 + CCSM3
-   configuration (float32, ndte=120) through ``init_state`` and
-   ``rollout``, with the health guards of ``bench.py`` and a per-step
-   timing cross-check; the launch counters are set to 0 just before the
-   timed rollout and read just after.
-5. Print one JSON line with every kernel, then the card line, then
+   from one warmed-up state, for the BL99 model and for the gx1-parity
+   model on a small tripole grid whose land touches the seam.
+4. Drive the main paths through ``Model.init_state`` and ``rollout`` with
+   the health guards of ``bench.py`` and a per-step timing cross-check:
+   the gx1-parity model (``gx1_parity_config()`` on ``synth_gx1_grid``,
+   320x384, float32, ndte=120; 10 timed steps), then the BL99 + CCSM3
+   model of slice 1 (5 timed steps). For each, the launch counters are
+   set to 0 just before its timed rollout and read just after.
+5. Print one JSON line with every kernel (launches from the gx1-parity
+   main path, times on its inputs), then the card line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 """
 from __future__ import annotations
@@ -35,6 +45,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
+
 # peak rates of one H100 SXM at its 700 W limit (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -47,6 +58,16 @@ EVP_FLOP_REGION, EVP_FLOP_U = 369, 45
 # only where the data needs them (cells and edges with ice within reach)
 RM_FLOP_CELL, RM_FLOP_CELL_TRACER = 60, 70
 RM_FLOP_EDGE, RM_FLOP_EDGE_TRACER, RM_FLOP_EDGE_PARENT = 320, 30, 200
+# shortwave_dedd per lit column (nilyr=4, nslyr=1), counting exp and sqrt
+# as one operation: 30 layer-property sets (ice 4, snow 2, pond 4 per band)
+# of ~480 each with the 8-point Gaussian re-integration (~14.4k), 6
+# Fresnel layers (~0.2k), 9 adding sweeps with their interface fluxes
+# (~3.1k), 9 snow-table lookups (~1.7k), partition and mix (~0.6k)
+DEDD_OPS_LIT_COLUMN = 20000
+# float32 bound of shortwave_dedd against its plain version, each field on
+# its own scale: ~3x the 1.6e-5 this script measured at 384x320
+# (fswsfcn) on an NVIDIA H100 80GB HBM3 at 700 W
+DEDD_F32_TOL = 5e-5
 
 
 def fail(msg: str):
@@ -77,7 +98,7 @@ def cuda_time_ms(fn, reps: int, warmup: int = 1) -> float:
     return a.elapsed_time(b) / reps
 
 
-def evp_phase(cap64, cap32):
+def evp_phase(cap64, cap32, label):
     """Kernel A (evp_sweep) against subcycle_sweep on the card, each output
     (u, v, each stress component, each diagnostic) against its own scale.
     Built without FMA contraction, the kernel rounds as its plain version
@@ -95,13 +116,13 @@ def evp_phase(cap64, cap32):
         got = check.evp_outputs(tevp.evp_sweep(p, ndte, topo, **kw))
         torch.cuda.synchronize()
         field, rel, err = check.worst(check.field_errors(ref, got))
-        print(f"evp_sweep {tag}: max abs diff {err:.3e}; worst field "
+        print(f"evp_sweep {label} {tag}: max abs diff {err:.3e}; worst field "
               f"{field}: rel diff {rel:.3e} (bound {tol:.0e} x the field's "
               f"scale)")
         results[tag] = (err, rel, tol)
     bad = [t for t, (_, rel, tol) in results.items() if not rel <= tol]
     if bad:
-        fail(f"evp_sweep disagrees with subcycle_sweep: {bad}")
+        fail(f"evp_sweep disagrees with subcycle_sweep ({label}): {bad}")
     p, ndte, topo, kw = cap32
     ms = cuda_time_ms(lambda: tevp.evp_sweep(p, ndte, topo, **kw), reps=5)
     plain_ms = cuda_time_ms(lambda: tevp.subcycle_sweep(p, ndte, topo, **kw),
@@ -112,7 +133,8 @@ def evp_phase(cap64, cap32):
                   + (2 + 2) * nu + (12 + 5) * nreg)          # outputs
     flops = ndte * (EVP_FLOP_REGION * nreg + EVP_FLOP_U * nu)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
-    print(f"evp_sweep f32 ndte={ndte} at {ny}x{nx}: kernel {ms:.3f} ms, "
+    print(f"evp_sweep {label} f32 ndte={ndte} at {ny}x{nx}: kernel "
+          f"{ms:.3f} ms, "
           f"plain {plain_ms:.3f} ms, bound {1e3 * max(t_bytes, t_ops):.4f} "
           f"ms ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
     return dict(err=results["f32 ndte=120"][0], ms=ms, plain_ms=plain_ms,
@@ -129,7 +151,7 @@ def remap_args_with_band(args):
     return (geomN, geomE, mm, tmE2, hmE2, tt, par, ny, nx)
 
 
-def remap_phase(args64, args32, grid64, grid32):
+def remap_phase(args64, args32, grid64, grid32, label):
     """Kernel B (remap_flux_both) against remap_flux_plain on the card:
     the fluxes, and the remapped fields after the divergence update (the
     quantities tests/test_remap_pallas.py holds at 2e-5 in float32)."""
@@ -160,7 +182,8 @@ def remap_phase(args64, args32, grid64, grid32):
             dict(mm=upd[0][0], tm=upd[0][1]), dict(mm=upd[1][0],
                                                    tm=upd[1][1]),
             axes={"tm": 1}))
-        print(f"remap_flux_both {tag}: fluxes max abs diff {err:.3e}; worst "
+        print(f"remap_flux_both {label} {tag}: fluxes max abs diff "
+              f"{err:.3e}; worst "
               f"flux {field}: rel diff {rel:.3e} (bound {tol:.0e} x the "
               f"field's scale); worst remapped field {field_u}: rel diff "
               f"{rel_u:.3e} (bound {tol_upd:.0e} x the field's scale); "
@@ -168,7 +191,7 @@ def remap_phase(args64, args32, grid64, grid32):
         errs[tag] = err
         bad = bad or not (rel <= tol and rel_u <= tol_upd and skipped)
     if bad:
-        fail("remap_flux_both disagrees with remap_flux_plain")
+        fail(f"remap_flux_both disagrees with remap_flux_plain ({label})")
     args = args32
     ms = cuda_time_ms(lambda: trm.remap_flux_both(*args), reps=10)
     plain_ms = cuda_time_ms(lambda: trm.remap_flux_plain(*args), reps=3)
@@ -187,7 +210,7 @@ def remap_phase(args64, args32, grid64, grid32):
         + 2 * nlit * (RM_FLOP_EDGE + RM_FLOP_EDGE_TRACER * ntrace
                       + RM_FLOP_EDGE_PARENT * nparent)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
-    print(f"remap_flux_both f32 at {ny}x{nx}, ncat={ncat}, "
+    print(f"remap_flux_both {label} f32 at {ny}x{nx}, ncat={ncat}, "
           f"ntrace={ntrace}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
           f"bound {1e3 * max(t_bytes, t_ops):.4f} ms "
           f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
@@ -229,6 +252,151 @@ def small_reference_check():
              f"by {rel:.3e} of its scale (> 3e-8)")
 
 
+def dedd_args_with_band(kw):
+    """The captured shortwave_dEdd_ncat arguments with an ice-free band
+    (the first eighth of the longitudes) and a dark band (coszen <= 0 over
+    the next eighth) cut across the sunlit ice, so the kernel's unlit path
+    runs on columns that would otherwise be lit."""
+    kw = dict(kw)
+    nx = kw["aicen"].shape[2]
+    kw["aicen"] = kw["aicen"].clone()
+    kw["aicen"][:, :, : nx // 8] = 0.0
+    kw["coszen"] = kw["coszen"].clone()
+    kw["coszen"][:, nx // 8: nx // 4] = -0.1
+    return kw
+
+
+def with_ponds(kw, seed=5):
+    """The arguments with ponds on every ice column (apnd 0.05-0.6, hpnd
+    0-0.4 m, some below the depth that counts), drawn from a seed, so each
+    pond setup of the kernel has ponds to work on."""
+    import torch
+    a = kw["aicen"]
+    gen = torch.Generator(device=a.device).manual_seed(seed)
+    u = lambda lo, hi: torch.where(a > 0, lo + (hi - lo) * torch.rand(
+        a.shape, generator=gen, device=a.device, dtype=a.dtype), 0.0)
+    return dict(kw, apnd=u(0.05, 0.6), hpnd=u(0.0, 0.4))
+
+
+def dedd_phase(kw64, kw32):
+    """Kernel C (shortwave_dedd) against shortwave_dEdd_plain on the card:
+    each of the 14 output planes, and each layer of Sswabsn/Iswabsn/
+    fswpenln, against its own scale; every unlit column (aicen, net SW or
+    coszen at or below puny) exactly zero."""
+    import torch
+    from cice5_tpu_torch import constants as ct
+    from cice5_tpu_torch.models.radiation import dedd
+    from cice5_tpu_torch.ops import check
+    errs, bad = {}, []
+    # the captured inputs, then each pond setup (the model sends level
+    # ponds) in float64 with ponds on every ice column
+    for tag, kw, tol in (
+            ("f64", kw64, 1e-12), ("f32", kw32, DEDD_F32_TOL),
+            *((f"f64 {s} ponds", with_ponds(dict(kw64, pond_scheme=s)),
+               1e-12) for s in ("lvl", "cesm", "topo"))):
+        kw = dedd_args_with_band(kw)
+        ref = dedd.shortwave_dEdd_plain(**kw)
+        got = dedd.shortwave_dEdd_ncat(**kw)
+        torch.cuda.synchronize()
+        if "ponds" in tag and not float(ref.albpndn.max()) > 0.0:
+            fail(f"shortwave_dedd {tag}: no pond albedo, ponds not exercised")
+        field, rel, err = check.worst(check.field_errors(
+            ref._asdict(), got._asdict()))
+        netsw = kw["swvdr"] + kw["swvdf"] + kw["swidr"] + kw["swidf"]
+        lit = ((kw["aicen"] > ct.puny) & (netsw > ct.puny)[None]
+               & (kw["coszen"] > ct.puny)[None])
+        dark = bool(all(((x if x.dim() == 3 else x.movedim(1, 0))[
+            ..., ~lit] == 0).all() for x in got))
+        print(f"shortwave_dedd {tag}: max abs diff {err:.3e}; worst field "
+              f"{field}: rel diff {rel:.3e} (bound {tol:.0e} x the field's "
+              f"scale); lit columns {int(lit.sum())} of {lit.numel()}; "
+              f"unlit columns exact zeros: {dark}")
+        errs[tag] = err
+        if not (rel <= tol and dark):
+            bad.append(tag)
+    if bad:
+        fail(f"shortwave_dedd disagrees with shortwave_dEdd_plain: {bad}")
+    kw = kw32
+    ms = cuda_time_ms(lambda: dedd.shortwave_dEdd_ncat(**kw), reps=10)
+    plain_ms = cuda_time_ms(lambda: dedd.shortwave_dEdd_plain(**kw), reps=2)
+    ncat, ny, nx = kw["aicen"].shape
+    nout = 11 + kw["nslyr"] + 2 * kw["nilyr"] + 1
+    netsw = kw["swvdr"] + kw["swvdf"] + kw["swidr"] + kw["swidf"]
+    lit = ((kw["aicen"] > ct.puny) & (netsw > ct.puny)[None]
+           & (kw["coszen"] > ct.puny)[None])
+    nlit, nlit_cells = int(lit.sum()), int(lit.any(0).sum())
+    # every column reads aicen and writes all its planes, every cell reads
+    # coszen and the four shortwave planes; only a lit column reads the
+    # other five category inputs, and only a cell with one reads fnidr
+    nbytes = 4 * (ncat * ny * nx * (1 + nout) + 5 * ny * nx + 5 * nlit
+                  + nlit_cells)
+    ops = DEDD_OPS_LIT_COLUMN * nlit
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+    print(f"shortwave_dedd f32 at {ny}x{nx}, ncat={ncat}, nilyr="
+          f"{kw['nilyr']}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {1e3 * max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB, "
+          f"{nlit} lit columns, {ops / 1e9:.3f} G operations)")
+    return dict(err=errs["f32"], ms=ms, plain_ms=plain_ms,
+                bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def small_parity_grid(cfg, device):
+    """A small global tripole grid (the mesh of synth_gx1_grid at cfg's
+    shape) whose land touches the seam off its fold symmetry."""
+    import numpy as np
+    from cice5_tpu_torch.grid import popgrid_np, synth_global_arrays
+    kmt = np.ones((cfg.grid.ny, cfg.grid.nx), np.int32)
+    kmt[:2] = 0
+    kmt[-1, 3:6] = 0
+    kmt[-2, 4] = 0
+    kmt[-1, 11] = 0
+    return popgrid_np(cfg, *synth_global_arrays(kmt), device=device)
+
+
+def parity_reference_check():
+    """The gx1-parity path through the kernels on the GPU against the plain
+    versions on the CPU: 24x16 float64 on a small tripole grid with land
+    on the seam, ndte=8, a northern-summer noon with rain on the ice (so
+    the pond lid's "no fresh water" test never rests on rounding noise),
+    one warm-up step on the CPU, then two steps on each device. Tracers
+    are compared as conserved amounts (weight x value)."""
+    import dataclasses
+    import torch
+    from cice5_tpu_torch.config import gx1_parity_config
+    from cice5_tpu_torch.driver.model import Model
+    from cice5_tpu_torch.models.thermo.itd import tracer_weights
+    from cice5_tpu_torch.ops import check
+    cfg = gx1_parity_config()
+    cfg = cfg.replace(grid=dataclasses.replace(cfg.grid, ny=24, nx=16),
+                      dyn=dataclasses.replace(cfg.dyn, ndte=8),
+                      dtype="float64", accum_dtype="float64")
+    mc = Model(cfg, grid=small_parity_grid(cfg, "cpu"), device="cpu")
+    mg = Model(cfg, grid=small_parity_grid(cfg, "cpu"), device="cuda")
+    st = mc.init_state()
+    f = mc.forcing_at(172 * 24 + 12)
+    f = f.replace(frain=torch.full_like(f.frain, 2.0e-5))
+    st, _ = mc.step(st, f)
+    ref, got = (mc.rollout(st, f, 2)[0],
+                mg.rollout(st.to("cuda"), f.to("cuda"), 2)[0].to("cpu"))
+    torch.cuda.synchronize()
+    names = ("aicen", "vicen", "vsnon", "uvel", "vvel", "sst")
+    amount = lambda s: tracer_weights(mc.tr, s.aicen, s.vicen, s.vsnon,
+                                      s.trcrn) * s.trcrn
+    r = {k: getattr(ref, k) for k in names}
+    g = {k: getattr(got, k) for k in names}
+    r["trcrn_amount"], g["trcrn_amount"] = amount(ref), amount(got)
+    field, rel, err = check.worst(check.field_errors(
+        r, g, axes={"trcrn_amount": 1}))
+    print(f"small float64 gx1-parity run (24x16 tripole, land on the seam, "
+          f"ndte=8, 2 steps after a warm-up step): GPU kernels vs CPU plain "
+          f"max abs diff {err:.3e}; worst field {field}: rel diff "
+          f"{rel:.3e} (bound 3e-8 x the field's scale)")
+    if not rel <= 3e-8:
+        fail(f"small gx1-parity run: {field} on the GPU differs from the "
+             f"CPU by {rel:.3e} of its scale (> 3e-8)")
+
+
 def check_health(m, state, diag, label):
     """The guards of bench.py:88-153 on the port's state."""
     import torch
@@ -252,18 +420,19 @@ def check_health(m, state, diag, label):
     return frac
 
 
-def main_path(nsteps: int = 10):
+def main_path(label, build, nsteps, expect):
+    """Drive one main path: ``build()`` returns (model, initial state,
+    forcing); 2 warm-up steps, ``nsteps`` timed steps of ``rollout`` with
+    the launch counters set to 0 just before and read just after (each
+    kernel must have launched ``expect[name]`` times), the bench.py guards
+    and the 3x per-step cross-check."""
     import torch
-    from cice5_tpu_torch.config import bench_easy_config
-    from cice5_tpu_torch.driver.model import Model
     from cice5_tpu_torch.ops import kernels
-    cfg = bench_easy_config()            # 320x384, float32, ndte=120
-    m = Model(cfg)                       # on the GPU
-    st = m.init_state(ice_mask=m.grid.tmask)
-    forcing = m.forcing_at(0)
+    m, st, forcing = build()
+    cfg = m.cfg
     st, diag = m.rollout(st, forcing, 2)           # warm-up
     torch.cuda.synchronize()
-    check_health(m, st, diag, "post-warmup")
+    check_health(m, st, diag, f"{label} post-warmup")
 
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -271,10 +440,9 @@ def main_path(nsteps: int = 10):
     torch.cuda.synchronize()
     dt_roll = (time.perf_counter() - t0) / nsteps
     launches = kernels.launch_counts()
-    frac = check_health(m, st, diag, "post-timing")
-    ndyn = nsteps * cfg.time.ndtd
-    if launches["evp_sweep"] != ndyn or launches["remap_flux_both"] != ndyn:
-        fail(f"main path launches {launches}, expected {ndyn} of each")
+    frac = check_health(m, st, diag, f"{label} post-timing")
+    if launches != expect:
+        fail(f"{label} main path launches {launches}, expected {expect}")
 
     per_step = []
     s2 = st
@@ -283,20 +451,48 @@ def main_path(nsteps: int = 10):
         s2, d2 = m.step(s2, forcing)
         torch.cuda.synchronize()
         per_step.append(time.perf_counter() - t0)
-    check_health(m, s2, d2, "per-step cross-check")
+    check_health(m, s2, d2, f"{label} per-step cross-check")
     dt_single = min(per_step)
     if not dt_single / 3.0 < dt_roll < dt_single * 3.0 + 1e-3:
-        fail(f"rollout {dt_roll * 1e3:.3f} ms/step disagrees >3x with "
-             f"per-step {dt_single * 1e3:.3f} ms/step")
+        fail(f"{label}: rollout {dt_roll * 1e3:.3f} ms/step disagrees >3x "
+             f"with per-step {dt_single * 1e3:.3f} ms/step")
     cells = cfg.grid.nx * cfg.grid.ny
-    print(f"main path on {card_line()}: {cfg.grid.ny}x{cfg.grid.nx} "
-          f"BL99+CCSM3 float32 "
-          f"ndte={cfg.dyn.ndte}: rollout {dt_roll * 1e3:.3f} ms/step, "
-          f"per-step {dt_single * 1e3:.3f} ms/step, "
-          f"{cells / dt_roll:.4e} cell-steps/s; ice fraction {frac:.4f}; "
-          f"BL99 passes {diag.niter_thermo}, ridging passes "
-          f"{diag.niter_ridge} in the last step; launches {launches}")
+    solver = "mushy Picard" if cfg.thermo.ktherm == 2 else "BL99"
+    print(f"main path {label} on {card_line()}: {cfg.grid.ny}x{cfg.grid.nx} "
+          f"{cfg.dtype} ndte={cfg.dyn.ndte}, {nsteps} timed steps: rollout "
+          f"{dt_roll * 1e3:.3f} ms/step, per-step {dt_single * 1e3:.3f} "
+          f"ms/step, {cells / dt_roll:.4e} cell-steps/s; ice fraction "
+          f"{frac:.4f}; {solver} passes {diag.niter_thermo}, ridging passes "
+          f"{diag.niter_ridge} in the last step; launches {launches}",
+          flush=True)
     return launches
+
+
+def build_parity():
+    """gx1_parity_config() on synth_gx1_grid, as bench.py:bench_parity
+    builds it: the default 70N/60S ice edge, forcing of step 0."""
+    from cice5_tpu_torch.config import gx1_parity_config
+    from cice5_tpu_torch.driver.model import Model
+    from cice5_tpu_torch.grid import synth_gx1_grid
+    cfg = gx1_parity_config()            # 320x384, float32, ndte=120
+    m = Model(cfg, grid=synth_gx1_grid(cfg, device="cuda"))
+    return m, m.init_state(), m.forcing_at(0)
+
+
+def build_bl99():
+    from cice5_tpu_torch.config import bench_easy_config
+    from cice5_tpu_torch.driver.model import Model
+    m = Model(bench_easy_config())       # 320x384, float32, ndte=120
+    return m, m.init_state(ice_mask=m.grid.tmask), m.forcing_at(0)
+
+
+def capture(build_model, dtype):
+    """Kernel arguments of one step at the main path's shapes, after a
+    warm-up step (velocities and stresses non-zero)."""
+    from cice5_tpu_torch.ops import check
+    m, st, f = build_model(dtype)
+    st, _ = m.step(st, f)
+    return m.grid, check.capture_kernel_args(m, st, f)[1]
 
 
 def main():
@@ -307,9 +503,10 @@ def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs on the GPU machine only")
     try:
-        from cice5_tpu_torch.config import bench_easy_config
+        from cice5_tpu_torch.config import bench_easy_config, gx1_parity_config
         from cice5_tpu_torch.driver.model import Model
-        from cice5_tpu_torch.ops import check, kernels
+        from cice5_tpu_torch.grid import synth_gx1_grid
+        from cice5_tpu_torch.ops import kernels
     except ImportError as e:
         fail(f"run from the root of a checkout: {e}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -321,23 +518,35 @@ def main():
     print(f"kernel build: {t_build:.2f} s for "
           f"{len(kernels.KERNELS)} sources", flush=True)
 
-    # inputs of both kernels at the main path's shapes: one step of the
-    # 320x384 model in float64 and in float32, captured after a warm-up
-    # step so velocities and stresses are non-zero
-    caps, grids = {}, {}
-    for dt in ("float64", "float32"):
+    # slice 1: the BL99 model's kernel inputs (open boundaries, 18 tracers)
+    def bl99_model(dt):
         m = Model(bench_easy_config(dtype=dt))
-        grids[dt] = m.grid
-        st = m.init_state(ice_mask=m.grid.tmask)
-        f = m.forcing_at(0)
-        st, _ = m.step(st, f)
-        _, caps[dt] = check.capture_kernel_args(m, st, f)
-    a = evp_phase(caps["float64"]["evp"], caps["float32"]["evp"])
-    b = remap_phase(caps["float64"]["remap"], caps["float32"]["remap"],
-                    grids["float64"], grids["float32"])
+        return m, m.init_state(ice_mask=m.grid.tmask), m.forcing_at(0)
+
+    caps = {dt: capture(bl99_model, dt) for dt in ("float64", "float32")}
+    evp_phase(caps["float64"][1]["evp"], caps["float32"][1]["evp"], "BL99")
+    remap_phase(caps["float64"][1]["remap"], caps["float32"][1]["remap"],
+                caps["float64"][0], caps["float32"][0], "BL99")
+    # slice 2: the gx1-parity model's (tripole seam, 19 tracers, dEdd)
+    def parity_model(dt):
+        cfg = gx1_parity_config(dtype=dt, accum_dtype=dt)
+        m = Model(cfg, grid=synth_gx1_grid(cfg, device="cuda"))
+        return m, m.init_state(), m.forcing_at(0)
+
+    caps = {dt: capture(parity_model, dt) for dt in ("float64", "float32")}
+    a = evp_phase(caps["float64"][1]["evp"], caps["float32"][1]["evp"],
+                  "gx1 tripole")
+    b = remap_phase(caps["float64"][1]["remap"], caps["float32"][1]["remap"],
+                    caps["float64"][0], caps["float32"][0], "gx1")
+    c = dedd_phase(caps["float64"][1]["dedd"], caps["float32"][1]["dedd"])
     del caps
     small_reference_check()
-    launches = main_path()
+    parity_reference_check()
+    launches = main_path("gx1-parity", build_parity, 10,
+                         dict(evp_sweep=10, remap_flux_both=10,
+                              shortwave_dedd=10))
+    main_path("BL99+CCSM3", build_bl99, 5,
+              dict(evp_sweep=5, remap_flux_both=5, shortwave_dedd=0))
 
     line = {"kernels": [
         dict(name="evp_sweep", route="cuda",
@@ -352,6 +561,12 @@ def main():
              launches=launches["remap_flux_both"], max_abs_err=b["err"],
              ms=b["ms"], plain_ms=b["plain_ms"], bound_ms=b["bound_ms"],
              bound_by=b["bound_by"], library_ms=None),
+        dict(name="shortwave_dedd", route="cuda",
+             source="cice5_tpu_torch/csrc/shortwave_dedd.cu",
+             replaces="cice5_tpu/ops/pallas/dedd_fused.py:51",
+             launches=launches["shortwave_dedd"], max_abs_err=c["err"],
+             ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
+             bound_by=c["bound_by"], library_ms=None),
     ]}
     print(json.dumps(line))
     print(card)

@@ -140,7 +140,8 @@ class ShortwaveConfig:
     orb_eccen: float | None = None
     orb_obliq: float | None = None
     orb_mvelp: float | None = None
-    # the JAX package's dEdd execution switch (dEdd is not ported yet)
+    # the JAX package's dEdd execution switch; the port always runs the
+    # shortwave_dedd kernel on the GPU and its plain version on the CPU
     sw_kernel: str = "auto"
 
 
@@ -290,8 +291,8 @@ def gx1_parity_config(**overrides) -> ModelConfig:
     """gx1 physics-parity config (input_templates/gx1/ice_in): 320x384
     tripole grid, mushy thermo (ktherm=2), delta-Eddington shortwave,
     iage/FY/lvl/pond_lvl tracers, Rothrock strength, ndte=120, remap
-    transport, slab mixed-layer ocean, kcatbound=0, nilyr=4. Kept for the
-    next slice of the port; ``Model`` refuses it until then."""
+    transport, slab mixed-layer ocean, kcatbound=0, nilyr=4. The grid is
+    built by the caller: ``Model(cfg, grid=synth_gx1_grid(cfg, ...))``."""
     cfg = ModelConfig(
         nilyr=4,
         grid=GridConfig(nx=320, ny=384, grid_type="tripole",

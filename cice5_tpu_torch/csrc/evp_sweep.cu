@@ -6,6 +6,10 @@
 // Each subcycle (ice_dyn_evp.F90:336-410) is
 //   1. the NE-corner ghost ring of (u, v), here by index arithmetic
 //      (cyclic wrap or zero fill per boundary, parallel/halo.py:extend),
+//      including the tripole U-fold of a north seam: the top row is read
+//      symmetrized with its fold image, 0.5*(f(ny-1,i) - f(ny-1,nx-2-i)),
+//      and the ghost row is -f(ny-2, nx-2-i), both mod nx (the NECORNER
+//      vector fold of halo.extend, mpi/ice_boundary.F90:1494-1596),
 //   2. the stress kernel on the (ny+1, nx+1) region: strain rates, Delta,
 //      replacement pressure, the 12 relaxed stress components in place and
 //      the 8 stress-divergence combinations str8 (evp.py:stress_kernel),
@@ -58,10 +62,20 @@ template <typename T>
 __device__ __forceinline__ T tabs(T a) { return a < T(0) ? -a : a; }
 
 // value of a (ny, nx) U-point field at (j, i), j in [-1, ny], i in
-// [-1, nx]: the ghost ring of halo.extend (x first, then full rows in y)
+// [-1, nx]: the ghost ring of halo.extend (x first, then full rows in y).
+// fold: a tripole north seam (U-fold, NECORNER vector): the symmetrized
+// top row feeds only this read; the carried u and v keep their values.
 template <typename T>
 __device__ __forceinline__ T ghosted(const T* __restrict__ f, int j, int i,
-                                     int ny, int nx, int cyc_x, int cyc_y) {
+                                     int ny, int nx, int cyc_x, int cyc_y,
+                                     int fold) {
+  if (fold && j == ny) {
+    // the fold ghost row, extended cyclically in x
+    const int ii = i < 0 ? i + nx : (i >= nx ? i - nx : i);
+    int src = nx - 2 - ii;
+    src = src < 0 ? src + nx : src;
+    return -f[(size_t)(ny - 2) * nx + src];
+  }
   if (i < 0 || i >= nx) {
     if (!cyc_x) return T(0);
     i = i < 0 ? i + nx : i - nx;
@@ -69,6 +83,12 @@ __device__ __forceinline__ T ghosted(const T* __restrict__ f, int j, int i,
   if (j < 0 || j >= ny) {
     if (!cyc_y) return T(0);
     j = j < 0 ? j + ny : j - ny;
+  }
+  if (fold && j == ny - 1) {
+    int src = nx - 2 - i;
+    src = src < 0 ? src + nx : src;
+    const T* row = f + (size_t)j * nx;
+    return T(0.5) * (row[i] + -row[src]);
   }
   return f[(size_t)j * nx + i];
 }
@@ -81,7 +101,7 @@ enum { U_ICEM, U_AIU, U_UOCN, U_VOCN, U_WATERX, U_WATERY, U_FORCEX,
        U_FORCEY, U_UMASSDTI, U_FM, U_UAREAR, U_UINIT, U_VINIT, U_CW };
 
 template <typename T>
-__global__ void evp_stress(int ny, int nx, int cyc_x, int cyc_y,
+__global__ void evp_stress(int ny, int nx, int cyc_x, int cyc_y, int fold,
                            const T* __restrict__ u, const T* __restrict__ v,
                            T* __restrict__ stress,
                            const T* __restrict__ maskR,
@@ -105,14 +125,14 @@ __global__ void evp_stress(int ny, int nx, int cyc_x, int cyc_y,
 
   // region point (jr, ir) is T cell (jr, ir); its corners are the U
   // points (jr, ir) [NE], (jr, ir-1) [NW], (jr-1, ir-1) [SW], (jr-1, ir)
-  const T u00 = ghosted(u, jr, ir, ny, nx, cyc_x, cyc_y);
-  const T uW = ghosted(u, jr, ir - 1, ny, nx, cyc_x, cyc_y);
-  const T uS = ghosted(u, jr - 1, ir, ny, nx, cyc_x, cyc_y);
-  const T uSW = ghosted(u, jr - 1, ir - 1, ny, nx, cyc_x, cyc_y);
-  const T v00 = ghosted(v, jr, ir, ny, nx, cyc_x, cyc_y);
-  const T vW = ghosted(v, jr, ir - 1, ny, nx, cyc_x, cyc_y);
-  const T vS = ghosted(v, jr - 1, ir, ny, nx, cyc_x, cyc_y);
-  const T vSW = ghosted(v, jr - 1, ir - 1, ny, nx, cyc_x, cyc_y);
+  const T u00 = ghosted(u, jr, ir, ny, nx, cyc_x, cyc_y, fold);
+  const T uW = ghosted(u, jr, ir - 1, ny, nx, cyc_x, cyc_y, fold);
+  const T uS = ghosted(u, jr - 1, ir, ny, nx, cyc_x, cyc_y, fold);
+  const T uSW = ghosted(u, jr - 1, ir - 1, ny, nx, cyc_x, cyc_y, fold);
+  const T v00 = ghosted(v, jr, ir, ny, nx, cyc_x, cyc_y, fold);
+  const T vW = ghosted(v, jr, ir - 1, ny, nx, cyc_x, cyc_y, fold);
+  const T vS = ghosted(v, jr - 1, ir, ny, nx, cyc_x, cyc_y, fold);
+  const T vSW = ghosted(v, jr - 1, ir - 1, ny, nx, cyc_x, cyc_y, fold);
 
   // strain rates * area (ice_dyn_evp.F90:627-655)
   const T divune = cyp * u00 - dyt * uW + cxp * v00 - dxt * vS;
@@ -311,7 +331,8 @@ __global__ void evp_stepu(int ny, int nx, T* __restrict__ u,
 }
 
 template <typename T>
-int run(int ny, int nx, int ndte, int cyc_x, int cyc_y, T* u, T* v,
+int run(int ny, int nx, int ndte, int cyc_x, int cyc_y, int fold, T* u,
+        T* v,
         T* stress, const T* maskR, const T* strengthR, const T* gR,
         const T* uin, int cw_plane, double Cw, double arlx1i, double denom1,
         double ecci, double brlx, double revp, double cosw, double sinw,
@@ -323,7 +344,7 @@ int run(int ny, int nx, int ndte, int cyc_x, int cyc_y, T* u, T* v,
   for (int it = 0; it < ndte; ++it) {
     const int last = it == ndte - 1;
     evp_stress<T><<<grid_r, block, 0, s>>>(
-        ny, nx, cyc_x, cyc_y, u, v, stress, maskR, strengthR, gR,
+        ny, nx, cyc_x, cyc_y, fold, u, v, stress, maskR, strengthR, gR,
         T(arlx1i), T(denom1), T(ecci), str8, diagR, last);
     evp_stepu<T><<<grid_u, block, 0, s>>>(
         ny, nx, u, v, str8, uin, cw_plane, T(Cw), T(brlx + revp), T(brlx),
@@ -338,26 +359,27 @@ int run(int ny, int nx, int ndte, int cyc_x, int cyc_y, T* u, T* v,
 
 extern "C" {
 
-int evp_sweep_f32(int ny, int nx, int ndte, int cyc_x, int cyc_y, float* u,
-                  float* v, float* stress, const float* maskR,
+int evp_sweep_f32(int ny, int nx, int ndte, int cyc_x, int cyc_y, int fold,
+                  float* u, float* v, float* stress, const float* maskR,
                   const float* strengthR, const float* gR, const float* uin,
                   int cw_plane, double Cw, double arlx1i, double denom1,
                   double ecci, double brlx, double revp, double cosw,
                   double sinw, float* str8, float* diagR, float* strint,
                   void* stream) {
-  return run<float>(ny, nx, ndte, cyc_x, cyc_y, u, v, stress, maskR,
+  return run<float>(ny, nx, ndte, cyc_x, cyc_y, fold, u, v, stress, maskR,
                     strengthR, gR, uin, cw_plane, Cw, arlx1i, denom1, ecci,
                     brlx, revp, cosw, sinw, str8, diagR, strint, stream);
 }
 
-int evp_sweep_f64(int ny, int nx, int ndte, int cyc_x, int cyc_y, double* u,
+int evp_sweep_f64(int ny, int nx, int ndte, int cyc_x, int cyc_y, int fold,
+                  double* u,
                   double* v, double* stress, const double* maskR,
                   const double* strengthR, const double* gR,
                   const double* uin, int cw_plane, double Cw, double arlx1i,
                   double denom1, double ecci, double brlx, double revp,
                   double cosw, double sinw, double* str8, double* diagR,
                   double* strint, void* stream) {
-  return run<double>(ny, nx, ndte, cyc_x, cyc_y, u, v, stress, maskR,
+  return run<double>(ny, nx, ndte, cyc_x, cyc_y, fold, u, v, stress, maskR,
                      strengthR, gR, uin, cw_plane, Cw, arlx1i, denom1, ecci,
                      brlx, revp, cosw, sinw, str8, diagR, strint, stream);
 }

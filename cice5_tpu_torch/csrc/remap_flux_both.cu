@@ -14,9 +14,10 @@
 //      (remap.py:_integrals; transport_integrals :3199-3512), with the
 //      per-view weight maps of the JAX code: every tracer flux is
 //      sum over the 6 donor views of Wc*tc + Wx*tx + Wy*ty.
-// Tracer dependency types 1 and 2 with a type-1 parent are supported (all
-// the tracers of the BL99 configuration); type 3 and type-2 parents (the
-// pond chains) come with the pond tracers, and the wrapper refuses them.
+// Tracer dependency types 1, 2 and 3: a type-2 tracer (e.g. the pond area
+// apnd on the level-ice area alvl) is weighted by its type-1 parent, a
+// type-3 tracer (the pond depth hpnd and lid ipnd on apnd) by its type-2
+// parent and that parent's type-1 parent, the chain of remap.py:_integrals.
 //
 // Design: two kernels on the caller's stream. remap_recon writes the
 // reconstruction (ncat, 3 + 3*ntrace, ny+2, nx+2) to a scratch tensor the
@@ -310,15 +311,29 @@ __global__ void remap_flux(int ntrace, int ny, int nx, TracerTable tab,
         const T* tcp = rc + (size_t)(3 + 3 * pa) * npR;
         const T* txp = tcp + npR;
         const T* typ = txp + npR;
+        // a type-2 parent weights by its own type-1 parent's group sums
+        const int gp = tab.type[pa] == 1 ? -1 : tab.parent[pa];
+        const T* tcg = rc + (size_t)(3 + 3 * (gp < 0 ? 0 : gp)) * npR;
+        const T* txg = tcg + npR;
+        const T* tyg = txg + npR;
 #pragma unroll
         for (int v = 0; v < 6; ++v) Wcp[v] = Wxp[v] = Wyp[v] = T(0);
 #pragma unroll
         for (int g = 0; g < NGROUPS; ++g) {
           const size_t od = off[dn[g]];
           const T a = tcp[od], b = txp[od], d = typ[od];
-          const T mts = msum[g] * a + mxsum[g] * b + mysum[g] * d;
-          const T mtx = mxsum[g] * a + mxxsum[g] * b + mxysum[g] * d;
-          const T mty = mysum[g] * a + mxysum[g] * b + myysum[g] * d;
+          T mts, mtx = T(0), mty = T(0);
+          if (gp < 0) {
+            mts = msum[g] * a + mxsum[g] * b + mysum[g] * d;
+            mtx = mxsum[g] * a + mxxsum[g] * b + mxysum[g] * d;
+            mty = mysum[g] * a + mxysum[g] * b + myysum[g] * d;
+          } else {
+            const T ga = tcg[od], gb = txg[od], gd = tyg[od];
+            const T pts = msum[g] * ga + mxsum[g] * gb + mysum[g] * gd;
+            const T ptx = mxsum[g] * ga + mxxsum[g] * gb + mxysum[g] * gd;
+            const T pty = mysum[g] * ga + mxysum[g] * gb + myysum[g] * gd;
+            mts = pts * a + ptx * b + pty * d;
+          }
 #pragma unroll
           for (int v = 0; v < 6; ++v) {
             const bool on = dn[g] == v;

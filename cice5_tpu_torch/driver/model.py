@@ -27,30 +27,40 @@ EDGE_INIT_NH = 70.0
 EDGE_INIT_SH = -60.0
 HSNO_INIT = 0.20
 
-_SLICE2 = "the gx1-parity slice of the port"
 _LATER = "a later slice of the port"
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for every option outside this slice (the
-    BL99 + CCSM3 model on a rectangular grid), naming the slice that
-    brings it. Nothing is silently approximated."""
+    """Raise NotImplementedError for every option outside the port so far
+    (the BL99 + CCSM3 model on a rectangular grid, and the gx1-parity
+    model with all of its options together: POP/tripole grid with a U-fold
+    seam, mushy thermodynamics, delta-Eddington shortwave, the
+    iage/FY/lvl/level-pond tracers with the refrozen pond lid), naming the
+    slice that brings it. Nothing is silently approximated."""
     g, th, dy, tc = cfg.grid, cfg.thermo, cfg.dyn, cfg.tracers
+    parity = {"grid_type='tripole'": g.grid_type == "tripole",
+              "the tripole seam": g.ns_boundary == "tripole",
+              "ktherm=2": th.ktherm == 2,
+              "shortwave='dEdd'": cfg.shortwave.shortwave == "dEdd",
+              "tr_iage": tc.tr_iage, "tr_FY": tc.tr_FY, "tr_lvl": tc.tr_lvl,
+              "tr_pond_lvl": tc.tr_pond_lvl}
+    on = [name for name, set_ in parity.items() if set_]
     checks = [
-        (g.grid_type not in ("rectangular", "column"),
-         f"grid_type={g.grid_type!r}", _SLICE2),
-        (g.ns_boundary in ("tripole", "tripoleT")
-         or g.ew_boundary in ("tripole", "tripoleT"),
-         "tripole / tripoleT boundaries", _SLICE2),
+        (g.grid_type not in ("rectangular", "column", "tripole"),
+         f"grid_type={g.grid_type!r}", _LATER),
+        (g.ns_boundary == "tripoleT" or g.ew_boundary in ("tripole",
+                                                          "tripoleT"),
+         "the tripoleT (T-fold) seam", _LATER),
+        (0 < len(on) < len(parity),
+         f"{', '.join(on)} without the rest of the gx1-parity options",
+         _LATER),
+        (tc.tr_pond_lvl and tc.frzpnd != "hlid",
+         f"frzpnd={tc.frzpnd!r} with level ponds", _LATER),
         (g.compact_columns == "on", "compact_columns='on'", _LATER),
-        (th.ktherm == 2, "ktherm=2 (mushy thermodynamics)", _SLICE2),
         (th.ktherm == 0, "ktherm=0 (zero-layer thermodynamics)", _LATER),
         (not th.calc_Tsfc, "calc_Tsfc=False", _LATER),
         (th.fbot_xfer_type != "constant",
          f"fbot_xfer_type={th.fbot_xfer_type!r}", _LATER),
-        (cfg.shortwave.shortwave == "dEdd", "shortwave='dEdd'", _SLICE2),
-        (tc.tr_iage or tc.tr_FY or tc.tr_lvl or tc.tr_pond_lvl,
-         "the iage/FY/lvl/pond_lvl tracers", _SLICE2),
         (tc.tr_pond_cesm or tc.tr_pond_topo or tc.tr_aero or tc.tr_brine
          or tc.skl_bgc, "the cesm/topo ponds, aerosol, brine and BGC "
          "tracers", _LATER),
@@ -138,6 +148,9 @@ def init_state(cfg: ModelConfig, grid: Grid, tr, hin_max, salinz,
     for k in range(cfg.nslyr):
         trcrn[:, tr.nt_qsno + k] = torch.where(msk[None], qs,
                                                -ct.rhos * ct.Lfresh)
+    if tr.nt_alvl >= 0:
+        trcrn[:, tr.nt_alvl] = torch.where(msk[None], 1.0, 0.0)
+        trcrn[:, tr.nt_vlvl] = torch.where(msk[None], 1.0, 0.0)
     sst0 = torch.full(grid.shape, Tf, **kw) if sst is None else sst
     return st.replace(aicen=aicen, vicen=vicen, vsnon=vsnon, trcrn=trcrn,
                       sst=sst0 * tmask.to(cfg.xp_dtype))
@@ -149,7 +162,8 @@ class Model:
     device: None runs on the GPU and raises when there is none; pass
     ``device="cpu"`` to run the plain PyTorch path on the CPU.
     grid: optional pre-built Grid (moved to the device); defaults to
-    ``make_grid(cfg)``."""
+    ``make_grid(cfg)``. A POP/tripole configuration takes its grid from
+    the caller (``grid.synth_gx1_grid(cfg, device=...)`` for gx1)."""
 
     def __init__(self, cfg: ModelConfig, grid: Grid | None = None,
                  device=None):

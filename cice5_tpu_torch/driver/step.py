@@ -1,11 +1,13 @@
 """One model time step (PyTorch port of ``cice5_tpu/driver/step.py``,
-restricted to the BL99 + CCSM3 configuration).
+restricted to the BL99 + CCSM3 and gx1-parity configurations).
 
 ice_step_mod.F90 and the standalone driver loop (CICE_RunMod.F90:107-267):
-radiation, per-category vertical thermodynamics, ITD evolution (linear
-remap, frazil, lateral melt, cleanup), EVP dynamics + remap transport +
-ridging, the slab ocean, and the flux aggregation for diagnostics, as one
-function ``step(state, forcing, grid, ...) -> (state, diag)``.
+radiation (CCSM3 or delta-Eddington), per-category vertical
+thermodynamics (BL99 or mushy), the ice age, first-year area and
+level-ice pond tracers, ITD evolution (linear remap, frazil, lateral
+melt, cleanup), EVP dynamics + remap transport + ridging, the slab
+ocean, and the flux aggregation for diagnostics, as one function
+``step(state, forcing, grid, ...) -> (state, diag)``.
 
 Categories are an explicit leading batch axis: per-category fields are
 (ncat, ny, nx) and layer stacks are layer-first (nlyr, ncat, ny, nx), the
@@ -28,8 +30,11 @@ from cice5_tpu_torch.models.dynamics.evp import evp
 from cice5_tpu_torch.models.dynamics.ridge import ridge_ice
 from cice5_tpu_torch.models.dynamics.strength import (strength_hibler,
                                                       strength_rothrock)
-from cice5_tpu_torch.models.radiation.ccsm3 import shortwave_ccsm3
+from cice5_tpu_torch.models.radiation import dedd
+from cice5_tpu_torch.models.radiation.ccsm3 import (AbsorbedSolar, Albedos,
+                                                   shortwave_ccsm3)
 from cice5_tpu_torch.models.thermo import itd, vertical
+from cice5_tpu_torch.models.tracers import ponds, simple
 from cice5_tpu_torch.models.transport.remap import transport_remap
 from cice5_tpu_torch.parallel import Topology, global_min, global_sum
 from cice5_tpu_torch.state import State, TracerRegistry
@@ -74,6 +79,7 @@ class StepDiag(NamedTuple):
     Tsfc: torch.Tensor     # cell-mean surface temperature
     therm_converged: torch.Tensor
     ferr_max: torch.Tensor
+    fpond: torch.Tensor         # net meltwater flux into ponds (m/step)
     fsurfn_ai: torch.Tensor
     flatn_ai: torch.Tensor
     fsensn_ai: torch.Tensor
@@ -96,14 +102,18 @@ class StepDiag(NamedTuple):
     strcory: torch.Tensor
     albice: torch.Tensor
     albsno: torch.Tensor
+    albpnd: torch.Tensor        # broadband pond albedo (dEdd only)
     dsnow: torch.Tensor
     fswint: torch.Tensor
     daidtt: torch.Tensor
     dvidtt: torch.Tensor
     daidtd: torch.Tensor
     dvidtd: torch.Tensor
+    dagedtt: torch.Tensor       # age tendency from thermo (s/s)
+    dagedtd: torch.Tensor       # age tendency from dynamics (s/s)
     opening: torch.Tensor
-    niter_thermo: int           # BL99 passes (one host sync each)
+    niter_thermo: int           # BL99 or mushy Picard passes (one host sync
+    #                             each)
     niter_ridge: int            # ridging passes (one host sync after each
     #                             beyond the first)
 
@@ -113,14 +123,78 @@ def _layers(trcrn, i0, n):
     return trcrn[:, i0:i0 + n].movedim(1, 0)
 
 
+def _step_radiation(aicen, vicen, vsnon, trcrn, forcing: Forcing,
+                    cfg: ModelConfig, tr: TracerRegistry):
+    """One radiation pass over all categories (step_radiation,
+    ice_step_mod.F90:1364: run_dEdd | shortwave_ccsm3). Returns (alb,
+    absr, Sswabsn (nslyr, ncat, ...), albpndn, snowfracn) with the layer
+    stacks layer-first. dEdd runs the shortwave_dedd kernel on the GPU
+    and its plain version on the CPU (dedd.shortwave_dEdd_ncat)."""
+    nilyr, nslyr = cfg.nilyr, cfg.nslyr
+    Tsfcn = trcrn[:, tr.nt_Tsfc]
+    sw = cfg.shortwave
+    if sw.shortwave == "dEdd":
+        tcfg = cfg.tracers
+        swid_tot = forcing.swidr + forcing.swidf
+        fnidr = torch.where(swid_tot > ct.puny, forcing.swidr
+                            / torch.clamp(swid_tot, min=ct.puny), 0.0)
+        if tcfg.tr_pond:
+            apnd_r = trcrn[:, tr.nt_apnd]
+            hpnd_r = trcrn[:, tr.nt_hpnd]
+            if tcfg.tr_pond_lvl:
+                apnd_r = apnd_r * trcrn[:, tr.nt_alvl]
+        else:
+            apnd_r = hpnd_r = torch.zeros_like(aicen)
+        de = dedd.shortwave_dEdd_ncat(
+            nilyr=nilyr, nslyr=nslyr, aicen=aicen.contiguous(),
+            vicen=vicen.contiguous(), vsnon=vsnon.contiguous(),
+            Tsfcn=Tsfcn.contiguous(), apnd=apnd_r.contiguous(),
+            hpnd=hpnd_r.contiguous(), coszen=forcing.coszen, fnidr=fnidr,
+            swvdr=forcing.swvdr, swvdf=forcing.swvdf, swidr=forcing.swidr,
+            swidf=forcing.swidf, R_ice=sw.R_ice, R_pnd=sw.R_pnd,
+            R_snw=sw.R_snw, dT_mlt=sw.dT_mlt, rsnw_mlt=sw.rsnw_mlt,
+            kalg=sw.kalg, hs0=tcfg.hs0, hs1=tcfg.hs1,
+            pndaspect=tcfg.pndaspect,
+            pond_scheme="lvl" if tcfg.tr_pond_lvl else "cesm")
+        zc = torch.zeros_like(aicen)
+        alb = Albedos(alvdrn=de.alvdrn, alidrn=de.alidrn, alvdfn=de.alvdfn,
+                      alidfn=de.alidfn, alvdrni=de.alvdrn,
+                      alidrni=de.alidrn, alvdfni=de.alvdfn,
+                      alidfni=de.alidfn, alvdrns=zc, alidrns=zc,
+                      alvdfns=zc, alidfns=zc, albin=de.albicen,
+                      albsn=de.albsnon)
+        absr = AbsorbedSolar(fswsfc=de.fswsfcn, fswint=de.fswintn,
+                             fswthru=de.fswthrun,
+                             Iswabs=de.Iswabsn.movedim(1, 0),
+                             fswpenl=de.fswpenln.movedim(1, 0))
+        return (alb, absr, de.Sswabsn.movedim(1, 0), de.albpndn,
+                de.snowfracn)
+    alb, absr = shortwave_ccsm3(
+        aicen, vicen, vsnon, Tsfcn, forcing.swvdr, forcing.swvdf,
+        forcing.swidr, forcing.swidf, nilyr=nilyr,
+        albedo_type=sw.albedo_type, albicev=sw.albicev, albicei=sw.albicei,
+        albsnowv=sw.albsnowv, albsnowi=sw.albsnowi, ahmax=sw.ahmax,
+        heat_capacity=cfg.thermo.ktherm != 0)
+    Sswabsn = torch.zeros((nslyr,) + tuple(aicen.shape), dtype=aicen.dtype,
+                          device=aicen.device)
+    hs_r = torch.where(aicen > ct.puny,
+                       vsnon / torch.clamp(aicen, min=ct.puny), 0.0)
+    snowfracn = torch.where(aicen > ct.puny, hs_r / (hs_r + ct.snowpatch),
+                            0.0)
+    return alb, absr, Sswabsn, torch.zeros_like(aicen), snowfracn
+
+
 def _column_physics(aicen, vicen, vsnon, trcrn, strocnxT, strocnyT,
-                    forcing: Forcing, *, sst, frzmlt, tmask, salinz,
+                    forcing: Forcing, *, sst, frzmlt, tmask, ULAT, salinz,
                     cfg: ModelConfig, tr: TracerRegistry, hin_max):
-    """Pre-dynamics column physics: radiation, ABL + vertical thermo and
-    the step_therm2 ITD evolution (ice_step_mod.F90 step_therm1/2).
-    Returns (state dict, diagnostics dict, scalars dict)."""
+    """Pre-dynamics column physics: radiation, ABL + vertical thermo, the
+    age/FY/pond tracers and the step_therm2 ITD evolution
+    (ice_step_mod.F90 step_therm1/2). Returns (state dict, diagnostics
+    dict, scalars dict)."""
     dt = cfg.time.dt
     nilyr, nslyr = cfg.nilyr, cfg.nslyr
+    tcfg = cfg.tracers
+    mushy_on = cfg.thermo.ktherm == 2
     aicen0, vicen0 = aicen, vicen
     Tsfcn = trcrn[:, tr.nt_Tsfc]
     zqin = _layers(trcrn, tr.nt_qice, nilyr)
@@ -132,19 +206,8 @@ def _column_physics(aicen, vicen, vsnon, trcrn, strocnxT, strocnyT,
     Tf = forcing.Tf
 
     # radiation, all categories at once
-    sw = cfg.shortwave
-    alb, absr = shortwave_ccsm3(
-        aicen, vicen, vsnon, Tsfcn, forcing.swvdr, forcing.swvdf,
-        forcing.swidr, forcing.swidf, nilyr=nilyr,
-        albedo_type=sw.albedo_type, albicev=sw.albicev, albicei=sw.albicei,
-        albsnowv=sw.albsnowv, albsnowi=sw.albsnowi, ahmax=sw.ahmax,
-        heat_capacity=True)
-    Sswabsn = torch.zeros((nslyr,) + tuple(aicen.shape), dtype=aicen.dtype,
-                          device=aicen.device)
-    hs_r = torch.where(aicen > ct.puny,
-                       vsnon / torch.clamp(aicen, min=ct.puny), 0.0)
-    snowfracn = torch.where(aicen > ct.puny, hs_r / (hs_r + ct.snowpatch),
-                            0.0)
+    alb, absr, Sswabsn, albpndn, snowfracn = _step_radiation(
+        aicen, vicen, vsnon, trcrn, forcing, cfg, tr)
 
     # bottom flux & lateral melt potential
     qicen_tot = trcrn[:, tr.nt_qice:tr.nt_qice + nilyr].sum(1) * vicen \
@@ -167,13 +230,19 @@ def _column_physics(aicen, vicen, vsnon, trcrn, strocnxT, strocnyT,
             vatm=forcing.vatm, wind=forcing.wind, zlvl=forcing.zlvl,
             Qa=forcing.Qa, rhoa=forcing.rhoa,
             natmiter=cfg.forcing.natmiter)
+    pond = {}
+    if tcfg.tr_pond and mushy_on:
+        apnd_all = trcrn[:, tr.nt_apnd]
+        if tcfg.tr_pond_lvl:
+            apnd_all = apnd_all * trcrn[:, tr.nt_alvl]
+        pond = dict(hpond=trcrn[:, tr.nt_hpnd], apond=apnd_all)
     tres = vertical.thermo_vertical(
         dt, cfg, aicen=aicen, vicen=vicen, vsnon=vsnon, Tsfcn=Tsfcn,
         zqin=zqin, zqsn=zqsn, zSin=zSin, flw=forcing.flw, potT=forcing.potT,
         Qa=forcing.Qa, rhoa=forcing.rhoa, fsnow=forcing.fsnow,
         shcoef=abl.shcoef, lhcoef=abl.lhcoef, fswsfc=absr.fswsfc,
         fswint=absr.fswint, Sswabs=Sswabsn, Iswabs=absr.Iswabs, fbot=fbot,
-        Tbot=Tbot)
+        Tbot=Tbot, sss=forcing.sss, **pond)
 
     # merge per-category fluxes with pre-thermo areas (merge_fluxes)
     w = aicen
@@ -190,7 +259,7 @@ def _column_physics(aicen, vicen, vsnon, trcrn, strocnxT, strocnyT,
         snoice=mrg(tres.snoice), fsurf=mrg(tres.fsurfn),
         fcondtop=mrg(tres.fcondtopn), Tref=mrg(abl.Tref),
         Qref=mrg(abl.Qref), Uref=mrg(abl.Uref), albice=mrg(alb.albin),
-        albsno=mrg(alb.albsn), fswint=mrg(absr.fswint),
+        albsno=mrg(alb.albsn), albpnd=mrg(albpndn), fswint=mrg(absr.fswint),
         dsnow=mrg(tres.dsnow), aice_pre=agg0.aice, vice_pre=agg0.vice,
         alvdrn=alb.alvdrn, alvdfn=alb.alvdfn, alidrn=alb.alidrn,
         alidfn=alb.alidfn, snowfracn=snowfracn,
@@ -204,6 +273,39 @@ def _column_physics(aicen, vicen, vsnon, trcrn, strocnxT, strocnyT,
     trcrn[:, tr.nt_Tsfc] = tres.Tsf
     trcrn[:, tr.nt_qice:tr.nt_qice + nilyr] = tres.zqin.movedim(0, 1)
     trcrn[:, tr.nt_qsno:tr.nt_qsno + nslyr] = tres.zqsn.movedim(0, 1)
+    if mushy_on:
+        trcrn[:, tr.nt_sice:tr.nt_sice + nilyr] = tres.zSin.movedim(0, 1)
+
+    # optional tracers (step_therm1 tail)
+    if tcfg.tr_iage:
+        trcrn[:, tr.nt_iage] = simple.increment_age(
+            dt, trcrn[:, tr.nt_iage], aicen)
+    if tcfg.tr_FY:
+        trcrn[:, tr.nt_FY] = simple.update_FYarea(
+            dt, forcing.yday, trcrn[:, tr.nt_FY], aicen, (ULAT >= 0.0)[None])
+    fpond = torch.zeros_like(aice)      # pond water volume change (m)
+    if tcfg.tr_pond:
+        def _pond_volume(tc, an):
+            v = tc[:, tr.nt_apnd] * tc[:, tr.nt_hpnd] * an
+            if tcfg.tr_pond_lvl:
+                v = v * tc[:, tr.nt_alvl]
+            return v.sum(0)
+        fpond = -_pond_volume(trcrn, aicen)
+        rfrac = tcfg.rfracmin + (tcfg.rfracmax - tcfg.rfracmin) * aice
+        pr = ponds.compute_ponds_lvl(
+            dt, aicen=aicen, vicen=vicen, vsnon=vsnon, Tsfcn=tres.Tsf,
+            alvl=trcrn[:, tr.nt_alvl], apnd=trcrn[:, tr.nt_apnd],
+            hpnd=trcrn[:, tr.nt_hpnd], ipnd=trcrn[:, tr.nt_ipnd],
+            meltt=tres.meltt, melts=tres.melts, frain=forcing.frain,
+            rfrac=rfrac[None], Tair=forcing.Tair, fsurfn=tres.fsurfn,
+            dhs=tres.dsnow, qicen=tres.zqin, sicen=zSin,
+            pndaspect=tcfg.pndaspect, frzpnd=tcfg.frzpnd,
+            dpscale=tcfg.dpscale, ktherm=cfg.thermo.ktherm)
+        trcrn[:, tr.nt_apnd] = pr.apnd
+        trcrn[:, tr.nt_hpnd] = pr.hpnd
+        trcrn[:, tr.nt_ipnd] = pr.ipnd
+        fpond = fpond + _pond_volume(trcrn, aicen)
+    dg["fpond"] = fpond
 
     # step_therm2: ITD evolution
     if cfg.kitd == 1:
@@ -215,7 +317,12 @@ def _column_physics(aicen, vicen, vsnon, trcrn, strocnxT, strocnyT,
     nir = itd.add_new_ice(dt, tr, hin_max, nilyr, aicen=aicen, vicen=vicen,
                           trcrn=trcrn, aice=agg1.aice, aice0=agg1.aice0,
                           frzmlt=frzmlt, Tf=Tf, salinz=salinz,
+                          tr_FY=tcfg.tr_FY, tr_lvl=tcfg.tr_lvl,
+                          tr_iage=tcfg.tr_iage,
                           update_ocn_f=cfg.forcing.update_ocn_f,
+                          ktherm=cfg.thermo.ktherm, sss=forcing.sss,
+                          phi_init=cfg.thermo.phi_init,
+                          dSin0_frazil=cfg.thermo.dSin0_frazil,
                           hfrazilmin=cfg.thermo.hfrazilmin)
     aicen, vicen, trcrn = nir.aicen, nir.vicen, nir.trcrn
     dg["frazil"] = nir.frazil
@@ -266,7 +373,7 @@ def step(state: State, forcing: Forcing, grid: Grid, cfg: ModelConfig,
     stout, dg, sc = _column_physics(
         state.aicen, state.vicen, state.vsnon, state.trcrn, state.strocnxT,
         state.strocnyT, forcing, sst=sst, frzmlt=frzmlt, tmask=tmask,
-        salinz=salinz, cfg=cfg, tr=tr, hin_max=hin_max)
+        ULAT=grid.ULAT, salinz=salinz, cfg=cfg, tr=tr, hin_max=hin_max)
     aicen, vicen, vsnon = stout["aicen"], stout["vicen"], stout["vsnon"]
     trcrn = stout["trcrn"]
     fresh, fsalt, fhocn = dg["fresh"], dg["fsalt"], dg["fhocn"]
@@ -284,10 +391,19 @@ def step(state: State, forcing: Forcing, grid: Grid, cfg: ModelConfig,
     strcorx_d, strcory_d = z2(), z2()
     niter_ridge = 0
 
+    def _mean_age(an, tc):
+        if not cfg.tracers.tr_iage:
+            return torch.zeros((ny, nx), **kw)
+        return (an * tc[:, tr.nt_iage]).sum(0) \
+            / torch.clamp(an.sum(0), min=ct.puny)
+
+    # thermodynamic tendencies (ice_step_mod.F90 step_therm2 tail)
     aice_mid = aicen.sum(0)
     vice_mid = vicen.sum(0)
+    age_mid = _mean_age(aicen, trcrn)
     daidtt = (aice_mid - dg["aice_pre"]) / dt
     dvidtt = (vice_mid - dg["vice_pre"]) / dt
+    dagedtt = (age_mid - _mean_age(state.aicen, state.trcrn)) / dt
     if cfg.dyn.kdyn >= 1:
         dt_dyn = dt / cfg.time.ndtd
         if cfg.dyn.revised_evp:
@@ -366,6 +482,7 @@ def step(state: State, forcing: Forcing, grid: Grid, cfg: ModelConfig,
     aggf = itd.aggregate(tr, aicen, vicen, vsnon, trcrn)
     daidtd = (aggf.aice - aice_mid) / dt
     dvidtd = (aggf.vice - vice_mid) / dt
+    dagedtd = (_mean_age(aicen, trcrn) - age_mid) / dt
 
     # melt/freeze onset dates, reset on the first step of the year
     new_year = forcing.yday <= dt / 86400.0 + 1.0e-6
@@ -375,6 +492,10 @@ def step(state: State, forcing: Forcing, grid: Grid, cfg: ModelConfig,
                             forcing.yday, mlt_onset)
     frz_onset = torch.where((dg["frazil"] + dg["congel"] > 0.0)
                             & (frz_onset <= 0.0), forcing.yday, frz_onset)
+    # meltwater retained in ponds does not reach the ocean
+    # (CICE_RunMod.F90:384-387 coupling_prep, l_mpond_fresh)
+    if cfg.forcing.l_mpond_fresh and cfg.tracers.tr_pond:
+        fresh = fresh - dg["fpond"] * ct.rhofresh / dt
     if cfg.forcing.oceanmixed_ice:
         ml = ocean.ocean_mixed_layer(
             dt, sst=sst, Tf=forcing.Tf, hmix=forcing.hmix, qdp=forcing.qdp,
@@ -440,7 +561,7 @@ def step(state: State, forcing: Forcing, grid: Grid, cfg: ModelConfig,
         alvdr=alvdr, alvdf=alvdf, alidr=alidr, alidf=alidf,
         Tsfc=aggf.trcr[tr.nt_Tsfc],
         therm_converged=sc["therm_converged"], ferr_max=sc["ferr_max"],
-        fsurfn_ai=dg["fsurfn_ai"], flatn_ai=dg["flatn_ai"],
+        fpond=dg["fpond"], fsurfn_ai=dg["fsurfn_ai"], flatn_ai=dg["flatn_ai"],
         fsensn_ai=dg["fsensn_ai"], fmelttn_ai=dg["fmelttn_ai"],
         snowfracn=dg["snowfracn"], fcondtopn_ai=dg["fcondtopn_ai"],
         fsurf=dg["fsurf"], fcondtop=dg["fcondtop"],
@@ -449,9 +570,10 @@ def step(state: State, forcing: Forcing, grid: Grid, cfg: ModelConfig,
         strintx=strintx_d, strinty=strinty_d,
         strtltx=strtltx_d, strtlty=strtlty_d,
         strcorx=strcorx_d, strcory=strcory_d,
-        albice=dg["albice"], albsno=dg["albsno"],
+        albice=dg["albice"], albsno=dg["albsno"], albpnd=dg["albpnd"],
         dsnow=dg["dsnow"], fswint=dg["fswint"],
         daidtt=daidtt, dvidtt=dvidtt, daidtd=daidtd, dvidtd=dvidtd,
+        dagedtt=dagedtt, dagedtd=dagedtd,
         opening=opening_d,
         niter_thermo=sc["niter_thermo"], niter_ridge=niter_ridge)
     return new_state, diag

@@ -1,16 +1,20 @@
 """Model grid: metrics, masks, staggering (PyTorch port).
 
-The NumPy builders ``_shift``, ``_tlatlon``, ``_finish_grid`` and
-``rectgrid`` are copies of ``cice5_tpu/grid.py`` (ice_grid.F90:1145-1303
-rectgrid, :1408-1533 metric derivation); they run once on the host in
-float64 NumPy, and ``Grid`` holds the results as tensors on the model's
-device. Axis 0 = j/latitude rows, axis 1 = i/longitude columns; the U
+The NumPy builders ``_shift``, ``_tlatlon``, ``_finish_grid``,
+``rectgrid`` and ``popgrid_np`` are copies of ``cice5_tpu/grid.py``
+(ice_grid.F90:1145-1303 rectgrid, :543-874 popgrid, :1408-1533 metric
+derivation, the tripole seam umask from the fold image); ``_gx1_kmt`` and
+``synth_gx1_grid`` are copies of ``bench.py``'s gx1 grid. They run once on
+the host in float64 NumPy, and ``Grid`` holds the results as tensors on
+the model's device. Axis 0 = j/latitude rows, axis 1 = i/longitude columns; the U
 point (i, j) is the NE corner of T cell (i, j):
 
     dxu(i,j) = 1/2 (HTN(i,j) + HTN(i+1,j))     dxt(i,j) = 1/2 (HTN(i,j) + HTN(i,j-1))
     dyu(i,j) = 1/2 (HTE(i,j) + HTE(i,j+1))     dyt(i,j) = 1/2 (HTE(i,j) + HTE(i-1,j))
 """
 from __future__ import annotations
+
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -224,12 +228,75 @@ def rectgrid(cfg: ModelConfig, land_mask: np.ndarray | None = None, *,
                         device)
 
 
+def popgrid_np(cfg: ModelConfig, ulat, ulon, htn, hte, angle, kmt, *,
+               device) -> Grid:
+    """Build a Grid from POP-style global arrays already on the host
+    (the reader side of ice_grid.F90:543-874 popgrid/popgrid_nc: ULAT/ULON
+    in radians, HTN/HTE in meters, ANGLE in radians, KMT levels)."""
+    hm = (np.asarray(kmt) >= 1).astype(np.float64)
+    # the reference clamps the file ANGLE into [-pi, pi] (:797-798)
+    angle = np.clip(np.asarray(angle, np.float64), -np.pi, np.pi)
+    return _finish_grid(cfg.grid, np.asarray(ulat), np.asarray(ulon),
+                        np.asarray(htn), np.asarray(hte), angle, hm,
+                        cfg.xp_dtype, device)
+
+
+REARTH = 6.37e6
+# the gx1 land mask (big-endian int32 KMT levels, 384x320) where the
+# repository carries it; it does not yet, so synth_gx1_grid uses polar
+# land bands instead
+GX1_KMT = Path(__file__).resolve().parents[1] / "input_templates" / "gx1" \
+    / "global_gx1.kmt"
+
+
+def _gx1_kmt():
+    if GX1_KMT.exists():
+        return np.fromfile(GX1_KMT, dtype=">i4").reshape(384, 320)
+    kmt = np.ones((384, 320), np.int32)   # fallback: polar land bands
+    kmt[:8] = 0
+    return kmt
+
+
+def synth_global_arrays(kmt):
+    """(ULAT, ULON, HTN, HTE, ANGLE, KMT) of bench.py's synthetic global
+    mesh on the shape of ``kmt``: latitudes uniform from 79S to 89N,
+    longitudes uniform and cyclic, zonal cell widths shrinking poleward
+    (clamped at 3 km); ULAT/ULON in radians, as popgrid_np takes them."""
+    ny, nx = kmt.shape
+    lat = np.linspace(-79.0, 89.0, ny)
+    dlat = lat[1] - lat[0]
+    ulat = np.broadcast_to(lat[:, None], (ny, nx)).copy()
+    ulon = np.broadcast_to(
+        np.linspace(0.0, 2 * np.pi, nx, endpoint=False)[None, :],
+        (ny, nx)).copy()
+    htn = np.maximum(2 * np.pi * REARTH * np.cos(np.deg2rad(ulat)) / nx,
+                     3.0e3)
+    hte = np.full((ny, nx), REARTH * np.deg2rad(dlat))
+    return np.deg2rad(ulat), ulon, htn, hte, np.zeros((ny, nx)), kmt
+
+
+def synth_gx1_grid(cfg: ModelConfig, *, device) -> Grid:
+    """The synthetic global mesh carrying the gx1 land mask (bench.py
+    synth_gx1_grid); other shapes than 384x320 resample the KMT
+    nearest-neighbour. The seam is the configuration's north boundary
+    (tripole for gx1_parity_config)."""
+    ny, nx = cfg.grid.ny, cfg.grid.nx
+    kmt = _gx1_kmt()
+    if kmt.shape != (ny, nx):
+        jj = (np.arange(ny) * kmt.shape[0] // ny)
+        ii = (np.arange(nx) * kmt.shape[1] // nx)
+        kmt = kmt[jj][:, ii]
+    return popgrid_np(cfg, *synth_global_arrays(kmt), device=device)
+
+
 def make_grid(cfg: ModelConfig, *, device, **kw) -> Grid:
-    """Rectangular grids only in this slice of the port; POP and
-    tripole grids come with the gx1-parity slice."""
+    """Rectangular grids; a POP/tripole grid is built by the caller from
+    its arrays (``popgrid_np``, ``synth_gx1_grid``): reading POP grid
+    files comes with a later slice."""
     t = cfg.grid.grid_type
     if t in ("rectangular", "column"):
         return rectgrid(cfg, device=device, **kw)
     raise NotImplementedError(
-        f"grid_type={t!r}: the port builds rectangular grids only; POP "
-        "and tripole grids come with the gx1-parity slice")
+        f"grid_type={t!r}: reading POP grid files comes with a later slice "
+        "of the port; pass Model(cfg, grid=popgrid_np(...)) or "
+        "synth_gx1_grid(cfg, device=...)")

@@ -259,17 +259,45 @@ def _region(field_2d, topo, loc=FieldLoc.CENTER, kind=FieldType.SCALAR):
     return extend(field_2d, topo, loc=loc, kind=kind)[..., 1:, 1:]
 
 
+# one-sided metric coefficients map onto their partners under the
+# 180-degree tripole fold: ghost cyp = -cym(image) etc. (definitions
+# ice_grid.F90:356-367)
+_METRIC_FOLD = {"cxp": ("cxm", -1.0), "cxm": ("cxp", -1.0),
+                "cyp": ("cym", -1.0), "cym": ("cyp", -1.0),
+                "dxhy": ("dxhy", -1.0), "dyhx": ("dyhx", -1.0)}
+
+
 def _region_metrics(grid, topo, names):
-    """Ghost-extended region metrics. (On the tripole fold the one-sided
-    coefficients map onto their partners; that comes with the fold.)"""
-    return {k: _region(getattr(grid, k), topo) for k in names}
+    """Ghost-extended region metrics, with the fold-partner ghosts of the
+    one-sided coefficients on a tripole seam."""
+    out = {}
+    tri = topo.ns in ("tripole", "tripoleT")
+    for k in names:
+        f = getattr(grid, k)
+        if tri and k in _METRIC_FOLD:
+            pname, sgn = _METRIC_FOLD[k]
+            out[k] = extend(f, topo, fold_partner=getattr(grid, pname),
+                            fold_sign=sgn)[..., 1:, 1:]
+        else:
+            out[k] = _region(f, topo)
+    return out
+
+
+# the tripole fold swaps the stress corner partners NE<->SW, NW<->SE of
+# each of (stressp, stressm, stress12) (ice_dyn_evp.F90:416-481
+# ice_HaloUpdate_stress pairs)
+_TRIPOLE_STRESS_PERM = (2, 3, 0, 1, 6, 7, 4, 5, 10, 11, 8, 9)
 
 
 def _extend_stress(stress0, topo):
-    """Seed the (12, ny+1, nx+1)-region ghost ring of the stress state
-    (the partner-corner fold of ice_HaloUpdate_stress comes with the
-    tripole halo)."""
-    return extend(stress0, topo)[:, 1:, 1:]
+    """Seed the (12, ny+1, nx+1)-region ghost ring of the stress state; on
+    a tripole seam the north ghost row holds the folded partner-corner
+    component (ice_HaloUpdate_stress, mpi/ice_boundary.F90:5564)."""
+    E1 = extend(stress0, topo)
+    if topo.ns != "tripole":
+        return E1[:, 1:, 1:]
+    E2 = extend(stress0[list(_TRIPOLE_STRESS_PERM)], topo)
+    return torch.cat([E1[:, :-1, :], E2[:, -1:, :]], dim=1)[:, 1:, 1:]
 
 
 def subcycle_sweep(p: dyn.EVPParams, ndte: int, topo: Topology, *, uvel,
@@ -317,10 +345,10 @@ def evp_sweep(p: dyn.EVPParams, ndte: int, topo: Topology, *, uvel, vvel,
             aiu=aiu, uocn=uocn, vocn=vocn, waterx=waterx, watery=watery,
             forcex=forcex, forcey=forcey, umassdti=umassdti, fm=fm,
             uarear=uarear, uvel_init=uvel_init, vvel_init=vvel_init, Cw=Cw)
-    if topo.ew not in ("cyclic", "open", "closed") or \
-            topo.ns not in ("cyclic", "open", "closed"):
+    if topo.ns == "tripoleT":
         raise NotImplementedError(
-            "evp_sweep: the tripole fold comes with the gx1-parity slice")
+            "evp_sweep: the T-fold (tripoleT) seam in the CUDA kernel comes "
+            "with a later slice of the port")
     dtype = uvel.dtype
     planes = dict(icem_u=icem_u.to(dtype), aiu=aiu, uocn=uocn, vocn=vocn,
                   waterx=waterx, watery=watery, forcex=forcex,
@@ -332,6 +360,7 @@ def evp_sweep(p: dyn.EVPParams, ndte: int, topo: Topology, *, uvel, vvel,
         uin = torch.cat([uin, Cw.to(dtype)[None]])
     out = kernels.evp_sweep(
         ndte=ndte, cyc_x=topo.ew == "cyclic", cyc_y=topo.ns == "cyclic",
+        fold=topo.ns == "tripole",
         u=uvel.contiguous(), v=vvel.contiguous(),
         stress=stressR.contiguous(), maskR=maskR.to(dtype).contiguous(),
         strengthR=strengthR.contiguous(),

@@ -1,5 +1,6 @@
 """Ice thickness distribution (ITD) machinery (PyTorch port of the parts of
-``cice5_tpu/models/thermo/itd.py`` the BL99 configuration runs).
+``cice5_tpu/models/thermo/itd.py`` the BL99 and gx1-parity configurations
+run).
 
 ice_itd.F90: category bounds :83-237, aggregate :246, rebin :516,
 shift_ice :815, compute_tracers :1359, cleanup_itd :1514, zap_small_areas
@@ -10,8 +11,10 @@ boundaries stays a Python loop, each step vectorized over the grid.
 
 Tracer conservation uses the dependency weights: every tracer slot has a
 weight in {aicen, vicen, vsnon, weight(parent)*trcrn[parent]} and the
-conserved amount is weight*trcrn. The aerosol, pond, brine and BGC
-bookkeeping of the JAX functions belongs to options of later slices.
+conserved amount is weight*trcrn, so the iage, FY, lvl and level-pond
+tracers ride through the shifts, rebinning and zapping as they are. The
+topo-pond, aerosol, brine and BGC bookkeeping of the JAX functions belongs
+to options of later slices.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 
 from cice5_tpu_torch import constants as ct
+from cice5_tpu_torch.models.thermo import mushy
 from cice5_tpu_torch.state import (DEP_AICE, DEP_TRCR, DEP_VICE, DEP_VSNO,
                                    TracerRegistry)
 from cice5_tpu_torch.utils import with_index
@@ -396,18 +400,18 @@ def linear_itd(tr: TracerRegistry, hin_max, nslyr, *, aicen_init,
         donorL.append(dc)
         daiceL.append(da)
         dviceL.append(dv)
-    donor = torch.stack(donorL)
-    daice = torch.stack(daiceL)
-    dvice = torch.stack(dviceL)
-
-    # keep qsno negative definite across the weighted shift (:655-690)
-    qs0, qs1 = tr.nt_qsno, tr.nt_qsno + nslyr
-    trcrn = trcrn.clone()
-    trcrn[:, qs0:qs1] = trcrn[:, qs0:qs1] + ct.rhos * ct.Lfresh
-    aicen, vicen, vsnon, trcrn = shift_ice(
-        tr, aicen, vicen, vsnon, trcrn, donor, daice, dvice)
-    trcrn = trcrn.clone()
-    trcrn[:, qs0:qs1] = trcrn[:, qs0:qs1] + (-ct.rhos * ct.Lfresh)
+    # keep qsno negative definite across the weighted shift (:655-690).
+    # One category has no boundary to shift across (the JAX function fails
+    # there: it stacks an empty list).
+    if ncat > 1:
+        qs0, qs1 = tr.nt_qsno, tr.nt_qsno + nslyr
+        trcrn = trcrn.clone()
+        trcrn[:, qs0:qs1] = trcrn[:, qs0:qs1] + ct.rhos * ct.Lfresh
+        aicen, vicen, vsnon, trcrn = shift_ice(
+            tr, aicen, vicen, vsnon, trcrn, torch.stack(donorL),
+            torch.stack(daiceL), torch.stack(dviceL))
+        trcrn = trcrn.clone()
+        trcrn[:, qs0:qs1] = trcrn[:, qs0:qs1] + (-ct.rhos * ct.Lfresh)
 
     # enforce the cat-1 minimum thickness (:697-715)
     h1 = safe(vicen[0], aicen[0])
@@ -458,26 +462,51 @@ class NewIce(NamedTuple):
 
 def add_new_ice(dt, tr: TracerRegistry, hin_max, nilyr, *, aicen, vicen,
                 trcrn, aice, aice0, frzmlt, Tf, salinz,
-                update_ocn_f=False, hfrazilmin=ct.hfrazilmin) -> NewIce:
-    """Frazil formation (ice_therm_itd.F90:1239-1860), BL99 branch: fresh
-    latent-heat ice with the salinz profile, in category 1, or spread
-    over all categories when open water is scarce."""
+                tr_FY=False, tr_lvl=False, tr_iage=False,
+                update_ocn_f=False, ktherm=1, sss=None, phi_init=0.75,
+                dSin0_frazil=3.0, hfrazilmin=ct.hfrazilmin) -> NewIce:
+    """Frazil formation (ice_therm_itd.F90:1239-1860): new ice in category
+    1, or spread over all categories when open water is scarce.
+
+    ktherm=2 frazil (:1460-1492) forms as mush at bulk salinity
+    Si0 = sss - dSin0_frazil (a quadratic taper for fresh water) with
+    liquid fraction phi_init and the mush enthalpy; otherwise it is fresh
+    latent-heat ice with the salinz profile. The iage, FY and lvl tracers
+    of the grown ice are mixed in (:1612-1800)."""
     ncat = aicen.shape[0]
     B = aicen.shape[1:]
     hi0max = float(hin_max[1]) * 0.9 if ncat > 1 else ct.bignum
-    salinz = torch.as_tensor(np.array(salinz), dtype=aicen.dtype,
-                             device=aicen.device)
     nb = (1,) * len(B)
 
-    qi0new = -ct.rhoi * ct.Lfresh
-    salz_hs = salinz.reshape((1, nilyr) + nb)
-    salz_c1 = salinz.reshape((nilyr,) + nb)
+    if ktherm == 2:
+        if sss is None:
+            sss = -Tf / ct.depressT
+        Si0new = torch.where(sss > 2.0 * dSin0_frazil, sss - dSin0_frazil,
+                             sss ** 2 / (4.0 * dSin0_frazil))
+        Ti0 = torch.clamp(mushy.liquidus_temperature(Si0new / phi_init),
+                          max=-0.1)
+        qi0new = mushy.enthalpy_mush(Ti0, Si0new)     # (B), < 0
+        salz_hs, salz_c1 = Si0new[None, None], Si0new[None]
+        qi0_hs, qi0_c1 = qi0new[None, None], qi0new[None]
+    else:
+        salinz = torch.as_tensor(np.array(salinz), dtype=aicen.dtype,
+                                 device=aicen.device)
+        qi0new = -ct.rhoi * ct.Lfresh
+        salz_hs = salinz.reshape((1, nilyr) + nb)
+        salz_c1 = salinz.reshape((nilyr,) + nb)
+        qi0_hs = qi0_c1 = qi0new
     fnew = torch.clamp(frzmlt, min=0.0)
     vi0new = -fnew * dt / qi0new
     frazil = vi0new
 
+    # frazil fresh/salt fluxes to the ocean (:1524-1546)
     if update_ocn_f:
         dfresh = -ct.rhoi * vi0new / dt
+        dfsalt = ct.ice_ref_salinity * 1e-3 * dfresh
+    elif ktherm == 2:
+        # the mushy frazil-enthalpy difference goes back to the ocean
+        vi0tmp = fnew * dt / (ct.rhoi * ct.Lfresh)
+        dfresh = -ct.rhoi * (vi0new - vi0tmp) / dt
         dfsalt = ct.ice_ref_salinity * 1e-3 * dfresh
     else:
         dfresh = torch.zeros_like(vi0new)
@@ -518,9 +547,20 @@ def add_new_ice(dt, tr: TracerRegistry, hin_max, nilyr, *, aicen, vicen,
     qblk = trcrn[:, q0:q0 + nilyr]
     sblk = trcrn[:, s0:s0 + nilyr]
     trcrn = trcrn.clone()
-    trcrn[:, q0:q0 + nilyr] = torch.where(hsm, qblk * ro + qi0new * rn, qblk)
+    trcrn[:, q0:q0 + nilyr] = torch.where(hsm, qblk * ro + qi0_hs * rn, qblk)
     trcrn[:, s0:s0 + nilyr] = torch.where(hsm, sblk * ro + salz_hs * rn,
                                           sblk)
+    if tr_iage:
+        ia = trcrn[:, tr.nt_iage]
+        trcrn[:, tr.nt_iage] = torch.where(
+            has_surp[None] & (vtmp > ct.puny),
+            (ia * vicen + dt * vsurp) / torch.clamp(vtmp, min=ct.puny), ia)
+    if tr_lvl:
+        vl = trcrn[:, tr.nt_vlvl]
+        trcrn[:, tr.nt_vlvl] = torch.where(
+            has_surp[None] & (vicen > ct.puny),
+            (vl * vicen + trcrn[:, tr.nt_alvl] * vsurp)
+            / torch.clamp(vtmp, min=ct.puny), vl)
     vicen = torch.where(has_surp[None], vtmp, vicen)
 
     # add vi0n/ai0new to category 1 (:1697-1800)
@@ -532,16 +572,31 @@ def add_new_ice(dt, tr: TracerRegistry, hin_max, nilyr, *, aicen, vicen,
     aicen = with_index(aicen, 0, a1new)
     vicen = with_index(vicen, 0, v1new)
 
-    t1 = trcrn[0, tr.nt_Tsfc]
-    mixA = torch.where(add1, (t1 * area1 + Tf * ai0new)
-                       / torch.clamp(a1new, min=ct.puny), t1)
-    trcrn[0, tr.nt_Tsfc] = torch.clamp(mixA, max=0.0)
+    def mixA(val, newval):   # area-weighted mix into category 1
+        return torch.where(add1, (val * area1 + newval * ai0new)
+                           / torch.clamp(a1new, min=ct.puny), val)
+
+    def mixV(val, newval):   # volume-weighted mix into category 1
+        return torch.where(add1 & (v1new > ct.puny),
+                           (val * vice1 + newval * vi0n)
+                           / torch.clamp(v1new, min=ct.puny), val)
+
+    trcrn[0, tr.nt_Tsfc] = torch.clamp(mixA(trcrn[0, tr.nt_Tsfc], Tf),
+                                       max=0.0)
+    if tr_FY:
+        trcrn[0, tr.nt_FY] = torch.clamp(mixA(trcrn[0, tr.nt_FY], 1.0),
+                                         max=1.0)
+    if tr_iage:
+        trcrn[0, tr.nt_iage] = mixV(trcrn[0, tr.nt_iage], dt)
+    if tr_lvl:
+        trcrn[0, tr.nt_alvl] = mixA(trcrn[0, tr.nt_alvl], 1.0)
+        trcrn[0, tr.nt_vlvl] = mixV(trcrn[0, tr.nt_vlvl], 1.0)
     mixm = (add1 & (v1new > ct.puny))[None]
     v1s = torch.clamp(v1new, min=ct.puny)
     qb = trcrn[0, q0:q0 + nilyr].clone()
     sb = trcrn[0, s0:s0 + nilyr].clone()
     trcrn[0, q0:q0 + nilyr] = torch.where(
-        mixm, (qb * vice1 + qi0new * vi0n) / v1s, qb)
+        mixm, (qb * vice1 + qi0_c1 * vi0n) / v1s, qb)
     trcrn[0, s0:s0 + nilyr] = torch.where(
         mixm, (sb * vice1 + salz_c1 * vi0n) / v1s, sb)
     return NewIce(aicen=aicen, vicen=vicen, trcrn=trcrn, frazil=frazil,

@@ -1,5 +1,6 @@
 """Vertical thermodynamics driver: growth, melt and state update (PyTorch
-port of the BL99 branches of ``cice5_tpu/models/thermo/vertical.py``).
+port of the BL99 (ktherm=1) and mushy (ktherm=2) branches of
+``cice5_tpu/models/thermo/vertical.py``).
 
 ice_therm_vertical.F90: thermo_vertical :73, frzmlt_bottom_lateral :611,
 thickness_changes :1283, freeboard :2031, adjust_enthalpy :2177,
@@ -15,7 +16,7 @@ from typing import NamedTuple
 import torch
 
 from cice5_tpu_torch import constants as ct
-from cice5_tpu_torch.models.thermo import bl99, shared
+from cice5_tpu_torch.models.thermo import bl99, mushy, shared
 from cice5_tpu_torch.utils import with_index
 
 # lateral melt parameters (ice_therm_vertical.F90:1352-1360)
@@ -84,6 +85,7 @@ class ThicknessResult(NamedTuple):
     hslyr: torch.Tensor
     zqin: torch.Tensor
     zqsn: torch.Tensor
+    zSin: torch.Tensor
     efinal: torch.Tensor
     fhocnn: torch.Tensor
     evapn: torch.Tensor
@@ -98,15 +100,24 @@ class ThicknessResult(NamedTuple):
 
 def thickness_changes(dt, *, nilyr, nslyr, l_brine, hilyr, hslyr, zqin,
                       zqsn, zSin, fbot, Tbot, flatn, fsurfn, fcondtopn,
-                      fcondbot, fsnow) -> ThicknessResult:
+                      fcondbot, fsnow, ktherm=1, sss=None,
+                      phi_i_mushy=0.85) -> ThicknessResult:
     """Growth/melt at all surfaces + snowfall + freeboard + repartition
-    (ice_therm_vertical.F90:1283-2028), BL99 branch."""
+    (ice_therm_vertical.F90:1283-2028), BL99 (ktherm=1) or mushy
+    (ktherm=2: melting enthalpy of the salty ice, prognostic salinity,
+    freeboard handled by the mushy solver's flood_ice)."""
+    mushy_on = ktherm == 2
     B = tuple(hilyr.shape)
     dzi = torch.broadcast_to(hilyr, (nilyr,) + B).clone()
     dzs = torch.broadcast_to(hslyr, (nslyr,) + B).clone()
-    qm = zqin
     zero = torch.zeros(B, dtype=zqin.dtype, device=zqin.device)
     meltt = melts = meltb = congel = snoice = evapn = zero
+    emlt_atm = emlt_ocn = zero
+    if mushy_on:
+        qmlt = mushy.enthalpy_of_melting(zSin)
+        qm = zqin - qmlt
+    else:
+        qm = zqin
 
     # fresh-ice overshoot removal (:1467-1502)
     if not l_brine:
@@ -137,29 +148,61 @@ def thickness_changes(dt, *, nilyr, nslyr, l_brine, hilyr, hslyr, zqin,
     dzs = with_index(dzs, 0, dzs[0] + dhs_c)
     dzi = with_index(dzi, 0, dzi[0] + dhi_c)
     evapn = evapn + dhs_c * ct.rhos + dhi_c * ct.rhoi
+    if mushy_on:
+        emlt_atm = emlt_atm - qmlt[0] * dhi_c
 
     # bottom growth (:1552-1624)
-    Tmlts_b = -zSin[nilyr - 1] * ct.depressT
-    if l_brine:
-        Tb = torch.clamp(Tbot, max=-ct.puny)
-        qbot = -ct.rhoi * (ct.cp_ice * (Tmlts_b - Tb)
-                           + ct.Lfresh * (1.0 - Tmlts_b / Tb)
-                           - ct.cp_ocn * Tmlts_b)
-        qbot = torch.clamp(qbot, max=QBOTMAX)
+    if mushy_on:
+        qbotm = mushy.enthalpy_mush(Tbot, sss)
+        qbotp = -ct.Lfresh * ct.rhoi * (1.0 - phi_i_mushy)
+        dhi_g = ebot_gro / qbotp                  # > 0
+        hqtot = dzi[nilyr - 1] * zqin[nilyr - 1] + dhi_g * qbotm
+        hstot_s = dzi[nilyr - 1] * zSin[nilyr - 1] + dhi_g * sss
+        emlt_ocn = emlt_ocn - (qbotm - qbotp) * dhi_g
+        dzi = with_index(dzi, nilyr - 1, dzi[nilyr - 1] + dhi_g)
+        ok = dzi[nilyr - 1] > ct.puny
+        den = torch.clamp(dzi[nilyr - 1], min=1e-30)
+        newq = torch.where(ok, hqtot / den, zqin[nilyr - 1])
+        newS = torch.where(ok, hstot_s / den, zSin[nilyr - 1])
+        zqin = with_index(zqin, nilyr - 1, newq)
+        zSin = with_index(zSin, nilyr - 1, newS)
+        qmlt = with_index(qmlt, nilyr - 1,
+                          torch.where(ok, mushy.enthalpy_of_melting(newS),
+                                      qmlt[nilyr - 1]))
+        qm = with_index(qm, nilyr - 1, newq - qmlt[nilyr - 1])
     else:
-        qbot = -ct.rhoi * (-ct.cp_ice * Tbot + ct.Lfresh)
-    dhi_g = ebot_gro / qbot                       # > 0
-    hqtot = dzi[nilyr - 1] * zqin[nilyr - 1] + dhi_g * qbot
-    dzi = with_index(dzi, nilyr - 1, dzi[nilyr - 1] + dhi_g)
-    newq = torch.where(dzi[nilyr - 1] > ct.puny,
-                       hqtot / torch.clamp(dzi[nilyr - 1], min=1e-30),
-                       zqin[nilyr - 1])
-    zqin = with_index(zqin, nilyr - 1, newq)
-    qm = with_index(qm, nilyr - 1, newq)
+        Tmlts_b = -zSin[nilyr - 1] * ct.depressT
+        if l_brine:
+            Tb = torch.clamp(Tbot, max=-ct.puny)
+            qbot = -ct.rhoi * (ct.cp_ice * (Tmlts_b - Tb)
+                               + ct.Lfresh * (1.0 - Tmlts_b / Tb)
+                               - ct.cp_ocn * Tmlts_b)
+            qbot = torch.clamp(qbot, max=QBOTMAX)
+        else:
+            qbot = -ct.rhoi * (-ct.cp_ice * Tbot + ct.Lfresh)
+        dhi_g = ebot_gro / qbot                   # > 0
+        hqtot = dzi[nilyr - 1] * zqin[nilyr - 1] + dhi_g * qbot
+        dzi = with_index(dzi, nilyr - 1, dzi[nilyr - 1] + dhi_g)
+        newq = torch.where(dzi[nilyr - 1] > ct.puny,
+                           hqtot / torch.clamp(dzi[nilyr - 1], min=1e-30),
+                           zqin[nilyr - 1])
+        zqin = with_index(zqin, nilyr - 1, newq)
+        qm = with_index(qm, nilyr - 1, newq)
     congel = congel + dhi_g
 
     # snow: sublimation + top melt, top-down (:1629-1690)
     for k in range(nslyr):
+        if mushy_on:
+            # remove internal snow melt (:1633-1645)
+            warm = zqsn[k] > -ct.rhos * ct.Lfresh
+            dhs_m = torch.where(
+                warm, torch.maximum(-dzs[k], -((zqsn[k] + ct.rhos * ct.Lfresh)
+                                               / (ct.rhos * ct.Lfresh))
+                                    * dzs[k]), 0.0)
+            dzs = with_index(dzs, k, dzs[k] + dhs_m)
+            zqsn = with_index(zqsn, k, torch.where(warm, -ct.rhos * ct.Lfresh,
+                                                   zqsn[k]))
+            melts = melts - dhs_m
         qsub = zqsn[k] - ct.rhos * ct.Lvap
         dhs = torch.maximum(-dzs[k], esub / qsub)
         dzs = with_index(dzs, k, dzs[k] + dhs)
@@ -186,6 +229,9 @@ def thickness_changes(dt, *, nilyr, nslyr, l_brine, hilyr, hslyr, zqin,
                            torch.maximum(-dzi[k], etop_mlt
                                          / torch.clamp(qmk, max=-1e-30)),
                            -dzi[k])
+        if mushy_on:
+            emlt_ocn = emlt_ocn - qmlt[k] * dhi \
+                - torch.maximum(zqin[k], qmlt[k]) * dhi2
         dzi = with_index(dzi, k, dzi[k] + dhi2)
         etop_mlt = torch.clamp(etop_mlt - dhi2 * qmk, min=0.0)
         meltt = meltt - dhi2
@@ -198,6 +244,8 @@ def thickness_changes(dt, *, nilyr, nslyr, l_brine, hilyr, hslyr, zqin,
                           torch.maximum(-dzi[k], ebot_mlt
                                         / torch.clamp(qmk, max=-1e-30)),
                           -dzi[k])
+        if mushy_on:
+            emlt_ocn = emlt_ocn - torch.maximum(zqin[k], qmlt[k]) * dhi
         dzi = with_index(dzi, k, dzi[k] + dhi)
         ebot_mlt = torch.clamp(ebot_mlt - dhi * qmk, min=0.0)
         meltb = meltb - dhi
@@ -227,29 +275,31 @@ def thickness_changes(dt, *, nilyr, nslyr, l_brine, hilyr, hslyr, zqin,
     hsn = dzs.sum(0)
     dsnow = hsn - hslyr * nslyr
 
-    # freeboard: snow-to-ice conversion (:2031-2174)
-    wk1 = hsn - hin * (ct.rhow - ct.rhoi) / ct.rhos
-    below = (wk1 > ct.puny) & (hsn > ct.puny)
-    dhsn_tot = torch.where(below, torch.minimum(wk1 * ct.rhoi / ct.rhow,
-                                                hsn), 0.0)
-    dhin = dhsn_tot * ct.rhos / ct.rhoi
-    active_fb = dhin > ct.puny
-    hqs = torch.zeros_like(hin)
-    dhsn_rem = dhsn_tot
-    for k in reversed(range(nslyr)):
-        dhs = torch.where(active_fb, torch.minimum(dhsn_rem, dzs[k]), 0.0)
-        hsn = hsn - dhs
-        dsnow = dsnow - dhs
-        dzs = with_index(dzs, k, dzs[k] + (-dhs))
-        dhsn_rem = torch.clamp(dhsn_rem - dhs, min=0.0)
-        hqs = hqs + dhs * zqsn[k]
-    wk2 = dzi[0] + dhin
-    hin = torch.where(active_fb, hin + dhin, hin)
-    zqin = with_index(zqin, 0, torch.where(
-        active_fb, (dzi[0] * zqin[0] + hqs) / torch.clamp(wk2, min=1e-30),
-        zqin[0]))
-    dzi = with_index(dzi, 0, torch.where(active_fb, wk2, dzi[0]))
-    snoice = snoice + torch.where(active_fb, dhin, 0.0)
+    # freeboard: snow-to-ice conversion (:2031-2174); the mushy solver
+    # floods the ice itself (flood_ice)
+    if not mushy_on:
+        wk1 = hsn - hin * (ct.rhow - ct.rhoi) / ct.rhos
+        below = (wk1 > ct.puny) & (hsn > ct.puny)
+        dhsn_tot = torch.where(below, torch.minimum(wk1 * ct.rhoi / ct.rhow,
+                                                    hsn), 0.0)
+        dhin = dhsn_tot * ct.rhos / ct.rhoi
+        active_fb = dhin > ct.puny
+        hqs = torch.zeros_like(hin)
+        dhsn_rem = dhsn_tot
+        for k in reversed(range(nslyr)):
+            dhs = torch.where(active_fb, torch.minimum(dhsn_rem, dzs[k]), 0.0)
+            hsn = hsn - dhs
+            dsnow = dsnow - dhs
+            dzs = with_index(dzs, k, dzs[k] + (-dhs))
+            dhsn_rem = torch.clamp(dhsn_rem - dhs, min=0.0)
+            hqs = hqs + dhs * zqsn[k]
+        wk2 = dzi[0] + dhin
+        hin = torch.where(active_fb, hin + dhin, hin)
+        zqin = with_index(zqin, 0, torch.where(
+            active_fb, (dzi[0] * zqin[0] + hqs) / torch.clamp(wk2, min=1e-30),
+            zqin[0]))
+        dzi = with_index(dzi, 0, torch.where(active_fb, wk2, dzi[0]))
+        snoice = snoice + torch.where(active_fb, dhin, 0.0)
 
     # repartition into equal layers (:1845-1957)
     hin = torch.clamp(hin, min=0.0)
@@ -261,21 +311,34 @@ def thickness_changes(dt, *, nilyr, nslyr, l_brine, hilyr, hslyr, zqin,
     zi2 = with_index(_interface_depths(
         torch.broadcast_to(hilyr_new, (nilyr,) + B)), nilyr, hin)
     zqin = adjust_enthalpy(zi1, zi2, hilyr_new, hin, zqin)
+    if mushy_on:
+        zSin = adjust_enthalpy(zi1, zi2, hilyr_new, hin, zSin)
     if nslyr > 1:
         zs1 = with_index(_interface_depths(torch.clamp(dzs, min=0.0)), nslyr,
-                    hsn)
+                         hsn)
         zs2 = with_index(_interface_depths(
             torch.broadcast_to(hslyr_new, (nslyr,) + B)), nslyr, hsn)
         zqsn = adjust_enthalpy(zs1, zs2, hslyr_new, hsn, zqsn)
+
+    if mushy_on:
+        # remove very thin snow layers (:1959-1974)
+        thin = hsn <= ct.puny
+        fhocnn = fhocnn + torch.where(
+            thin, zqsn.sum(0) * hsn / (nslyr * dt), 0.0)
+        zqsn = torch.where(thin[None], -ct.rhos * ct.Lfresh, zqsn)
+        hslyr_new = torch.where(thin, 0.0, hslyr_new)
 
     # final energy (:1977-2006)
     efinal = -evapn * ct.Lvap
     efinal = efinal + (hslyr_new[None] * zqsn).sum(0)
     efinal = efinal + (hilyr_new[None] * zqin).sum(0)
     evapn = evapn / dt
+    if mushy_on:
+        fhocnn = fhocnn + emlt_ocn / dt
+        efinal = efinal + emlt_atm
     return ThicknessResult(
         hin=hin, hsn=hsn, hilyr=hilyr_new, hslyr=hslyr_new, zqin=zqin,
-        zqsn=zqsn, efinal=efinal, fhocnn=fhocnn, evapn=evapn,
+        zqsn=zqsn, zSin=zSin, efinal=efinal, fhocnn=fhocnn, evapn=evapn,
         hsn_new=hsn_new, meltt=meltt, melts=melts, meltb=meltb,
         congel=congel, snoice=snoice, dsnow=dsnow)
 
@@ -311,11 +374,13 @@ class ThermoVerticalResult(NamedTuple):
 
 def thermo_vertical(dt, cfg, *, aicen, vicen, vsnon, Tsfcn, zqin, zqsn,
                     zSin, flw, potT, Qa, rhoa, fsnow, shcoef, lhcoef,
-                    fswsfc, fswint, Sswabs, Iswabs, fbot,
-                    Tbot) -> ThermoVerticalResult:
+                    fswsfc, fswint, Sswabs, Iswabs, fbot, Tbot, sss=None,
+                    hpond=None, apond=None) -> ThermoVerticalResult:
     """Full vertical thermo update (ice_therm_vertical.F90:73-536
-    thermo_vertical), BL99 solver, over batch *B with layer-first
-    zqin/zSin (nilyr, *B) and zqsn (nslyr, *B)."""
+    thermo_vertical) over batch *B with layer-first zqin/zSin (nilyr, *B)
+    and zqsn (nslyr, *B): the BL99 solver (ktherm=1) or the mushy solver
+    with prognostic salinity (ktherm=2, which also reads the sea-surface
+    salinity ``sss`` and the pond depth/fraction ``hpond``/``apond``)."""
     nilyr, nslyr = cfg.nilyr, cfg.nslyr
     th = cfg.thermo
     l_brine = th.saltmax > shared.min_salin and th.ktherm != 0
@@ -339,22 +404,54 @@ def thermo_vertical(dt, cfg, *, aicen, vicen, vsnon, Tsfcn, zqin, zqsn,
              + (hilyr[None] * zqin).sum(0))
     worki, works = hin, hsn
 
-    r = bl99.temperature_changes(
-        dt, nilyr=nilyr, nslyr=nslyr, conduct=th.conduct, ksno=th.ksno,
-        l_brine=l_brine, mask=mask, rhoa=rhoa, flw=flw, potT=potT, Qa=Qa,
-        shcoef=shcoef, lhcoef=lhcoef, fswsfc=fswsfc, fswint=fswint,
-        Sswabs=Sswabs, Iswabs=Iswabs, hilyr=hilyr, hslyr=hslyr,
-        zTin=zTin, zSin=zSin, zTsn=zTsn, Tsf=Tsf, Tbot=Tbot, einit=einit)
+    if th.ktherm == 2:
+        if hpond is None:
+            hpond = torch.zeros_like(Tsf)
+            apond = torch.zeros_like(Tsf)
+        r = mushy.temperature_changes_salinity(
+            dt, nilyr=nilyr, nslyr=nslyr, mask=mask, rhoa=rhoa, flw=flw,
+            potT=potT, Qa=Qa, shcoef=shcoef, lhcoef=lhcoef, fswsfc=fswsfc,
+            fswint=fswint, Sswabs=Sswabs, Iswabs=Iswabs, hilyr=hilyr,
+            hslyr=hslyr, zqin=zqin, zSin=zSin, zqsn=zqsn, hpond=hpond,
+            apond=apond, Tsf=Tsf, Tbot=Tbot, sss=sss,
+            dSdt_slow_mode=th.dSdt_slow_mode,
+            phi_c_slow_mode=th.phi_c_slow_mode,
+            a_rapid_mode=th.a_rapid_mode,
+            Rac_rapid_mode=th.Rac_rapid_mode,
+            aspect_rapid_mode=th.aspect_rapid_mode,
+            dtemp_errmax=th.dTemp_errmax, nit_max=th.nit_max_picard)
+        zSin_cur = r.zSin
+        hilyr, hslyr = r.hilyr, r.hslyr   # flood_ice may change them
+        snoice_m, fadvocn = r.snoice, r.fadvocn
+        r_fswsfc, r_fswint = fswsfc, fswint
+    else:
+        r = bl99.temperature_changes(
+            dt, nilyr=nilyr, nslyr=nslyr, conduct=th.conduct, ksno=th.ksno,
+            l_brine=l_brine, mask=mask, rhoa=rhoa, flw=flw, potT=potT, Qa=Qa,
+            shcoef=shcoef, lhcoef=lhcoef, fswsfc=fswsfc, fswint=fswint,
+            Sswabs=Sswabs, Iswabs=Iswabs, hilyr=hilyr, hslyr=hslyr,
+            zTin=zTin, zSin=zSin, zTsn=zTsn, Tsf=Tsf, Tbot=Tbot,
+            einit=einit)
+        zSin_cur = zSin
+        snoice_m = fadvocn = None
+        r_fswsfc, r_fswint = r.fswsfc, r.fswint
 
     tc = thickness_changes(
         dt, nilyr=nilyr, nslyr=nslyr, l_brine=l_brine, hilyr=hilyr,
-        hslyr=hslyr, zqin=r.zqin, zqsn=r.zqsn, zSin=zSin, fbot=fbot,
+        hslyr=hslyr, zqin=r.zqin, zqsn=r.zqsn, zSin=zSin_cur, fbot=fbot,
         Tbot=Tbot, flatn=r.flatn, fsurfn=r.fsurfn, fcondtopn=r.fcondtopn,
-        fcondbot=r.fcondbot, fsnow=fsnow)
+        fcondbot=r.fcondbot, fsnow=fsnow, ktherm=th.ktherm, sss=sss,
+        phi_i_mushy=th.phi_i_mushy)
 
     # conservation check (ice_therm_vertical.F90:2283-2400)
-    einp = (r.fsurfn - r.flatn + r.fswint - tc.fhocnn
-            - fsnow * ct.Lfresh) * dt
+    einp = (r.fsurfn - r.flatn + r_fswint - tc.fhocnn
+            - fsnow * ct.Lfresh)
+    fhocnn, snoice = tc.fhocnn, tc.snoice
+    if fadvocn is not None:
+        einp = einp - fadvocn
+        fhocnn = fhocnn + fadvocn
+        snoice = snoice + snoice_m
+    einp = einp * dt
     ferr = torch.where(mask, torch.abs(tc.efinal - einit - einp) / dt, 0.0)
 
     # water/salt fluxes (:447-476)
@@ -376,7 +473,7 @@ def thermo_vertical(dt, cfg, *, aicen, vicen, vsnon, Tsfcn, zqin, zqsn,
     zqsn_new = torch.where(mask[None],
                            torch.where(gone[None], 0.0, tc.zqsn), zqsn)
     zSin_new = torch.where(mask[None],
-                           torch.where(gone[None], 0.0, zSin), zSin)
+                           torch.where(gone[None], 0.0, tc.zSin), zSin)
 
     msk = lambda x: torch.where(mask, x, 0.0)
     return ThermoVerticalResult(
@@ -384,9 +481,9 @@ def thermo_vertical(dt, cfg, *, aicen, vicen, vsnon, Tsfcn, zqin, zqsn,
         zqin=zqin_new, zqsn=zqsn_new, zSin=zSin_new,
         fsensn=msk(r.fsensn), flatn=msk(r.flatn), flwoutn=msk(r.flwoutn),
         fsurfn=msk(r.fsurfn), fcondtopn=msk(r.fcondtopn),
-        fswsfc=msk(r.fswsfc),
+        fswsfc=msk(r_fswsfc),
         evapn=msk(tc.evapn), freshn=msk(freshn), fsaltn=msk(fsaltn),
-        fhocnn=msk(tc.fhocnn),
+        fhocnn=msk(fhocnn),
         meltt=msk(tc.meltt), melts=msk(tc.melts), meltb=msk(tc.meltb),
-        congel=msk(tc.congel), snoice=msk(tc.snoice), dsnow=msk(tc.dsnow),
+        congel=msk(tc.congel), snoice=msk(snoice), dsnow=msk(tc.dsnow),
         ferr=ferr, converged=r.converged, niter=r.niter)

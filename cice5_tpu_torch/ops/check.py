@@ -1,8 +1,8 @@
 """Hold the CUDA kernels against their plain PyTorch versions.
 
 ``capture_kernel_args`` runs one model step and returns the arguments the
-two kernel wrappers received there, so a kernel and its plain version can
-be called again on the main path's own inputs. ``field_errors`` compares
+kernel wrappers received there, so a kernel and its plain version can be
+called again on the main path's own inputs. ``field_errors`` compares
 their outputs field by field: each field (and each stress component or
 tracer of a stacked field) against its own largest reference magnitude,
 so a small field (a velocity, a ridging rate, a mass flux) is not hidden
@@ -15,32 +15,42 @@ import torch
 EVP_FIELDS = ("uvel", "vvel", "stress", "divu", "shear", "rdg_conv",
               "rdg_shear", "prs_sig", "strintx", "strinty")
 REMAP_FIELDS = ("fn_mflx", "fn_mtflx", "fe_mflx", "fe_mtflx")
-# stacked fields: the axis whose entries have scales of their own
-_COMPONENT_AXIS = {"stress": 0, "fn_mtflx": 1, "fe_mtflx": 1}
+# stacked fields: the axis whose entries have scales of their own (the
+# stress components, the tracers of the fluxes, the layers of the dEdd
+# absorption profiles)
+_COMPONENT_AXIS = {"stress": 0, "fn_mtflx": 1, "fe_mtflx": 1,
+                   "Sswabsn": 1, "Iswabsn": 1, "fswpenln": 1}
 
 
 def capture_kernel_args(model, state, forcing):
     """Run ``model.step(state, forcing)`` and return (new state, {"evp":
-    (p, ndte, topo, kw), "remap": args}) with the arguments that
-    ``evp.evp_sweep`` and ``remap.remap_flux_both`` received."""
+    (p, ndte, topo, kw), "remap": args, "dedd": kw}) with the arguments
+    that ``evp.evp_sweep``, ``remap.remap_flux_both`` and (with dEdd
+    shortwave) ``dedd.shortwave_dEdd_ncat`` received."""
     from cice5_tpu_torch.models.dynamics import evp
+    from cice5_tpu_torch.models.radiation import dedd
     from cice5_tpu_torch.models.transport import remap
     got = {}
-    orig_evp, orig_rm = evp.evp_sweep, remap.remap_flux_both
+    orig = (evp.evp_sweep, remap.remap_flux_both, dedd.shortwave_dEdd_ncat)
 
     def evp_cap(p, ndte, topo, **kw):
         got["evp"] = (p, ndte, topo, kw)
-        return orig_evp(p, ndte, topo, **kw)
+        return orig[0](p, ndte, topo, **kw)
 
     def rm_cap(*args):
         got["remap"] = args
-        return orig_rm(*args)
+        return orig[1](*args)
+
+    def sw_cap(**kw):
+        got["dedd"] = kw
+        return orig[2](**kw)
 
     evp.evp_sweep, remap.remap_flux_both = evp_cap, rm_cap
+    dedd.shortwave_dEdd_ncat = sw_cap
     try:
         state, _ = model.step(state, forcing)
     finally:
-        evp.evp_sweep, remap.remap_flux_both = orig_evp, orig_rm
+        evp.evp_sweep, remap.remap_flux_both, dedd.shortwave_dEdd_ncat = orig
     return state, got
 
 
@@ -53,6 +63,7 @@ def evp_outputs(out) -> dict:
 def remap_outputs(out) -> dict:
     """Name the results of remap_flux_both/remap_flux_plain."""
     return dict(zip(REMAP_FIELDS, out))
+
 
 
 def field_errors(ref: dict, got: dict, axes: dict | None = None) -> dict:

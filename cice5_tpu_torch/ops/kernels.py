@@ -12,8 +12,9 @@ shape and contiguity, allocate their outputs with ``torch.empty``, launch
 on ``torch.cuda.current_stream()``, raise if the C function returns a
 CUDA error, and add one to their kernel's ``launches`` counter. The
 choice between a kernel and its plain PyTorch version is made by the
-callers (``evp.evp_sweep``, ``remap.remap_flux_both``) from the device
-of the tensors, never by catching an error.
+callers (``evp.evp_sweep``, ``remap.remap_flux_both``,
+``dedd.shortwave_dEdd_ncat``) from the device of the tensors, never by
+catching an error.
 """
 from __future__ import annotations
 
@@ -57,9 +58,9 @@ def _nvcc() -> str:
 _VP, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _IP = ctypes.POINTER(ctypes.c_int)
 _ARGTYPES = {
-    "evp_sweep": [_I, _I, _I, _I, _I] + [_VP] * 7 + [_I] + [_D] * 8
-    + [_VP] * 4,
+    "evp_sweep": [_I] * 6 + [_VP] * 7 + [_I] + [_D] * 8 + [_VP] * 4,
     "remap_flux_both": [_I, _I, _I, _I, _IP, _IP] + [_VP] * 17,
+    "shortwave_dedd": [_I] * 5 + [_VP] * 13 + [_D] * 7 + [_I, _VP, _VP],
 }
 
 
@@ -115,7 +116,7 @@ class CudaKernel:
 
 
 KERNELS = {name: CudaKernel(name)
-           for name in ("evp_sweep", "remap_flux_both")}
+           for name in ("evp_sweep", "remap_flux_both", "shortwave_dedd")}
 
 
 def build_all(kernels=None) -> float:
@@ -135,6 +136,23 @@ def build_all(kernels=None) -> float:
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return time.perf_counter() - t0
+
+
+def resource_usage(sources) -> str:
+    """ptxas's report (registers, stack, spills) for every kernel of the
+    given .cu files, built with NVCC_FLAGS into a scratch library."""
+    scratch = build_dir() / "resource_usage.so"
+    build_dir().mkdir(parents=True, exist_ok=True)
+    out = []
+    for src in sources:
+        p = subprocess.run([_nvcc(), *NVCC_FLAGS, "--resource-usage", "-o",
+                            str(scratch), str(src)], capture_output=True,
+                           text=True)
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {src}:\n{p.stderr}")
+        out.append(f"== {src}\n{p.stdout}{p.stderr}")
+    scratch.unlink(missing_ok=True)
+    return "".join(out)
 
 
 def launch_counts() -> dict[str, int]:
@@ -174,8 +192,10 @@ def _cuda_device(t: torch.Tensor):
 
 
 def evp_sweep(*, ndte: int, cyc_x: bool, cyc_y: bool, u, v, stress, maskR,
-              strengthR, gR, uin, cw_plane: bool, Cw: float, p):
-    """Launch csrc/evp_sweep.cu: ``ndte`` EVP subcycles.
+              strengthR, gR, uin, cw_plane: bool, Cw: float, p,
+              fold: bool = False):
+    """Launch csrc/evp_sweep.cu: ``ndte`` EVP subcycles; ``fold`` is the
+    tripole U-fold of a north seam.
 
     u, v: (ny, nx); stress: (12, ny+1, nx+1); maskR/strengthR:
     (ny+1, nx+1) (mask as 0/1 floats); gR: (10, ny+1, nx+1) in
@@ -187,6 +207,8 @@ def evp_sweep(*, ndte: int, cyc_x: bool, cyc_y: bool, u, v, stress, maskR,
     nyr, nxr = ny + 1, nx + 1
     if ndte < 1:
         raise ValueError("evp_sweep needs ndte >= 1")
+    if fold and ny < 2:
+        raise ValueError("the tripole fold needs ny >= 2")
     for name, t, shp in (("u", u, (ny, nx)), ("v", v, (ny, nx)),
                          ("stress", stress, (12, nyr, nxr)),
                          ("maskR", maskR, (nyr, nxr)),
@@ -199,7 +221,8 @@ def evp_sweep(*, ndte: int, cyc_x: bool, cyc_y: bool, u, v, stress, maskR,
     diagR = torch.empty((5, nyr, nxr), dtype=dtype, device=device)
     strint = torch.empty((2, ny, nx), dtype=dtype, device=device)
     KERNELS["evp_sweep"].call(
-        dtype, ny, nx, ndte, int(cyc_x), int(cyc_y), _ptr(u_o), _ptr(v_o),
+        dtype, ny, nx, ndte, int(cyc_x), int(cyc_y), int(fold), _ptr(u_o),
+        _ptr(v_o),
         _ptr(s_o), _ptr(maskR), _ptr(strengthR), _ptr(gR), _ptr(uin),
         int(cw_plane), float(Cw), p.arlx1i, p.denom1, p.ecci, p.brlx,
         p.revp, p.cosw, p.sinw, _ptr(str8), _ptr(diagR), _ptr(strint))
@@ -231,11 +254,11 @@ def remap_flux_both(*, mmE2, tmE2, hmE2, geomN, geomE, tracer_type, parent,
     if ntrace > 64:
         raise ValueError("remap_flux_both takes at most 64 tracers")
     for nt in range(ntrace):
-        t = tracer_type[nt]
-        if t == 3 or (t == 2 and tracer_type[parent[nt]] != 1):
-            raise NotImplementedError(
-                "remap_flux_both: type-3 tracers and type-2 parents (the "
-                "pond chains) come with the pond tracers")
+        t, q = tracer_type[nt], parent[nt]
+        if (t == 2 and tracer_type[q] != 1) or \
+                (t == 3 and tracer_type[q] != 2):
+            raise ValueError("remap_flux_both: a type-2 tracer needs a "
+                             "type-1 parent and a type-3 tracer a type-2 one")
     recon = torch.empty((ncat, 3 + 3 * ntrace, ny + 2, nx + 2), dtype=dtype,
                         device=device)
     out = (torch.empty((ncat, ny + 1, nx), dtype=dtype, device=device),
@@ -251,3 +274,57 @@ def remap_flux_both(*, mmE2, tmE2, hmE2, geomN, geomE, tracer_type, parent,
         _ptr(hmE2), *[_ptr(t) for t in geomN], *[_ptr(t) for t in geomE],
         _ptr(recon), *[_ptr(t) for t in out])
     return out
+
+
+def shortwave_dedd(*, nilyr: int, nslyr: int, aicen, vicen, vsnon, Tsfcn,
+                   apnd, hpnd, coszen, fnidr, swvdr, swvdf, swidr, swidf,
+                   R_ice=0.0, R_pnd=0.0, R_snw=1.5, dT_mlt=1.5,
+                   rsnw_mlt=1500.0, kalg=0.6, hs0=0.03, hs1=0.03,
+                   pndaspect=0.8, pond_scheme="cesm"):
+    """Launch csrc/shortwave_dedd.cu: the delta-Eddington column of every
+    (category, cell). aicen..hpnd: (ncat, ny, nx); the forcing planes
+    (ny, nx). Returns the 14 planes of dedd.DEddResult, category axis
+    first (Sswabsn (ncat, nslyr, ny, nx), Iswabsn (ncat, nilyr, ...),
+    fswpenln (ncat, nilyr+1, ...)): views of one output tensor."""
+    import numpy as np
+    from cice5_tpu_torch.models.radiation import dedd
+    device, dtype = _cuda_device(aicen)
+    ncat, ny, nx = aicen.shape
+    if (nilyr, nslyr) not in ((4, 1), (7, 1)):
+        raise ValueError("shortwave_dedd is built for nslyr=1 and nilyr 4 "
+                         f"or 7, not nilyr={nilyr}, nslyr={nslyr}")
+    cat = dict(aicen=aicen, vicen=vicen, vsnon=vsnon, Tsfcn=Tsfcn,
+               apnd=apnd, hpnd=hpnd)
+    frc = dict(coszen=coszen, fnidr=fnidr, swvdr=swvdr, swvdf=swvdf,
+               swidr=swidr, swidf=swidf)
+    for name, t in cat.items():
+        _check(name, t, (ncat, ny, nx), dtype, device)
+    for name, t in frc.items():
+        _check(name, t, (ny, nx), dtype, device)
+    tab = dedd.kernel_tables(R_ice, R_pnd, device)
+    rsnw_nm = float(np.clip(500.0 - R_snw * 250.0, 100.0, rsnw_mlt))
+    nout = 11 + nslyr + 2 * nilyr + 1
+    out = torch.empty((ncat, nout, ny, nx), dtype=dtype, device=device)
+    KERNELS["shortwave_dedd"].call(
+        dtype, ncat, ny, nx, nilyr, nslyr,
+        *[_ptr(t) for t in cat.values()], *[_ptr(t) for t in frc.values()],
+        _ptr(tab), rsnw_nm, float(rsnw_mlt), float(dT_mlt), float(kalg),
+        float(hs0), float(hs1), float(pndaspect),
+        dedd.POND_SCHEMES.index(pond_scheme), _ptr(out))
+    o = 7
+    planes = [out[:, k] for k in range(o)]
+    planes.append(out[:, o:o + nslyr])
+    o += nslyr
+    planes.append(out[:, o:o + nilyr])
+    o += nilyr
+    planes.append(out[:, o:o + nilyr + 1])
+    o += nilyr + 1
+    planes += [out[:, k] for k in range(o, o + 4)]
+    return tuple(planes)
+
+
+if __name__ == "__main__":
+    # python -m cice5_tpu_torch.ops.kernels [file.cu ...]: ptxas's resource
+    # report for the given sources (default: every kernel of the port)
+    import sys
+    print(resource_usage(sys.argv[1:] or [k.source for k in KERNELS.values()]))

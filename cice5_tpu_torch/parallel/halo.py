@@ -3,12 +3,12 @@
 A field never stores ghost cells; ``extend(field, topo)`` returns the field
 with a ghost ring filled by the global boundary conditions
 (mpi/ice_boundary.F90 ice_HaloUpdate, serial twin): cyclic boundaries wrap,
-open and closed boundaries hold zeros. The x-extension happens first and
-whole extended rows are then added in y, so corners follow the same rule
-as the JAX package.
-
-The tripole fold (``ns="tripole"``/``"tripoleT"``) comes with the
-gx1-parity slice and raises here. Multi-GPU halos come later too.
+open and closed boundaries hold zeros, and a tripole north seam
+(``ns="tripole"`` U-fold, ``"tripoleT"`` T-fold) fills its ghost rows with
+the fold image of the top rows (mpi/ice_boundary.F90:1494-1596), with the
+staggering (``loc``) and parity (``kind``) of the field. The x-extension
+happens first and whole extended rows are then added in y, so corners
+follow the same rule as the JAX package. Multi-GPU halos come later.
 
 All functions accept arbitrary leading batch axes: (..., ny, nx) ->
 (..., ny+2W, nx+2W).
@@ -32,42 +32,88 @@ class Topology:
     ns: str = "open"
 
 
+# fold (ioffset, joffset) per staggering (mpi/ice_boundary.F90:1494-1596):
+# ghost(i, ny+1) = sign * field(nxGlobal+1-i-ioffset, ny-joffset)
+_UFOLD_OFFSETS = {FieldLoc.CENTER: (0, 0), FieldLoc.NECORNER: (1, 1),
+                  FieldLoc.EFACE: (1, 0), FieldLoc.NFACE: (0, 1)}
+_TFOLD_OFFSETS = {FieldLoc.CENTER: (-1, 0), FieldLoc.NECORNER: (0, 1),
+                  FieldLoc.EFACE: (0, 0), FieldLoc.NFACE: (-1, 1)}
+# staggerings whose top physical row lies ON the fold (degenerate row that
+# must be symmetrized with its own image)
+_UFOLD_DEGEN = (FieldLoc.NECORNER, FieldLoc.NFACE)
+_TFOLD_DEGEN = (FieldLoc.CENTER, FieldLoc.EFACE)
+
+
 def _check(topo: Topology):
-    if topo.ns in _TRIPOLE or topo.ew in _TRIPOLE:
-        raise NotImplementedError(
-            "tripole halos come with the gx1-parity slice of the port")
+    if topo.ew in _TRIPOLE:
+        raise NotImplementedError("a tripole east-west boundary does not "
+                                  "exist (the fold is a north seam)")
 
 
-def extend(f: torch.Tensor, topo: Topology,
-           loc: FieldLoc = FieldLoc.CENTER,
-           kind: FieldType = FieldType.SCALAR) -> torch.Tensor:
-    """Add a 1-cell ghost ring: (..., ny, nx) -> (..., ny+2, nx+2).
-
-    ``loc``/``kind`` only matter on the tripole fold, which this slice
-    refuses; they are accepted so call sites read like the JAX package's."""
-    _check(topo)
-    if topo.ew == "cyclic":
-        wv, ev = f[..., :, -1:], f[..., :, :1]
-    else:
-        wv = torch.zeros_like(f[..., :, -1:])
-        ev = torch.zeros_like(f[..., :, :1])
-    fx = torch.cat([wv, f, ev], dim=-1)
-    if topo.ns == "cyclic":
-        sv, nv = fx[..., -1:, :], fx[..., :1, :]
-    else:
-        sv = torch.zeros_like(fx[..., -1:, :])
-        nv = torch.zeros_like(fx[..., :1, :])
-    return torch.cat([sv, fx, nv], dim=-2)
+def _fold_spec(topo: Topology, loc: FieldLoc, kind: FieldType):
+    """(sign, ioff, joff, degenerate) of the fold for this staggering."""
+    sign = -1.0 if kind in (FieldType.VECTOR, FieldType.ANGLE) else 1.0
+    tfold = topo.ns == "tripoleT"
+    ioff, joff = (_TFOLD_OFFSETS if tfold else _UFOLD_OFFSETS).get(loc,
+                                                                   (0, 0))
+    degen = loc in (_TFOLD_DEGEN if tfold else _UFOLD_DEGEN)
+    return sign, ioff, joff, degen
 
 
-def extend_wide(f: torch.Tensor, topo: Topology, W: int,
-                loc: FieldLoc = FieldLoc.CENTER,
-                kind: FieldType = FieldType.SCALAR) -> torch.Tensor:
-    """Add a W-cell ghost ring: (..., ny, nx) -> (..., ny+2W, nx+2W)
-    (the remap kernel's W=2 window of raw fields)."""
-    _check(topo)
-    if W == 1:
-        return extend(f, topo, loc=loc, kind=kind)
+def _fold_map(row, ioff: int):
+    """Map column i -> nxGlobal+1-i-ioffset (1-based), i.e. 0-based
+    i0 -> (nx-1-i0-ioff) mod nx."""
+    g = torch.flip(row, dims=(-1,))
+    return g if ioff == 0 else torch.roll(g, -ioff, dims=-1)
+
+
+def _top_sym(f, ioff: int, sign: float):
+    """Degenerate top row symmetrized with its own fold image. On the
+    T-fold centre (ioff=-1) columns 0 and nx/2 are their own images; the
+    reference loop (i=2..nx/2) leaves them untouched."""
+    top = f[..., -1:, :]
+    sym = 0.5 * (top + sign * _fold_map(top, ioff))
+    if ioff == -1:
+        nx = top.shape[-1]
+        selfmask = torch.zeros(nx, dtype=torch.bool, device=f.device)
+        selfmask[0] = True
+        if nx % 2 == 0:
+            selfmask[nx // 2] = True
+        sym = torch.where(selfmask, top, sym)
+    return sym
+
+
+def _tripole_ghost_wide(f, topo: Topology, loc: FieldLoc, kind: FieldType,
+                        W: int, fold_partner=None, fold_sign: float = 1.0):
+    """W north ghost rows for the tripole fold: ghost row ny+k reads
+    sign * field(nxGlobal+1-i-ioffset, ny-joffset-(k-1)).
+
+    With ``fold_partner`` the caller supplies the ghost sources (sign
+    ``fold_sign``) and a degenerate top row is used as it is. Returns
+    (ghost (..., W, nx), symmetrized top row or None)."""
+    sign, ioff, joff, degen = _fold_spec(topo, loc, kind)
+    top_sym = None
+    if degen and fold_partner is None:
+        top_sym = _top_sym(f, ioff, sign)
+    src = fold_partner if fold_partner is not None else f
+    sgn = fold_sign if fold_partner is not None else sign
+    ny = f.shape[-2]
+    if ny < W + joff:
+        raise ValueError(f"tripole wide fold needs ny >= W+joff "
+                         f"({ny} < {W}+{joff})")
+    rows = src[..., ny - joff - W:ny - joff, :]
+    if top_sym is not None and joff == 0:
+        # the k=1 source is the symmetrized top row (the reference
+        # symmetrizes the tripole buffer before copy-out)
+        rows = torch.cat([rows[..., :-1, :], top_sym], dim=-2)
+    rows = torch.flip(rows, dims=(-2,))          # ghost order k = 1..W
+    return sgn * _fold_map(rows, ioff), top_sym
+
+
+def _assemble(f, topo: Topology, W: int, tghost):
+    """Ring of width W around f: x first (cyclic or zero), then whole
+    extended rows in y; a tripole seam puts the cyclically x-extended fold
+    rows ``tghost`` at the north edge."""
     if topo.ew == "cyclic":
         wv, ev = f[..., :, -W:], f[..., :, :W]
     else:
@@ -79,7 +125,79 @@ def extend_wide(f: torch.Tensor, topo: Topology, W: int,
     else:
         sv = torch.zeros_like(fx[..., -W:, :])
         nv = torch.zeros_like(fx[..., :W, :])
+    if tghost is not None:
+        nv = torch.cat([tghost[..., :, -W:], tghost, tghost[..., :, :W]],
+                       dim=-1)
     return torch.cat([sv, fx, nv], dim=-2)
+
+
+def _with_top(f, top_sym):
+    if top_sym is None:
+        return f
+    return torch.cat([f[..., :-1, :], top_sym], dim=-2)
+
+
+def extend(f: torch.Tensor, topo: Topology,
+           loc: FieldLoc = FieldLoc.CENTER,
+           kind: FieldType = FieldType.SCALAR,
+           fold_partner: torch.Tensor | None = None,
+           fold_sign: float = 1.0) -> torch.Tensor:
+    """Add a 1-cell ghost ring: (..., ny, nx) -> (..., ny+2, nx+2).
+
+    fold_partner/fold_sign: on tripole topologies, build the north ghost
+    row from ``fold_sign * fold(fold_partner)`` instead of the field
+    itself. The 180-degree fold maps one-sided metric coefficients onto
+    their partners (ghost cyp = -cym of the image cell, cxp = -cxm,
+    dxhy/dyhx negate; ice_grid.F90:356-367). Only non-degenerate
+    staggerings take a partner."""
+    return extend_wide(f, topo, 1, loc=loc, kind=kind,
+                       fold_partner=fold_partner, fold_sign=fold_sign)
+
+
+def extend_wide(f: torch.Tensor, topo: Topology, W: int,
+                loc: FieldLoc = FieldLoc.CENTER,
+                kind: FieldType = FieldType.SCALAR,
+                fold_partner: torch.Tensor | None = None,
+                fold_sign: float = 1.0) -> torch.Tensor:
+    """Add a W-cell ghost ring: (..., ny, nx) -> (..., ny+2W, nx+2W)
+    (the remap kernel's W=2 window of raw fields). A tripole seam fills
+    the W ghost rows with the fold image of the top W rows."""
+    _check(topo)
+    tghost = None
+    if topo.ns in _TRIPOLE:
+        if fold_partner is not None and _fold_spec(topo, loc, kind)[3]:
+            raise NotImplementedError(
+                "fold_partner on a degenerate (on-fold) staggering")
+        tghost, top_sym = _tripole_ghost_wide(
+            f, topo, loc, kind, W, fold_partner=fold_partner,
+            fold_sign=fold_sign)
+        f = _with_top(f, top_sym)
+    return _assemble(f, topo, W, tghost)
+
+
+def extend_wide_groups(f: torch.Tensor, topo: Topology, W: int,
+                       groups) -> torch.Tensor:
+    """extend_wide for a (C, ny, nx) stack whose entries need different
+    tripole fold treatments.
+
+    groups: list of (channel_slice, loc, kind, fold_partner, fold_sign)
+    covering 0..C in order; fold_partner is a (len, ny, nx) stack or None.
+    Non-tripole topologies ignore the groups (one extend_wide)."""
+    if topo.ns not in _TRIPOLE:
+        return extend_wide(f, topo, W)
+    if topo.ns == "tripoleT":
+        raise NotImplementedError("extend_wide_groups: T-fold grids")
+    _check(topo)
+    ghosts, parts = [], []
+    for sl, loc, kind, fpart, fsign in groups:
+        sub = f[sl]
+        g, top_sym = _tripole_ghost_wide(sub, topo, loc, kind, W,
+                                         fold_partner=fpart,
+                                         fold_sign=fsign)
+        ghosts.append(g)
+        parts.append(_with_top(sub, top_sym))
+    return _assemble(torch.cat(parts, dim=0), topo, W,
+                     torch.cat(ghosts, dim=0))
 
 
 def interior(F):

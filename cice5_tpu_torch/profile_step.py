@@ -1,49 +1,63 @@
 """Where the time of one model step goes on the GPU.
 
-    python -m cice5_tpu_torch.profile_step [--ny 384 --nx 320 --steps 3]
+    python -m cice5_tpu_torch.profile_step [--config gx1_parity]
+        [--ny 384 --nx 320 --steps 3]
 
-Runs the BL99 + CCSM3 configuration (float32, ndte=120) on the GPU and
+Runs the BL99 + CCSM3 configuration (``bench_easy``, the default) or the
+gx1-parity configuration (``gx1_parity``: mushy thermo, dEdd, tracers,
+tripole seam, on ``synth_gx1_grid``), float32, ndte=120, on the GPU and
 prints one JSON line with
 
 - ``phase_ms``: wall time per step phase (column physics, strength, EVP,
   transport, ridging, slab ocean, and the rest), each phase bracketed by
   ``torch.cuda.synchronize()`` so that its device work is inside it;
+  ``column_ms`` splits the column physics the same way (radiation,
+  vertical thermo; the rest of it is the tracers and the ITD);
 - ``ms_per_step`` without those syncs, for reference;
 - from ``torch.profiler`` over ``--steps`` steps: device kernel time and
-  launches per step for the two hand-written kernels and for all other
+  launches per step for each hand-written kernel and for all other
   (PyTorch) kernels, the device busy share of the wall time, and the
-  host syncs (``aten::_local_scalar_dense``) per step.
+  host syncs (``aten::_local_scalar_dense``) per step;
+- the thermo solver's passes (BL99 or mushy Picard, both stages) and the
+  ridging passes of the last step.
 
 It needs a CUDA device and fails without one.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 from collections import defaultdict
 
 import torch
 
-from cice5_tpu_torch.config import bench_easy_config
+from cice5_tpu_torch.config import bench_easy_config, gx1_parity_config
 from cice5_tpu_torch.driver import step as step_mod
 from cice5_tpu_torch.driver.model import Model
+from cice5_tpu_torch.grid import synth_gx1_grid
 
 PHASES = {"_column_physics": "column_physics",
           "strength_rothrock": "strength", "evp": "evp",
           "transport_remap": "transport", "ridge_ice": "ridging",
           "ocean_mixed_layer": "ocean"}
+# inside _column_physics: reported apart, not added to phase_ms
+COLUMN_PHASES = {"_step_radiation": "radiation",
+                 "thermo_vertical": "vertical_thermo"}
 OWN_KERNELS = {"evp_stress": "evp_sweep", "evp_stepu": "evp_sweep",
                "remap_recon": "remap_flux_both",
-               "remap_flux": "remap_flux_both"}
+               "remap_flux": "remap_flux_both",
+               "shortwave_dedd": "shortwave_dedd"}
 
 
-def _timed_phases(totals):
+def _timed_phases(totals, column):
     """Wrap the phase functions the step module calls so that each adds
-    its synchronized wall time to ``totals``. Returns an undo function."""
+    its synchronized wall time to ``totals`` (``column`` for the parts of
+    the column physics). Returns an undo function."""
     saved = []
 
-    def wrap(owner, attr, label):
+    def wrap(owner, attr, label, acc):
         fn = getattr(owner, attr)
 
         def timed(*a, **k):
@@ -51,14 +65,17 @@ def _timed_phases(totals):
             t0 = time.perf_counter()
             out = fn(*a, **k)
             torch.cuda.synchronize()
-            totals[label] += time.perf_counter() - t0
+            acc[label] += time.perf_counter() - t0
             return out
         saved.append((owner, attr, fn))
         setattr(owner, attr, timed)
 
     for attr, label in PHASES.items():
         owner = step_mod.ocean if attr == "ocean_mixed_layer" else step_mod
-        wrap(owner, attr, label)
+        wrap(owner, attr, label, totals)
+    for attr, label in COLUMN_PHASES.items():
+        owner = step_mod.vertical if attr == "thermo_vertical" else step_mod
+        wrap(owner, attr, label, column)
 
     def undo():
         for owner, attr, fn in saved:
@@ -68,6 +85,8 @@ def _timed_phases(totals):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", choices=("bench_easy", "gx1_parity"),
+                    default="bench_easy")
     ap.add_argument("--ny", type=int, default=384)
     ap.add_argument("--nx", type=int, default=320)
     ap.add_argument("--steps", type=int, default=3)
@@ -75,8 +94,15 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
 
-    m = Model(bench_easy_config(ny=args.ny, nx=args.nx))
-    st = m.init_state(ice_mask=m.grid.tmask)
+    if args.config == "gx1_parity":
+        cfg = gx1_parity_config()
+        cfg = cfg.replace(grid=dataclasses.replace(cfg.grid, ny=args.ny,
+                                                   nx=args.nx))
+        m = Model(cfg, grid=synth_gx1_grid(cfg, device="cuda"))
+        st = m.init_state()
+    else:
+        m = Model(bench_easy_config(ny=args.ny, nx=args.nx))
+        st = m.init_state(ice_mask=m.grid.tmask)
     f = m.forcing_at(0)
     st, _ = m.rollout(st, f, 2)
     torch.cuda.synchronize()
@@ -86,8 +112,8 @@ def main(argv=None):
     torch.cuda.synchronize()
     ms_step = 1e3 * (time.perf_counter() - t0) / args.steps
 
-    totals = defaultdict(float)
-    undo = _timed_phases(totals)
+    totals, column = defaultdict(float), defaultdict(float)
+    undo = _timed_phases(totals, column)
     try:
         t0 = time.perf_counter()
         st, _ = m.rollout(st, f, args.steps)
@@ -98,6 +124,9 @@ def main(argv=None):
     phase_ms = {k: 1e3 * v / args.steps for k, v in totals.items()}
     # the dynamics' cleanup_itd, aggregates and diagnostics
     phase_ms["rest"] = ms_synced - sum(phase_ms.values())
+    column_ms = {k: 1e3 * v / args.steps for k, v in column.items()}
+    column_ms["tracers_and_itd"] = phase_ms["column_physics"] \
+        - sum(column_ms.values())
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -118,14 +147,15 @@ def main(argv=None):
             dev[key][1] += 1
     busy = sum(v[0] for v in dev.values())
     out = dict(
-        grid=[args.ny, args.nx], steps=args.steps,
+        config=args.config, grid=[args.ny, args.nx], steps=args.steps,
         card=torch.cuda.get_device_name(0), ms_per_step=ms_step,
         ms_per_step_phase_synced=ms_synced, phase_ms=phase_ms,
+        column_ms=column_ms,
         device_ms_per_step={k: v[0] / args.steps for k, v in dev.items()},
         launches_per_step={k: v[1] / args.steps for k, v in dev.items()},
         device_busy_share=busy / (1e3 * wall_prof),
         host_syncs_per_step=syncs / args.steps,
-        bl99_passes_last_step=diag.niter_thermo,
+        thermo_passes_last_step=diag.niter_thermo,
         ridging_passes_last_step=diag.niter_ridge)
     print(json.dumps(out))
 

@@ -1,0 +1,154 @@
+"""PyTorch port of the delta-Eddington shortwave vs the JAX package.
+
+The port's plain version (``dedd.shortwave_dEdd_plain``, all categories
+at once: the reference the CUDA kernel ``shortwave_dedd`` is held against
+on the GPU) against the JAX package's vmapped ``shortwave_dEdd`` (run op
+by op: its jit compile alone takes ~35 s on a CPU), at nilyr 4 and 7 with
+level ponds, on inputs that hold lit and unlit columns (ice-free cells,
+coszen <= 0, no sunlight) and bare, snow and pond surfaces. Each output
+field, and each layer of the layered ones, agrees on its own scale to
+1e-11. The JAX Pallas kernel ``shortwave_dEdd_tiled`` in interpret mode
+(block_rows=4) computes the same function; that comparison is marked slow
+(~40 s of compile per layer count) and holds to 1e-9, the JAX paths'
+own difference."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cice5_tpu.models.radiation import dedd as jdedd
+from cice5_tpu.ops.pallas.dedd_fused import shortwave_dEdd_tiled
+from cice5_tpu_torch.models.radiation import dedd as tdedd
+from cice5_tpu_torch.ops import kernels
+from torch_port_util import assert_close
+
+RTOL = 1e-11
+NCAT, NY, NX = 3, 8, 8
+PARAMS = dict(R_ice=0.0, R_pnd=0.0, R_snw=1.5, dT_mlt=1.5, rsnw_mlt=1500.0,
+              kalg=0.6, hs0=0.0, hs1=0.03, pndaspect=0.8)
+
+
+def _inputs(seed=7):
+    """Category fields (ncat, ny, nx) and forcing planes (ny, nx): rows
+    0-1 ice-free, rows 6-7 in polar night, column 0 without sunlight;
+    category 0 snow-free (bare and ponded ice), category 2 snow-covered
+    with no ponds, and some ponds too shallow to count."""
+    rng = np.random.default_rng(seed)
+    u = lambda lo, hi, *s: rng.uniform(lo, hi, s or (NCAT, NY, NX))
+    aicen = u(0.05, 0.6)
+    aicen[:, :2] = 0.0
+    vicen = aicen * u(0.1, 3.0)
+    vsnon = aicen * u(0.0, 0.3)
+    vsnon[0] = 0.0
+    vsnon[1, :, ::2] = aicen[1, :, ::2] * 0.01
+    apnd = u(0.0, 0.6)
+    apnd[2] = 0.0
+    hpnd = u(0.0, 0.4)
+    hpnd[1, 3] = 0.003
+    coszen = u(0.05, 0.9, NY, NX)
+    coszen[6:] = -0.2
+    sw = [u(0.0, 200.0, NY, NX) for _ in range(4)]
+    for s in sw:
+        s[:, 0] = 0.0
+    cat = dict(aicen=aicen, vicen=vicen, vsnon=vsnon, Tsfcn=u(-15.0, 0.0),
+               apnd=apnd, hpnd=hpnd)
+    frc = dict(coszen=coszen, fnidr=u(0.3, 0.7, NY, NX), swvdr=sw[0],
+               swvdf=sw[1], swidr=sw[2], swidf=sw[3])
+    return cat, frc
+
+
+def _jax_vmapped(cat, frc, nilyr, scheme):
+    kw = dict(nilyr=nilyr, nslyr=1, pond_scheme=scheme, **PARAMS,
+              **{k: jnp.asarray(v) for k, v in frc.items()})
+    return jax.vmap(lambda a, v, s, t, p, h: jdedd.shortwave_dEdd(
+        aicen=a, vicen=v, vsnon=s, Tsfcn=t, apnd=p, hpnd=h, **kw))(
+        *(jnp.asarray(cat[k]) for k in ("aicen", "vicen", "vsnon", "Tsfcn",
+                                        "apnd", "hpnd")))
+
+
+def _port(cat, frc, nilyr, scheme):
+    return tdedd.shortwave_dEdd_ncat(
+        nilyr=nilyr, nslyr=1, pond_scheme=scheme, **PARAMS,
+        **{k: torch.as_tensor(v) for k, v in {**cat, **frc}.items()})
+
+
+def _compare(ref, got, rtol=RTOL):
+    for name in ref._fields:
+        a, b = np.asarray(getattr(ref, name)), getattr(got, name)
+        if a.ndim == 4:                       # (ncat, layer, ny, nx)
+            for k in range(a.shape[1]):
+                assert_close(a[:, k], b[:, k], rtol, f"{name}[{k}]",
+                             floor=1e-12)
+        else:
+            assert_close(a, b, rtol, name, floor=1e-12)
+
+
+@pytest.mark.parametrize("nilyr", [4, 7])
+def test_shortwave_dEdd_matches_jax(nilyr):
+    cat, frc = _inputs()
+    kernels.reset_launch_counts()
+    got = _port(cat, frc, nilyr, "lvl")
+    assert kernels.launch_counts()["shortwave_dedd"] == 0
+    ref = _jax_vmapped(cat, frc, nilyr, "lvl")
+    _compare(ref, got)
+    # the unlit columns are exact zeros; the lit ones carry sunlight
+    for x in got:
+        assert torch.all(x[..., :2, :] == 0) and torch.all(x[..., 6:, :] == 0)
+        assert torch.all(x[..., 0] == 0)
+    assert float(got.fswsfcn.max()) > 1.0 and float(got.albpndn.max()) > 0.1
+    assert float(got.Sswabsn.max()) > 0.0
+
+
+def test_shortwave_dEdd_cesm_ponds_match_jax():
+    cat, frc = _inputs(9)
+    _compare(_jax_vmapped(cat, frc, 4, "cesm"), _port(cat, frc, 4, "cesm"))
+
+
+def test_kernel_tables_hold_the_plain_versions_numbers():
+    tab = tdedd.kernel_tables(0.0, 0.0, torch.device("cpu")).numpy()
+    assert tab.shape == (32 + 3 * 96 + 3 * len(tdedd.IOP_KEYS),)
+    np.testing.assert_array_equal(tab[:32], jdedd.RSNW_TAB)
+    np.testing.assert_array_equal(tab[32:128].reshape(32, 3), jdedd.QS_TAB)
+    iops = tab[320:].reshape(3, -1)
+    for ns in range(3):
+        k, w = jdedd._tune(jdedd.KI_DL_MN[ns], jdedd.WI_DL_MN[ns], 0.0, 0.15,
+                           0.15)
+        assert iops[ns, tdedd.IOP_KEYS.index("k_dl")] == k
+        assert iops[ns, tdedd.IOP_KEYS.index("w_dl")] == w
+        assert iops[ns, tdedd.IOP_KEYS.index("kw")] == jdedd.KW[ns]
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("nilyr", [4, 7])
+def test_shortwave_dEdd_matches_pallas_interpret(nilyr):
+    """1e-9: the interpret-mode kernel rounds the differences of large net
+    fluxes (the layer absorptions Iswabsn) otherwise than the vmapped XLA
+    path: at nilyr=7 the two JAX paths differ from each other by up to
+    3.0e-10 of Iswabsn[6]'s scale, and the port (within 7e-14 of the
+    vmapped path) by as much from the kernel."""
+    cat, frc = _inputs()
+    ref = shortwave_dEdd_tiled(
+        nilyr=nilyr, nslyr=1, pond_scheme="lvl", interpret=True,
+        block_rows=4, **PARAMS,
+        **{k: jnp.asarray(v) for k, v in {**cat, **frc}.items()})
+    _compare(ref, _port(cat, frc, nilyr, "lvl"), rtol=1e-9)
+
+
+@pytest.mark.parametrize("srftyp", [0, 1, 2])
+def test_compute_dEdd_matches_jax(srftyp):
+    """The generic one-surface path (layer optics, the case-batched
+    adding method with the Fresnel layer, the per-band partition)."""
+    rng = np.random.default_rng(13)
+    u = lambda lo, hi: rng.uniform(lo, hi, (NY, NX))
+    d = dict(coszen=u(0.05, 0.9), fnidr=u(0.3, 0.7), swvdr=u(0, 200),
+             swvdf=u(0, 200), swidr=u(0, 200), swidf=u(0, 200),
+             hs=u(0.0, 0.3) if srftyp == 1 else np.zeros((NY, NX)),
+             rsnw=u(100.0, 1500.0), hi=u(0.1, 3.0), hp=u(0.0, 0.4))
+    kw = dict(nilyr=4, nslyr=1, srftyp=srftyp)
+    ref = jdedd.compute_dEdd(**kw, **{k: jnp.asarray(v) for k, v in d.items()})
+    got = tdedd.compute_dEdd(**kw, **{k: torch.as_tensor(v)
+                                      for k, v in d.items()})
+    for name in ref._fields:
+        assert_close(getattr(ref, name), getattr(got, name), RTOL, name,
+                     floor=1e-12)

@@ -1,6 +1,7 @@
 """PyTorch port of the single-device halo (parallel/halo.py) vs the JAX
 package: ghost rings on cyclic, open and closed boundaries, with the
-staggering/parity arguments and the W=1/W=2 rings of extend_wide. Exact."""
+staggering/parity arguments and the W=1/W=2 rings of extend_wide. Exact.
+(The tripole folds: tests/test_torch_tripole.py.)"""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -59,5 +60,9 @@ def test_shifted_interior_and_sums():
 
 @pytest.mark.parametrize("ns", ["tripole", "tripoleT"])
 def test_tripole_raises(ns):
-    with pytest.raises(NotImplementedError, match="gx1-parity"):
-        halo.extend(torch.zeros(4, 6), halo.Topology(ns=ns))
+    """The fold is a north seam (tests/test_torch_tripole.py holds it
+    against the JAX package); an east-west fold does not exist."""
+    with pytest.raises(NotImplementedError, match="north seam"):
+        halo.extend(torch.zeros(4, 6), halo.Topology(ew=ns))
+    assert halo.extend(torch.zeros(4, 6), halo.Topology(ns=ns)).shape == \
+        (6, 8)

@@ -8,21 +8,27 @@ conftest (which sets JAX up):
         tests/test_torch_kernels.py
 
 Inputs come from one step of a small port ``Model`` on the device (the
-kernel wrappers' arguments captured there). The unmarked tests check on
-the CPU that the wrappers take the plain versions for CPU tensors and
-count no launch.
+kernel wrappers' arguments captured there): the BL99 model on a
+rectangular grid, and the gx1-parity model (tripole seam with land on
+it, 19 remap tracers with the pond chains, dEdd shortwave). The unmarked
+tests check on the CPU that the wrappers take the plain versions for CPU
+tensors and count no launch.
 """
 import dataclasses
 
 import pytest
 import torch
 
-from cice5_tpu_torch.config import bench_easy_config
+from cice5_tpu_torch import constants as ct
+from cice5_tpu_torch.config import bench_easy_config, gx1_parity_config
 from cice5_tpu_torch.driver.model import Model
+from cice5_tpu_torch.grid import popgrid_np
 from cice5_tpu_torch.models.dynamics import evp as tevp
+from cice5_tpu_torch.models.radiation import dedd
 from cice5_tpu_torch.models.transport import remap as trm
 from cice5_tpu_torch.ops import check, kernels
-from torch_port_util import cuda_device  # noqa: F401
+from torch_port_util import (PARITY_ISTEP, cuda_device,  # noqa: F401
+                             parity_grid_arrays)
 
 
 def _captured(device, dtype, ndte=8, ew="cyclic", ns="open"):
@@ -34,6 +40,24 @@ def _captured(device, dtype, ndte=8, ew="cyclic", ns="open"):
     m = Model(cfg, device=device)
     st = m.init_state(ice_mask=m.grid.tmask)
     f = m.forcing_at(0)
+    st, _ = m.step(st, f)
+    return check.capture_kernel_args(m, st, f)[1]
+
+
+def _parity_model(device, dtype, ndte=8):
+    cfg = gx1_parity_config(dtype=dtype, accum_dtype=dtype)
+    cfg = cfg.replace(grid=dataclasses.replace(cfg.grid, ny=24, nx=16),
+                      dyn=dataclasses.replace(cfg.dyn, ndte=ndte))
+    grid = popgrid_np(cfg, *parity_grid_arrays(), device=device)
+    return Model(cfg, grid=grid, device=device)
+
+
+def _captured_parity(device, dtype, ndte=8):
+    """Kernel arguments in the second step of the 24x16 gx1-parity model
+    on a tripole grid with land on the seam, at a northern-summer noon."""
+    m = _parity_model(device, dtype, ndte)
+    st = m.init_state()
+    f = m.forcing_at(PARITY_ISTEP)
     st, _ = m.step(st, f)
     return check.capture_kernel_args(m, st, f)[1]
 
@@ -50,6 +74,12 @@ def _evp_rel(got):
 def _remap_rel(args):
     ref = check.remap_outputs(trm.remap_flux_plain(*args))
     out = check.remap_outputs(trm.remap_flux_both(*args))
+    return check.worst(check.field_errors(ref, out))[1]
+
+
+def _dedd_rel(kw):
+    ref = dedd.shortwave_dEdd_plain(**kw)._asdict()
+    out = dedd.shortwave_dEdd_ncat(**kw)._asdict()
     return check.worst(check.field_errors(ref, out))[1]
 
 
@@ -73,11 +103,16 @@ def test_field_errors_scale_each_field_on_its_own():
         == {"x": (1e-30, float("inf"))}
 
 
-@pytest.mark.parametrize("kernel", ["evp", "remap"])
+@pytest.mark.parametrize("kernel", ["evp", "remap", "dedd"])
 def test_wrappers_take_plain_version_on_cpu(kernel):
-    got = _captured("cpu", "float64", ndte=2)
+    got = (_captured_parity if kernel == "dedd" else _captured)(
+        "cpu", "float64", ndte=2)
     kernels.reset_launch_counts()
-    if kernel == "evp":
+    if kernel == "dedd":
+        a = dedd.shortwave_dEdd_ncat(**got["dedd"])
+        b = dedd.shortwave_dEdd_plain(**got["dedd"])
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    elif kernel == "evp":
         p, nd, topo, kw = got["evp"]
         a = tevp.evp_sweep(p, nd, topo, **kw)
         b = tevp.subcycle_sweep(p, nd, topo, **kw)
@@ -133,5 +168,79 @@ def test_main_path_launches_each_kernel_once_per_step(cuda_device):
     kernels.reset_launch_counts()
     st, d = m.rollout(st, m.forcing_at(0), 3)
     torch.cuda.synchronize()
-    assert kernels.launch_counts() == {"evp_sweep": 3, "remap_flux_both": 3}
+    assert kernels.launch_counts() == {"evp_sweep": 3, "remap_flux_both": 3,
+                                       "shortwave_dedd": 0}
+    assert int(d.state_bad) == 0 and bool(torch.isfinite(st.vicen).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("float64", 1e-12),
+                                       ("float32", 5e-5)])
+def test_dedd_kernel_matches_plain(cuda_device, dtype, tol):
+    """Kernel C against its plain version, every field and layer on its
+    own scale, with an ice-free and a dark band that must be exact
+    zeros."""
+    kw = dict(_captured_parity(cuda_device, dtype)["dedd"])
+    kw["aicen"] = kw["aicen"].clone()
+    kw["aicen"][:, :, :2] = 0.0
+    kw["coszen"] = kw["coszen"].clone()
+    kw["coszen"][:, 2:4] = -0.1
+    assert _dedd_rel(kw) <= tol
+    out = dedd.shortwave_dEdd_ncat(**kw)
+    assert all(bool((x[..., :4] == 0).all()) for x in out)
+    netsw = kw["swvdr"] + kw["swvdf"] + kw["swidr"] + kw["swidf"]
+    lit = (kw["aicen"] > ct.puny) & (netsw > ct.puny) & (kw["coszen"]
+                                                         > ct.puny)
+    assert bool(lit.any()) and float(out.fswsfcn.abs().max()) > 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheme", ["lvl", "cesm", "topo"])
+def test_dedd_kernel_pond_setups_match_plain(cuda_device, scheme):
+    """Each pond setup of the kernel (the model sends level ponds) on the
+    captured inputs with seeded ponds on every ice column, in float64."""
+    kw = dict(_captured_parity(cuda_device, "float64")["dedd"],
+              pond_scheme=scheme)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    a = kw["aicen"]
+    u = lambda lo, hi: torch.where(a > 0, lo + (hi - lo) * torch.rand(
+        a.shape, generator=gen, device=a.device, dtype=a.dtype), 0.0)
+    kw["apnd"], kw["hpnd"] = u(0.05, 0.6), u(0.0, 0.4)
+    assert _dedd_rel(kw) <= 1e-12
+    assert float(dedd.shortwave_dEdd_plain(**kw).albpndn.max()) > 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,ndte,tol", [("float64", 1, 1e-12),
+                                            ("float64", 12, 3e-8),
+                                            ("float32", 12, 1e-5)])
+def test_evp_kernel_on_the_tripole_matches_plain(cuda_device, dtype, ndte,
+                                                 tol):
+    """Kernel A with the U-fold of the north seam (land on the seam)."""
+    got = _captured_parity(cuda_device, dtype, ndte=ndte)
+    assert got["evp"][2].ns == "tripole"
+    assert _evp_rel(got) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("float64", 1e-12),
+                                       ("float32", 1e-5)])
+def test_remap_kernel_with_pond_chains_matches_plain(cuda_device, dtype,
+                                                     tol):
+    """Kernel B with the gx1-parity tracer table: type-3 pond depth and
+    lid on the type-2 pond area on the type-1 level-ice area."""
+    args = _captured_parity(cuda_device, dtype)["remap"]
+    assert 3 in args[5] and len(args[5]) == 19
+    assert _remap_rel(args) <= tol
+
+
+@pytest.mark.gpu
+def test_parity_path_launches_each_kernel_once_per_step(cuda_device):
+    m = _parity_model(cuda_device, "float32", ndte=4)
+    st = m.init_state()
+    kernels.reset_launch_counts()
+    st, d = m.rollout(st, m.forcing_at(PARITY_ISTEP), 3)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {"evp_sweep": 3, "remap_flux_both": 3,
+                                       "shortwave_dedd": 3}
     assert int(d.state_bad) == 0 and bool(torch.isfinite(st.vicen).all())

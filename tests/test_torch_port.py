@@ -1,7 +1,8 @@
 """Rules of the PyTorch port that need no numerics: it imports neither JAX
 nor ``cice5_tpu``, ``Model`` refuses to fall back to the CPU, options
-outside the slice raise, the kernel wrappers take CUDA tensors only, and
-the copied configuration/calendar code matches the JAX package's."""
+outside the port so far raise and the ported ones (the gx1-parity set)
+pass, the kernel wrappers take CUDA tensors only, and the copied
+configuration/calendar code matches the JAX package's."""
 import ast
 import dataclasses
 from pathlib import Path
@@ -76,15 +77,20 @@ def test_builders_need_an_explicit_device(builder):
 def _unsupported():
     base = tconfig.rect_config(ny=8, nx=8)
     r = dataclasses.replace
+    parity = tconfig.gx1_parity_config()
     return {
-        "tripole": base.replace(grid=r(base.grid, ns_boundary="tripole")),
-        "popgrid": base.replace(grid=r(base.grid, grid_type="tripole")),
-        "mushy": base.replace(thermo=r(base.thermo, ktherm=2)),
+        "tripole": base.replace(grid=r(base.grid, ns_boundary="tripoleT")),
+        "popgrid": base.replace(grid=r(base.grid,
+                                       grid_type="displaced_pole")),
+        "mushy": base.replace(thermo=r(base.thermo, ktherm=2),
+                              tracers=r(base.tracers, tr_brine=True)),
         "zerolayer": base.replace(thermo=r(base.thermo, ktherm=0)),
         "calc_Tsfc": base.replace(thermo=r(base.thermo, calc_Tsfc=False)),
-        "dEdd": base.replace(shortwave=r(base.shortwave, shortwave="dEdd")),
-        "iage": base.replace(tracers=r(base.tracers, tr_iage=True)),
-        "pond_lvl": base.replace(tracers=r(base.tracers, tr_lvl=True,
+        "dEdd": base.replace(shortwave=r(base.shortwave, shortwave="dEdd"),
+                             tracers=r(base.tracers, tr_pond_topo=True)),
+        "iage": base.replace(tracers=r(base.tracers, tr_iage=True,
+                                       tr_pond_cesm=True)),
+        "pond_lvl": base.replace(tracers=r(base.tracers, tr_lvl=False,
                                            tr_pond_lvl=True)),
         "aero": base.replace(tracers=r(base.tracers, tr_aero=True,
                                        n_aero=1)),
@@ -94,7 +100,24 @@ def _unsupported():
         "upwind": base.replace(dyn=r(base.dyn, advection="upwind")),
         "chunked": base.replace(dyn=r(base.dyn, evp_algorithm="chunked")),
         "compact": base.replace(grid=r(base.grid, compact_columns="on")),
-        "gx1_parity": tconfig.gx1_parity_config(),
+        "gx1_parity": parity.replace(dyn=r(parity.dyn,
+                                           evp_algorithm="pallas")),
+        # the gx1-parity options are held against JAX only all together
+        "tripole_seam_alone": base.replace(
+            grid=r(base.grid, ns_boundary="tripole")),
+        "mushy_alone": base.replace(thermo=r(base.thermo, ktherm=2)),
+        "dEdd_alone": base.replace(
+            shortwave=r(base.shortwave, shortwave="dEdd")),
+        "iage_FY_alone": base.replace(
+            tracers=r(base.tracers, tr_iage=True, tr_FY=True)),
+        "pond_lvl_alone": base.replace(
+            tracers=r(base.tracers, tr_lvl=True, tr_pond_lvl=True)),
+        "parity_without_ponds": parity.replace(
+            tracers=r(parity.tracers, tr_pond_lvl=False)),
+        "parity_cesm_lid": parity.replace(
+            tracers=r(parity.tracers, frzpnd="cesm")),
+        "parity_ccsm3": parity.replace(
+            shortwave=r(parity.shortwave, shortwave="ccsm3")),
     }
 
 
@@ -104,12 +127,57 @@ def test_options_outside_the_slice_raise(name):
         check_supported(_unsupported()[name])
 
 
+def _ported():
+    return {
+        "gx1_parity": tconfig.gx1_parity_config(),
+        "gx1_parity_f64": tconfig.gx1_parity_config(dtype="float64",
+                                                    accum_dtype="float64"),
+        "bench_easy": tconfig.bench_easy_config(),
+        "rect": tconfig.rect_config(ny=8, nx=8),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_ported()))
+def test_ported_options_are_accepted(name):
+    check_supported(_ported()[name])
+
+
+def test_parity_model_on_cpu_and_without_cuda(monkeypatch):
+    """Model(gx1_parity_config(), grid=synth_gx1_grid(...)) builds on the
+    CPU when asked, and raises without a GPU otherwise; a POP grid is never
+    read from files yet."""
+    from cice5_tpu_torch.grid import make_grid, synth_gx1_grid
+    cfg = tconfig.gx1_parity_config()
+    cfg = cfg.replace(grid=dataclasses.replace(cfg.grid, ny=24, nx=16))
+    g = synth_gx1_grid(cfg, device="cpu")
+    m = Model(cfg, grid=g, device="cpu")
+    st = m.init_state()
+    assert float(st.aicen.sum(0).max()) > 0.9
+    tr = m.tr
+    has = st.aicen > 0
+    assert bool((st.trcrn[:, tr.nt_alvl][has] == 1).all())
+    assert bool((st.trcrn[:, tr.nt_vlvl][has] == 1).all())
+    # the polar land bands of the 384-row fallback mask, resampled to 24
+    assert not bool(g.tmask[0].any()) and bool(g.tmask[1:].all())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Model(cfg, grid=g)
+    with pytest.raises(NotImplementedError, match="POP grid files"):
+        make_grid(cfg, device="cpu")
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     z = torch.zeros(4, 4)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.evp_sweep(ndte=1, cyc_x=True, cyc_y=False, u=z, v=z,
                           stress=z, maskR=z, strengthR=z, gR=z, uin=z,
                           cw_plane=False, Cw=0.0, p=None)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.shortwave_dedd(
+            nilyr=4, nslyr=1, **{k: torch.zeros(1, 4, 4) for k in (
+                "aicen", "vicen", "vsnon", "Tsfcn", "apnd", "hpnd")},
+            **{k: z for k in ("coszen", "fnidr", "swvdr", "swvdf", "swidr",
+                              "swidf")})
     with pytest.raises(ValueError, match="CUDA"):
         kernels.remap_flux_both(mmE2=torch.zeros(1, 8, 8),
                                 tmE2=torch.zeros(1, 1, 8, 8), hmE2=z,

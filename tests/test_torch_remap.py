@@ -162,3 +162,53 @@ def test_tracer_table_class_sorted():
     assert tt[:3] == (1, 1, 1) and set(tt[3:]) == {2}
     assert all(tt[p] == 1 for t, p in zip(tt, par) if t == 2)
     assert [order[i] for i in inv] == list(range(18))
+
+
+def test_parity_tracer_table_on_tripole_matches_pallas_interpret():
+    """The gx1-parity tracer table (19 tracers: the level-ice area as a
+    type-1 parent, the pond area apnd as type 2 on it, the pond depth and
+    lid as type 3 on apnd) through the plain version of remap_flux_both
+    against the JAX package's merged Pallas kernel in interpret mode, on a
+    tripole grid whose land touches the seam, with ice across the fold."""
+    from cice5_tpu.config import gx1_parity_config as jparity
+    from cice5_tpu.grid import popgrid_np as jpopgrid
+    from cice5_tpu_torch.grid import popgrid_np as tpopgrid
+    from torch_port_util import parity_grid_arrays
+    jcfg = jparity()
+    jcfg = jcfg.replace(grid=dataclasses.replace(jcfg.grid, ny=24, nx=16),
+                        dtype="float64")
+    jg = jpopgrid(jcfg, *parity_grid_arrays())
+    tcfg = convert.config_from_dict(dataclasses.asdict(jcfg))
+    tg = tpopgrid(tcfg, *parity_grid_arrays(), device="cpu")
+    tracer_type, parent, _, _ = trm.tracer_table(build_tracer_registry(tcfg))
+    assert len(tracer_type) == 19 and 3 in tracer_type
+    assert all(tracer_type[parent[t]] == 2 for t in range(19)
+               if tracer_type[t] == 3)
+    ny, nx, ncat = 24, 16, 5
+    rng = np.random.default_rng(21)
+    tmask = np.asarray(jg.tmask)
+    mm = rng.uniform(0.0, 0.2, (ncat, ny, nx)) * tmask
+    mm[:, :12] = 0.0                            # ice-free southern half
+    tm = rng.uniform(0.0, 1.0, (ncat, 19, ny, nx))
+    u = 0.3 * (rng.uniform(size=(ny, nx)) - 0.5)
+    v = 0.3 * (rng.uniform(size=(ny, nx)) - 0.5)
+    jtopo = JTopology(ew="cyclic", ns="tripole")
+
+    def jref(g, u, v, mm, tm):
+        geo = jrm.remap_geometry(3600.0, g, jtopo, uvel=u, vvel=v)
+        return jrm.remap_fields_batch(g, jtopo, geo, mm=mm, tm=tm,
+                                      tracer_type=tracer_type, parent=parent,
+                                      interpret=True)
+    ref = jit_fast(jref)(jg, jnp.asarray(u), jnp.asarray(v), jnp.asarray(mm),
+                         jnp.asarray(tm))
+    topo = Topology(ew="cyclic", ns="tripole")
+    tgeo = trm.remap_geometry(3600.0, tg, topo, uvel=torch.as_tensor(u),
+                              vvel=torch.as_tensor(v))
+    out = trm.remap_fields_batch(tg, topo, tgeo, mm=torch.as_tensor(mm),
+                                 tm=torch.as_tensor(tm),
+                                 tracer_type=tracer_type, parent=parent)
+    _close(ref[0], out[0], name="mm")
+    for k in range(19):
+        assert_close(np.asarray(ref[1])[:, k], out[1][:, k], RTOL,
+                     f"tm[{k}] type {tracer_type[k]}", floor=1e-12)
+    assert float(out[0][:, -1].max()) > 0.0     # ice reaches the seam row

@@ -18,21 +18,30 @@ toolkit. Phases (any failure exits non-zero):
    the delta-Eddington kernel (float64 and float32 on the captured
    inputs, float64 with seeded ponds under the level, cesm and topo pond
    setups; 5 categories, nilyr=4, with an unlit band that must be exact
-   zeros), every output field and every layer on its own scale. Kernel and plain times come
-   from CUDA events.
+   zeros), every output field and every layer on its own scale; the
+   fused EVP kernel (float64 and float32 at ndte=1 with kchunk=1 and
+   ndte=120 with kchunk=10, on the BL99 inputs) against its plain version
+   and against the EVP sweep kernel; the single-edge remap kernel (both
+   edges, float64 and float32, both tracer tables, with the ice-free
+   band) against its plain version and the same edge set of the merged
+   remap kernel. Kernel and plain times come from CUDA events.
 3. Check the whole paths against the plain paths on small inputs: two
    float64 steps on the GPU (kernels) and on the CPU (plain versions)
-   from one warmed-up state, for the BL99 model and for the gx1-parity
-   model on a small tripole grid whose land touches the seam.
+   from one warmed-up state, for the BL99 model (with the EVP sweep, and
+   with the fused EVP at ndte=10) and for the gx1-parity model on a small
+   tripole grid whose land touches the seam.
 4. Drive the main paths through ``Model.init_state`` and ``rollout`` with
    the health guards of ``bench.py`` and a per-step timing cross-check:
    the gx1-parity model (``gx1_parity_config()`` on ``synth_gx1_grid``,
-   320x384, float32, ndte=120; 10 timed steps), then the BL99 + CCSM3
-   model of slice 1 (5 timed steps). For each, the launch counters are
-   set to 0 just before its timed rollout and read just after.
+   320x384, float32, ndte=120; 10 timed steps), the BL99 + CCSM3 model of
+   slice 1 (5 timed steps), and the same model with
+   ``evp_algorithm="pallas"`` (the fused EVP kernel, 12 launches per
+   step; 5 timed steps). For each, the launch counters are set to 0 just
+   before its timed rollout and read just after.
 5. Print one JSON line with every kernel (launches from the gx1-parity
-   main path, times on its inputs), then the card line, then
-   ``{"ok": true, "device": {...}}`` as the last line.
+   main path, the fused kernel's from the fused path; times on the
+   gx1-parity inputs, the fused kernel's on the BL99 ones), then the card
+   line, then ``{"ok": true, "device": {...}}`` as the last line.
 """
 from __future__ import annotations
 
@@ -128,18 +137,77 @@ def evp_phase(cap64, cap32, label):
     plain_ms = cuda_time_ms(lambda: tevp.subcycle_sweep(p, ndte, topo, **kw),
                             reps=2)
     ny, nx = kw["uvel"].shape
+    bound_ms, bound_by, what = evp_bound(kw, ndte)
+    print(f"evp_sweep {label} f32 ndte={ndte} at {ny}x{nx}: kernel "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+          f"({what})")
+    return dict(err=results["f32 ndte=120"][0], ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def evp_bound(kw, ndte):
+    """(bound ms, "bytes"/"operations", text) of an ndte-subcycle float32
+    EVP sweep on these inputs: each input read once, each output written
+    once, and the hand-counted flops of every subcycle."""
+    ny, nx = kw["uvel"].shape
     nreg, nu = (ny + 1) * (nx + 1), ny * nx
     nbytes = 4 * ((2 + 13) * nu + (12 + 2 + 10) * nreg      # inputs
                   + (2 + 2) * nu + (12 + 5) * nreg)          # outputs
     flops = ndte * (EVP_FLOP_REGION * nreg + EVP_FLOP_U * nu)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
-    print(f"evp_sweep {label} f32 ndte={ndte} at {ny}x{nx}: kernel "
-          f"{ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms, bound {1e3 * max(t_bytes, t_ops):.4f} "
-          f"ms ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
-    return dict(err=results["f32 ndte=120"][0], ms=ms, plain_ms=plain_ms,
-                bound_ms=1e3 * max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations",
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP")
+
+
+def evp_fused_phase(cap64, cap32):
+    """Kernel D (evp_fused, ndte/kchunk launches of kchunk subcycles on
+    2-D tiles with margins) against its plain version fused_sweep_plain
+    (nwin=4 Y-windows) and against kernel A on the same captured inputs of
+    the open-boundary BL99 grid, each output against its own scale. D is
+    the same function as A with the same per-point code
+    (csrc/evp_point.cuh), so it is held with A's bounds."""
+    import torch
+    from cice5_tpu_torch.models.dynamics import evp as tevp
+    from cice5_tpu_torch.ops import check
+    from cice5_tpu_torch.ops import evp_fused as tfused
+    results, bad = {}, []
+    for tag, (p, _, topo, kw), ndte, kchunk, tol in (
+            ("f64 ndte=1", cap64, 1, 1, 1e-12),
+            ("f64 ndte=120", cap64, 120, 10, 3e-8),
+            ("f32 ndte=1", cap32, 1, 1, 1e-6),
+            ("f32 ndte=120", cap32, 120, 10, 1e-5)):
+        sw = dict(kchunk=kchunk, nwin=4, **kw)
+        got = check.evp_outputs(tfused.fused_sweep(p, ndte, topo, **sw))
+        plain = check.evp_outputs(tfused.fused_sweep_plain(p, ndte, topo,
+                                                           **sw))
+        a = check.evp_outputs(tevp.evp_sweep(p, ndte, topo, **kw))
+        torch.cuda.synchronize()
+        fp, rp, ep = check.worst(check.field_errors(plain, got))
+        fa, ra, ea = check.worst(check.field_errors(a, got))
+        print(f"evp_fused BL99 {tag} kchunk={kchunk}: vs fused_sweep_plain "
+              f"max abs diff {ep:.3e}, worst field {fp}: rel diff {rp:.3e}; "
+              f"vs evp_sweep max abs diff {ea:.3e}, worst field {fa}: rel "
+              f"diff {ra:.3e} (bound {tol:.0e} x the field's scale)")
+        results[tag] = ep
+        if not (rp <= tol and ra <= tol):
+            bad.append(tag)
+    if bad:
+        fail(f"evp_fused disagrees with its plain version or evp_sweep: {bad}")
+    p, ndte, topo, kw = cap32
+    sw = dict(kchunk=10, nwin=4, **kw)
+    ms = cuda_time_ms(lambda: tfused.fused_sweep(p, ndte, topo, **sw), reps=5)
+    plain_ms = cuda_time_ms(
+        lambda: tfused.fused_sweep_plain(p, ndte, topo, **sw), reps=2)
+    a_ms = cuda_time_ms(lambda: tevp.evp_sweep(p, ndte, topo, **kw), reps=5)
+    ny, nx = kw["uvel"].shape
+    bound_ms, bound_by, what = evp_bound(kw, ndte)
+    print(f"evp_fused BL99 f32 ndte={ndte} kchunk=10 at {ny}x{nx}: kernel "
+          f"{ms:.3f} ms ({ndte // 10} launches), plain {plain_ms:.3f} ms, "
+          f"evp_sweep on the same inputs {a_ms:.3f} ms, bound "
+          f"{bound_ms:.4f} ms ({what}, the work of evp_sweep)")
+    return dict(err=results["f32 ndte=120"], ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 def remap_args_with_band(args):
@@ -195,43 +263,106 @@ def remap_phase(args64, args32, grid64, grid32, label):
     args = args32
     ms = cuda_time_ms(lambda: trm.remap_flux_both(*args), reps=10)
     plain_ms = cuda_time_ms(lambda: trm.remap_flux_plain(*args), reps=3)
+    ny, nx = args[-2:]
+    ncat, ntrace = args[3].shape[:2]
+    bound_ms, bound_by, what = remap_bound(args, ("north", "east"))
+    print(f"remap_flux_both {label} f32 at {ny}x{nx}, ncat={ncat}, "
+          f"ntrace={ntrace}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {bound_ms:.4f} ms ({what})")
+    return dict(err=errs["f32"], ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def remap_bound(args, edges):
+    """(bound ms, "bytes"/"operations", text) of the float32 remap flux
+    kernel on these inputs for the given edge sets: the raw fields read
+    once, each edge set's geometry read and fluxes written once, and the
+    hand-counted flops where the data needs them (cells and edges with ice
+    within reach)."""
+    import torch
     geomN, geomE, mmE2, tmE2, hmE2, tt, par, ny, nx = args
     ncat, ntrace = tmE2.shape[:2]
-    nN, nE = (ny + 1) * nx, ny * (nx + 1)
+    nedge = sum((ny + 1) * nx if e == "north" else ny * (nx + 1)
+                for e in edges)
     nbytes = 4 * (mmE2.numel() + tmE2.numel() + hmE2.numel()
-                  + 48 * (nN + nE)                           # geometry
-                  + ncat * (1 + ntrace) * (nN + nE))         # fluxes
-    # work this run's data needs: cells and edges with ice within reach
+                  + 48 * nedge                               # geometry
+                  + ncat * (1 + ntrace) * nedge)             # fluxes
     lit = torch.nn.functional.max_pool2d(
         (mmE2 != 0).float()[:, None], 5, stride=1)[:, 0]     # (ncat,ny,nx)
     nlit = float(lit.sum())
     nparent = len({q for q, t in zip(par, tt) if t == 2})
     flops = nlit * (RM_FLOP_CELL + RM_FLOP_CELL_TRACER * ntrace) \
-        + 2 * nlit * (RM_FLOP_EDGE + RM_FLOP_EDGE_TRACER * ntrace
-                      + RM_FLOP_EDGE_PARENT * nparent)
+        + len(edges) * nlit * (RM_FLOP_EDGE + RM_FLOP_EDGE_TRACER * ntrace
+                               + RM_FLOP_EDGE_PARENT * nparent)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
-    print(f"remap_flux_both {label} f32 at {ny}x{nx}, ncat={ncat}, "
-          f"ntrace={ntrace}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-          f"bound {1e3 * max(t_bytes, t_ops):.4f} ms "
-          f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
-    return dict(err=errs["f32"], ms=ms, plain_ms=plain_ms,
-                bound_ms=1e3 * max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations",
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP")
 
 
-def small_reference_check():
+def remap_edge_phase(args64, args32, label):
+    """Kernel E (remap_flux_edge: the reconstruction and ONE edge set's
+    integrals) against its plain version remap_flux_edge_plain and against
+    the same edge set of kernel B, for both edges, with the ice-free band,
+    each flux against its own scale. E shares B's device code, so it should
+    equal B's half bit for bit."""
+    import torch
+    from cice5_tpu_torch.models.transport import remap as trm
+    from cice5_tpu_torch.ops import check
+    names, axes = ("mflx", "mtflx"), {"mtflx": 1}
+    errs, bad = {}, []
+    for tag, args, tol in (("f64", args64, 1e-12), ("f32", args32, 1e-5)):
+        args = remap_args_with_band(args)
+        geomN, geomE, mm, tm, hm, tt, par, ny, nx = args
+        both = trm.remap_flux_both(*args)
+        for edge, geom, half in (("north", geomN, both[:2]),
+                                 ("east", geomE, both[2:])):
+            call = (edge, geom, mm, tm, hm, tt, par, ny, nx)
+            got = dict(zip(names, trm.remap_flux_edge(*call)))
+            plain = dict(zip(names, trm.remap_flux_edge_plain(*call)))
+            torch.cuda.synchronize()
+            fp, rp, ep = check.worst(check.field_errors(plain, got, axes))
+            fb, rb, eb = check.worst(check.field_errors(
+                dict(zip(names, half)), got, axes))
+            print(f"remap_flux_edge {label} {tag} {edge}: vs "
+                  f"remap_flux_edge_plain max abs diff {ep:.3e}, worst flux "
+                  f"{fp}: rel diff {rp:.3e} (bound {tol:.0e} x the flux's "
+                  f"scale); vs remap_flux_both's {edge} half max abs diff "
+                  f"{eb:.3e} (worst {fb}: rel {rb:.3e})")
+            errs[(tag, edge)] = ep
+            if not (rp <= tol and rb <= tol):
+                bad.append(f"{tag} {edge}")
+    if bad:
+        fail(f"remap_flux_edge disagrees ({label}): {bad}")
+    geomN, _, mm, tm, hm, tt, par, ny, nx = args32
+    call = ("north", geomN, mm, tm, hm, tt, par, ny, nx)
+    ms = cuda_time_ms(lambda: trm.remap_flux_edge(*call), reps=10)
+    plain_ms = cuda_time_ms(lambda: trm.remap_flux_edge_plain(*call), reps=3)
+    bound_ms, bound_by, what = remap_bound(args32, ("north",))
+    print(f"remap_flux_edge {label} f32 north edges at {ny}x{nx}: kernel "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+          f"({what})")
+    return dict(err=max(errs[("f32", e)] for e in ("north", "east")), ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def small_reference_check(evp_algorithm="auto", ndte=8):
     """The whole path through the kernels on the GPU against the plain
     versions on the CPU: a 16x32 float64 model, one warm-up step on the
     CPU, then two steps on each device from that state. (From rest the
     first EVP step turns the rounding noise of the strain rates of a
     uniform flow into stress, c0 = strength / tinyarea, so a 1-ulp
     difference between the devices' exp() grows to ~1e-5 there; from a
-    moving state the step is well conditioned.)"""
+    moving state the step is well conditioned.) ``evp_algorithm="pallas"``
+    checks the fused-EVP path the same way."""
+    import dataclasses
     import torch
     from cice5_tpu_torch.config import bench_easy_config
     from cice5_tpu_torch.driver.model import Model
     from cice5_tpu_torch.ops import check
-    cfg = bench_easy_config(ny=16, nx=32, ndte=8, dtype="float64")
+    cfg = bench_easy_config(ny=16, nx=32, ndte=ndte, dtype="float64")
+    cfg = cfg.replace(dyn=dataclasses.replace(cfg.dyn,
+                                              evp_algorithm=evp_algorithm))
     mc, mg = Model(cfg, device="cpu"), Model(cfg, device="cuda")
     st = mc.init_state(ice_mask=mc.grid.tmask)
     f = mc.forcing_at(0)
@@ -243,13 +374,13 @@ def small_reference_check():
     field, rel, err = check.worst(check.field_errors(
         {k: getattr(ref, k) for k in names},
         {k: getattr(got, k).cpu() for k in names}, axes={"trcrn": 1}))
-    print(f"small float64 run (16x32, ndte=8, 2 steps after a warm-up "
-          f"step): GPU kernels vs CPU plain max abs diff {err:.3e}; worst "
-          f"field {field}: rel diff {rel:.3e} (bound 3e-8 x the field's "
-          f"scale)")
+    print(f"small float64 run (16x32, evp_algorithm={evp_algorithm}, "
+          f"ndte={ndte}, 2 steps after a warm-up step): GPU kernels vs CPU "
+          f"plain max abs diff {err:.3e}; worst field {field}: rel diff "
+          f"{rel:.3e} (bound 3e-8 x the field's scale)")
     if not rel <= 3e-8:
-        fail(f"small float64 run: {field} on the GPU differs from the CPU "
-             f"by {rel:.3e} of its scale (> 3e-8)")
+        fail(f"small float64 run ({evp_algorithm}): {field} on the GPU "
+             f"differs from the CPU by {rel:.3e} of its scale (> 3e-8)")
 
 
 def dedd_args_with_band(kw):
@@ -486,6 +617,18 @@ def build_bl99():
     return m, m.init_state(ice_mask=m.grid.tmask), m.forcing_at(0)
 
 
+def build_bl99_fused():
+    """The BL99 + CCSM3 model with the fused EVP sweep
+    (evp_algorithm="pallas", kernel D: ndte/10 launches per step)."""
+    import dataclasses
+    from cice5_tpu_torch.config import bench_easy_config
+    from cice5_tpu_torch.driver.model import Model
+    cfg = bench_easy_config()            # 320x384, float32, ndte=120
+    m = Model(cfg.replace(dyn=dataclasses.replace(cfg.dyn,
+                                                  evp_algorithm="pallas")))
+    return m, m.init_state(ice_mask=m.grid.tmask), m.forcing_at(0)
+
+
 def capture(build_model, dtype):
     """Kernel arguments of one step at the main path's shapes, after a
     warm-up step (velocities and stresses non-zero)."""
@@ -527,6 +670,10 @@ def main():
     evp_phase(caps["float64"][1]["evp"], caps["float32"][1]["evp"], "BL99")
     remap_phase(caps["float64"][1]["remap"], caps["float32"][1]["remap"],
                 caps["float64"][0], caps["float32"][0], "BL99")
+    # slice 3: kernel D on the same open-boundary inputs, E beside B
+    d = evp_fused_phase(caps["float64"][1]["evp"], caps["float32"][1]["evp"])
+    remap_edge_phase(caps["float64"][1]["remap"],
+                     caps["float32"][1]["remap"], "BL99")
     # slice 2: the gx1-parity model's (tripole seam, 19 tracers, dEdd)
     def parity_model(dt):
         cfg = gx1_parity_config(dtype=dt, accum_dtype=dt)
@@ -539,14 +686,22 @@ def main():
     b = remap_phase(caps["float64"][1]["remap"], caps["float32"][1]["remap"],
                     caps["float64"][0], caps["float32"][0], "gx1")
     c = dedd_phase(caps["float64"][1]["dedd"], caps["float32"][1]["dedd"])
+    e = remap_edge_phase(caps["float64"][1]["remap"],
+                         caps["float32"][1]["remap"], "gx1")
     del caps
     small_reference_check()
+    small_reference_check("pallas", ndte=10)
     parity_reference_check()
     launches = main_path("gx1-parity", build_parity, 10,
                          dict(evp_sweep=10, remap_flux_both=10,
-                              shortwave_dedd=10))
+                              shortwave_dedd=10, evp_fused=0,
+                              remap_flux_edge=0))
     main_path("BL99+CCSM3", build_bl99, 5,
-              dict(evp_sweep=5, remap_flux_both=5, shortwave_dedd=0))
+              dict(evp_sweep=5, remap_flux_both=5, shortwave_dedd=0,
+                   evp_fused=0, remap_flux_edge=0))
+    fused = main_path("BL99+CCSM3 fused EVP", build_bl99_fused, 5,
+                      dict(evp_sweep=0, remap_flux_both=5, shortwave_dedd=0,
+                           evp_fused=60, remap_flux_edge=0))
 
     line = {"kernels": [
         dict(name="evp_sweep", route="cuda",
@@ -567,6 +722,19 @@ def main():
              launches=launches["shortwave_dedd"], max_abs_err=c["err"],
              ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
              bound_by=c["bound_by"], library_ms=None),
+        dict(name="evp_fused", route="cuda",
+             source="cice5_tpu_torch/csrc/evp_fused.cu",
+             replaces="cice5_tpu/ops/pallas/evp_fused.py:49",
+             launches=fused["evp_fused"], max_abs_err=d["err"],
+             ms=d["ms"], plain_ms=d["plain_ms"], bound_ms=d["bound_ms"],
+             bound_by=d["bound_by"], library_ms=None),
+        # no main path calls the single-edge kernel (0 launches on each)
+        dict(name="remap_flux_edge", route="cuda",
+             source="cice5_tpu_torch/csrc/remap_flux_both.cu",
+             replaces="cice5_tpu/ops/pallas/remap_flux.py:75",
+             launches=launches["remap_flux_edge"], max_abs_err=e["err"],
+             ms=e["ms"], plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
+             bound_by=e["bound_by"], library_ms=None),
     ]}
     print(json.dumps(line))
     print(card)

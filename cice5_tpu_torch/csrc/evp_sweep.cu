@@ -32,34 +32,17 @@
 //
 // The diagnostics (divu, shear, rdg_conv, rdg_shear, prs_sig, strintx,
 // strinty) are written only by the last subcycle, as the JAX fori_loop
-// keeps only the last iteration's values. Every expression keeps the
+// keeps only the last iteration's values. The per-point arithmetic is
+// evp_point.cuh, shared with evp_fused.cu: every expression keeps the
 // operation order of the plain version (models/dynamics/evp.py) and the
 // build turns off FMA contraction (ops/kernels.py NVCC_FLAGS), so the
 // kernel rounds like the plain version: where Delta < tinyarea the
 // stress update amplifies any last-bit difference ~1e4 per subcycle.
-#include <cuda_runtime.h>
-#include <stddef.h>
+#include "evp_point.cuh"
 
 namespace {
 
-template <typename T>
-struct C {
-  static constexpr T p027 = T(0.027777777777777776);
-  static constexpr T p055 = T(0.05555555555555555);
-  static constexpr T p111 = T(0.1111111111111111);
-  static constexpr T p166 = T(0.16666666666666666);
-  static constexpr T p222 = T(0.2222222222222222);
-  static constexpr T p25 = T(0.25);
-  static constexpr T p333 = T(0.3333333333333333);
-  static constexpr T p5 = T(0.5);
-};
-
-template <typename T>
-__device__ __forceinline__ T tmax(T a, T b) { return a > b ? a : b; }
-template <typename T>
-__device__ __forceinline__ T tmin(T a, T b) { return a < b ? a : b; }
-template <typename T>
-__device__ __forceinline__ T tabs(T a) { return a < T(0) ? -a : a; }
+using namespace evp;
 
 // value of a (ny, nx) U-point field at (j, i), j in [-1, ny], i in
 // [-1, nx]: the ghost ring of halo.extend (x first, then full rows in y).
@@ -93,35 +76,21 @@ __device__ __forceinline__ T ghosted(const T* __restrict__ f, int j, int i,
   return f[(size_t)j * nx + i];
 }
 
-// region metric planes, in evp.GR_NAMES order
-enum { G_DXT, G_DYT, G_DXHY, G_DYHX, G_CXP, G_CYP, G_CXM, G_CYM, G_TAREAR,
-       G_TINY };
-// U-point planes, in evp.U_NAMES order (+ Cw plane when given)
-enum { U_ICEM, U_AIU, U_UOCN, U_VOCN, U_WATERX, U_WATERY, U_FORCEX,
-       U_FORCEY, U_UMASSDTI, U_FM, U_UAREAR, U_UINIT, U_VINIT, U_CW };
-
 template <typename T>
 __global__ void evp_stress(int ny, int nx, int cyc_x, int cyc_y, int fold,
                            const T* __restrict__ u, const T* __restrict__ v,
                            T* __restrict__ stress,
                            const T* __restrict__ maskR,
                            const T* __restrict__ strengthR,
-                           const T* __restrict__ gR, T arlx1i, T denom1,
-                           T ecci, T* __restrict__ str8,
-                           T* __restrict__ diagR, int last) {
-  typedef C<T> K;
+                           const T* __restrict__ gR, Params<T> P,
+                           T* __restrict__ str8, T* __restrict__ diagR,
+                           int last) {
   const int nyr = ny + 1, nxr = nx + 1;
   const int ir = blockIdx.x * blockDim.x + threadIdx.x;
   const int jr = blockIdx.y * blockDim.y + threadIdx.y;
   if (ir >= nxr || jr >= nyr) return;
   const size_t np = (size_t)nyr * nxr;
   const size_t k = (size_t)jr * nxr + ir;
-
-  const T dxt = gR[G_DXT * np + k], dyt = gR[G_DYT * np + k];
-  const T dxhy = gR[G_DXHY * np + k], dyhx = gR[G_DYHX * np + k];
-  const T cxp = gR[G_CXP * np + k], cyp = gR[G_CYP * np + k];
-  const T cxm = gR[G_CXM * np + k], cym = gR[G_CYM * np + k];
-  const T tarear = gR[G_TAREAR * np + k], tinyarea = gR[G_TINY * np + k];
 
   // region point (jr, ir) is T cell (jr, ir); its corners are the U
   // points (jr, ir) [NE], (jr, ir-1) [NW], (jr-1, ir-1) [SW], (jr-1, ir)
@@ -134,155 +103,27 @@ __global__ void evp_stress(int ny, int nx, int cyc_x, int cyc_y, int fold,
   const T vS = ghosted(v, jr - 1, ir, ny, nx, cyc_x, cyc_y, fold);
   const T vSW = ghosted(v, jr - 1, ir - 1, ny, nx, cyc_x, cyc_y, fold);
 
-  // strain rates * area (ice_dyn_evp.F90:627-655)
-  const T divune = cyp * u00 - dyt * uW + cxp * v00 - dxt * vS;
-  const T divunw = cym * uW + dyt * u00 + cxp * vW - dxt * vSW;
-  const T divusw = cym * uSW + dyt * uS + cxm * vSW + dxt * vW;
-  const T divuse = cyp * uS - dyt * uSW + cxm * vS + dxt * v00;
-
-  const T tensionne = -cym * u00 - dyt * uW + cxm * v00 + dxt * vS;
-  const T tensionnw = -cyp * uW + dyt * u00 + cxm * vW + dxt * vSW;
-  const T tensionsw = -cyp * uSW + dyt * uS + cxp * vSW - dxt * vW;
-  const T tensionse = -cym * uS - dyt * uSW + cxp * vS - dxt * v00;
-
-  const T shearne = -cym * v00 - dyt * vW - cxm * u00 - dxt * uS;
-  const T shearnw = -cyp * vW + dyt * v00 - cxm * uW - dxt * uSW;
-  const T shearsw = -cyp * vSW + dyt * vS - cxp * uSW + dxt * uW;
-  const T shearse = -cym * vS - dyt * vSW - cxp * uS + dxt * u00;
-
-  const T Deltane = sqrt(divune * divune
-                         + ecci * (tensionne * tensionne + shearne * shearne));
-  const T Deltanw = sqrt(divunw * divunw
-                         + ecci * (tensionnw * tensionnw + shearnw * shearnw));
-  const T Deltase = sqrt(divuse * divuse
-                         + ecci * (tensionse * tensionse + shearse * shearse));
-  const T Deltasw = sqrt(divusw * divusw
-                         + ecci * (tensionsw * tensionsw + shearsw * shearsw));
-
-  // replacement pressure (:683-699)
-  const T strength = strengthR[k];
-  const T tiny = tmax(tinyarea, T(1e-30));
-  T c0ne = strength / tmax(Deltane, tiny);
-  T c0nw = strength / tmax(Deltanw, tiny);
-  T c0sw = strength / tmax(Deltasw, tiny);
-  T c0se = strength / tmax(Deltase, tiny);
-  const T prs_sig = c0ne * Deltane;
-
-  const T c1ne = c0ne * arlx1i, c1nw = c0nw * arlx1i;
-  const T c1sw = c0sw * arlx1i, c1se = c0se * arlx1i;
-  c0ne = c1ne * ecci;
-  c0nw = c1nw * ecci;
-  c0sw = c1sw * ecci;
-  c0se = c1se * ecci;
-
   const bool m = maskR[k] > T(0.5);
-  T* s = stress;
-  const T d1 = denom1;
-  const T sp1 = m ? (s[0 * np + k] + c1ne * (divune - Deltane)) * d1 : T(0);
-  const T sp2 = m ? (s[1 * np + k] + c1nw * (divunw - Deltanw)) * d1 : T(0);
-  const T sp3 = m ? (s[2 * np + k] + c1sw * (divusw - Deltasw)) * d1 : T(0);
-  const T sp4 = m ? (s[3 * np + k] + c1se * (divuse - Deltase)) * d1 : T(0);
-  const T sm1 = m ? (s[4 * np + k] + c0ne * tensionne) * d1 : T(0);
-  const T sm2 = m ? (s[5 * np + k] + c0nw * tensionnw) * d1 : T(0);
-  const T sm3 = m ? (s[6 * np + k] + c0sw * tensionsw) * d1 : T(0);
-  const T sm4 = m ? (s[7 * np + k] + c0se * tensionse) * d1 : T(0);
-  const T s121 = m ? (s[8 * np + k] + c0ne * shearne * K::p5) * d1 : T(0);
-  const T s122 = m ? (s[9 * np + k] + c0nw * shearnw * K::p5) * d1 : T(0);
-  const T s123 = m ? (s[10 * np + k] + c0sw * shearsw * K::p5) * d1 : T(0);
-  const T s124 = m ? (s[11 * np + k] + c0se * shearse * K::p5) * d1 : T(0);
-  s[0 * np + k] = sp1;
-  s[1 * np + k] = sp2;
-  s[2 * np + k] = sp3;
-  s[3 * np + k] = sp4;
-  s[4 * np + k] = sm1;
-  s[5 * np + k] = sm2;
-  s[6 * np + k] = sm3;
-  s[7 * np + k] = sm4;
-  s[8 * np + k] = s121;
-  s[9 * np + k] = s122;
-  s[10 * np + k] = s123;
-  s[11 * np + k] = s124;
-
-  if (last) {
-    // ridging / diagnostic terms (:667-677)
-    const T divu = K::p25 * (divune + divunw + divuse + divusw) * tarear;
-    const T Delta_avg =
-        K::p25 * (Deltane + Deltanw + Deltase + Deltasw) * tarear;
-    const T ts = tensionne + tensionnw + tensionse + tensionsw;
-    const T ss = shearne + shearnw + shearse + shearsw;
-    diagR[0 * np + k] = divu;
-    diagR[1 * np + k] = K::p25 * tarear * sqrt(ts * ts + ss * ss);
-    diagR[2 * np + k] = -tmin(divu, T(0));
-    diagR[3 * np + k] = K::p5 * (Delta_avg - tabs(divu));
-    diagR[4 * np + k] = prs_sig;
-  }
-
-  // stress-divergence combinations (ice_dyn_evp.F90:722-849)
-  const T ssigpn = sp1 + sp2, ssigps = sp3 + sp4;
-  const T ssigpe = sp1 + sp4, ssigpw = sp2 + sp3;
-  const T ssigp1 = (sp1 + sp3) * K::p055, ssigp2 = (sp2 + sp4) * K::p055;
-  const T ssigmn = sm1 + sm2, ssigms = sm3 + sm4;
-  const T ssigme = sm1 + sm4, ssigmw = sm2 + sm3;
-  const T ssigm1 = (sm1 + sm3) * K::p055, ssigm2 = (sm2 + sm4) * K::p055;
-  const T ssig12n = s121 + s122, ssig12s = s123 + s124;
-  const T ssig12e = s121 + s124, ssig12w = s122 + s123;
-  const T ssig121 = (s121 + s123) * K::p111;
-  const T ssig122 = (s122 + s124) * K::p111;
-
-  const T csigpne = K::p111 * sp1 + ssigp2 + K::p027 * sp3;
-  const T csigpnw = K::p111 * sp2 + ssigp1 + K::p027 * sp4;
-  const T csigpsw = K::p111 * sp3 + ssigp2 + K::p027 * sp1;
-  const T csigpse = K::p111 * sp4 + ssigp1 + K::p027 * sp2;
-  const T csigmne = K::p111 * sm1 + ssigm2 + K::p027 * sm3;
-  const T csigmnw = K::p111 * sm2 + ssigm1 + K::p027 * sm4;
-  const T csigmsw = K::p111 * sm3 + ssigm2 + K::p027 * sm1;
-  const T csigmse = K::p111 * sm4 + ssigm1 + K::p027 * sm2;
-  const T csig12ne = K::p222 * s121 + ssig122 + K::p055 * s123;
-  const T csig12nw = K::p222 * s122 + ssig121 + K::p055 * s124;
-  const T csig12sw = K::p222 * s123 + ssig122 + K::p055 * s121;
-  const T csig12se = K::p222 * s124 + ssig121 + K::p055 * s122;
-
-  const T str12ew = K::p5 * dxt * (K::p333 * ssig12e + K::p166 * ssig12w);
-  const T str12we = K::p5 * dxt * (K::p333 * ssig12w + K::p166 * ssig12e);
-  const T str12ns = K::p5 * dyt * (K::p333 * ssig12n + K::p166 * ssig12s);
-  const T str12sn = K::p5 * dyt * (K::p333 * ssig12s + K::p166 * ssig12n);
-
-  const T strp_n = K::p25 * dyt * (K::p333 * ssigpn + K::p166 * ssigps);
-  const T strm_n = K::p25 * dyt * (K::p333 * ssigmn + K::p166 * ssigms);
-  const T strp_s = K::p25 * dyt * (K::p333 * ssigps + K::p166 * ssigpn);
-  const T strm_s = K::p25 * dyt * (K::p333 * ssigms + K::p166 * ssigmn);
-  const T strp_e = K::p25 * dxt * (K::p333 * ssigpe + K::p166 * ssigpw);
-  const T strm_e = K::p25 * dxt * (K::p333 * ssigme + K::p166 * ssigmw);
-  const T strp_w = K::p25 * dxt * (K::p333 * ssigpw + K::p166 * ssigpe);
-  const T strm_w = K::p25 * dxt * (K::p333 * ssigmw + K::p166 * ssigme);
-
-  T o[8];
-  o[0] = -strp_n - strm_n - str12ew + dxhy * (-csigpne + csigmne)
-         + dyhx * csig12ne;
-  o[1] = strp_n + strm_n - str12we + dxhy * (-csigpnw + csigmnw)
-         + dyhx * csig12nw;
-  o[2] = -strp_s - strm_s + str12ew + dxhy * (-csigpse + csigmse)
-         + dyhx * csig12se;
-  o[3] = strp_s + strm_s + str12we + dxhy * (-csigpsw + csigmsw)
-         + dyhx * csig12sw;
-  o[4] = -strp_e + strm_e - str12ns - dyhx * (csigpne + csigmne)
-         + dxhy * csig12ne;
-  o[5] = strp_e - strm_e - str12sn - dyhx * (csigpse + csigmse)
-         + dxhy * csig12se;
-  o[6] = -strp_w + strm_w + str12ns - dyhx * (csigpnw + csigmnw)
-         + dxhy * csig12nw;
-  o[7] = strp_w - strm_w + str12sn - dyhx * (csigpsw + csigmsw)
-         + dxhy * csig12sw;
+  T s[12], o[8], d[5];
 #pragma unroll
-  for (int q = 0; q < 8; ++q) str8[q * np + k] = m ? o[q] : T(0);
+  for (int c = 0; c < 12; ++c) s[c] = m ? stress[c * np + k] : T(0);
+  stress_point(u00, uW, uS, uSW, v00, vW, vS, vSW, gR, np, k, strengthR[k],
+               m, P, s, o, last != 0, d);
+#pragma unroll
+  for (int c = 0; c < 12; ++c) stress[c * np + k] = s[c];
+  if (last) {
+#pragma unroll
+    for (int q = 0; q < 5; ++q) diagR[q * np + k] = d[q];
+  }
+#pragma unroll
+  for (int q = 0; q < 8; ++q) str8[q * np + k] = o[q];
 }
 
 template <typename T>
 __global__ void evp_stepu(int ny, int nx, T* __restrict__ u,
                           T* __restrict__ v, const T* __restrict__ str8,
                           const T* __restrict__ uin, int cw_plane, T Cw,
-                          T brlx_revp, T brlx, T revp, T cosw, T sinw,
-                          T* __restrict__ strint, int last) {
+                          Params<T> P, T* __restrict__ strint, int last) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int j = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= nx || j >= ny) return;
@@ -291,42 +132,19 @@ __global__ void evp_stepu(int ny, int nx, T* __restrict__ u,
   const int nxr = nx + 1;
   const size_t npr = (size_t)(ny + 1) * nxr;
 
-  const T uold = u[k], vold = v[k];
-  const T aiu = uin[U_AIU * np + k];
-  const T uocn = uin[U_UOCN * np + k], vocn = uin[U_VOCN * np + k];
-  const T cw = cw_plane ? uin[U_CW * np + k] : Cw;
-  const T du = uocn - uold, dv = vocn - vold;
-  const T vrel = aiu * T(1026.0) * cw * sqrt(du * du + dv * dv);
-  const T taux = vrel * uin[U_WATERX * np + k];
-  const T tauy = vrel * uin[U_WATERY * np + k];
-
-  const T umassdti = uin[U_UMASSDTI * np + k];
-  const T fm = uin[U_FM * np + k];
-  const T sgn = T((fm > T(0)) - (fm < T(0)));
-  const T cca = brlx_revp * umassdti + vrel * cosw;
-  const T ccb = fm + sgn * vrel * sinw;
-  T ab2 = cca * cca + ccb * ccb;
-
   // str(i,j,1)+str(i+1,j,2)+str(i,j+1,3)+str(i+1,j+1,4) on the region
   const size_t r00 = (size_t)j * nxr + i, r10 = r00 + 1;
   const size_t r01 = r00 + nxr, r11 = r01 + 1;
-  const T uarear = uin[U_UAREAR * np + k];
-  const T strintx = uarear * (str8[0 * npr + r00] + str8[1 * npr + r10]
-                              + str8[2 * npr + r01] + str8[3 * npr + r11]);
-  const T strinty = uarear * (str8[4 * npr + r00] + str8[5 * npr + r01]
-                              + str8[6 * npr + r10] + str8[7 * npr + r11]);
-
-  const T cc1 = strintx + uin[U_FORCEX * np + k] + taux
-                + umassdti * (brlx * uold + revp * uin[U_UINIT * np + k]);
-  const T cc2 = strinty + uin[U_FORCEY * np + k] + tauy
-                + umassdti * (brlx * vold + revp * uin[U_VINIT * np + k]);
-  ab2 = tmax(ab2, T(1e-30));
-  const bool m = uin[U_ICEM * np + k] > T(0.5);
-  u[k] = m ? (cca * cc1 + ccb * cc2) / ab2 : T(0);
-  v[k] = m ? (cca * cc2 - ccb * cc1) / ab2 : T(0);
+  T uk = u[k], vk = v[k], sx, sy;
+  stepu_point(uk, vk, str8[0 * npr + r00], str8[1 * npr + r10],
+              str8[2 * npr + r01], str8[3 * npr + r11], str8[4 * npr + r00],
+              str8[5 * npr + r01], str8[6 * npr + r10], str8[7 * npr + r11],
+              uin, np, k, cw_plane, Cw, P, sx, sy);
+  u[k] = uk;
+  v[k] = vk;
   if (last) {
-    strint[k] = m ? strintx : T(0);
-    strint[np + k] = m ? strinty : T(0);
+    strint[k] = sx;
+    strint[np + k] = sy;
   }
 }
 
@@ -338,17 +156,18 @@ int run(int ny, int nx, int ndte, int cyc_x, int cyc_y, int fold, T* u,
         double ecci, double brlx, double revp, double cosw, double sinw,
         T* str8, T* diagR, T* strint, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  const Params<T> P =
+      make_params<T>(arlx1i, denom1, ecci, brlx, revp, cosw, sinw);
   const dim3 block(32, 8);
   const dim3 grid_r((nx + 1 + 31) / 32, (ny + 1 + 7) / 8);
   const dim3 grid_u((nx + 31) / 32, (ny + 7) / 8);
   for (int it = 0; it < ndte; ++it) {
     const int last = it == ndte - 1;
     evp_stress<T><<<grid_r, block, 0, s>>>(
-        ny, nx, cyc_x, cyc_y, fold, u, v, stress, maskR, strengthR, gR,
-        T(arlx1i), T(denom1), T(ecci), str8, diagR, last);
-    evp_stepu<T><<<grid_u, block, 0, s>>>(
-        ny, nx, u, v, str8, uin, cw_plane, T(Cw), T(brlx + revp), T(brlx),
-        T(revp), T(cosw), T(sinw), strint, last);
+        ny, nx, cyc_x, cyc_y, fold, u, v, stress, maskR, strengthR, gR, P,
+        str8, diagR, last);
+    evp_stepu<T><<<grid_u, block, 0, s>>>(ny, nx, u, v, str8, uin, cw_plane,
+                                          T(Cw), P, strint, last);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

@@ -1,8 +1,13 @@
 // Incremental-remap reconstruction + transport integrals of both edge sets
-// for NVIDIA Hopper (sm_90a).
+// for NVIDIA Hopper (sm_90a), and of one edge set.
 //
 // Replaces: the Pallas kernel integrals_tiled_both of the JAX package
-// (cice5_tpu/ops/pallas/remap_flux.py:163). From the RAW mass field mm
+// (cice5_tpu/ops/pallas/remap_flux.py:163), exported as
+// remap_flux_both_<type>, and its single-edge predecessor integrals_tiled
+// (remap_flux.py:75), exported as remap_flux_edge_<type>: the same
+// reconstruction, then the integrals of the north or the east edges only
+// (the same device code, so each edge set's fluxes equal those of
+// remap_flux_both bit for bit). From the RAW mass field mm
 // (aicen), the class-sorted tracer stack tm and the ocean mask hm, each
 // with a W=2 ghost ring, it computes
 //   1. the van-Leer limited linear reconstruction (centre value and x/y
@@ -366,19 +371,27 @@ __global__ void remap_flux(int ntrace, int ny, int nx, TracerTable tab,
   }
 }
 
+// TracerTable of the caller's types and parents, or false past its room
+bool make_table(int ntrace, const int* ttype, const int* parent,
+                TracerTable& tab) {
+  if (ntrace > REMAP_MAX_TRACERS) return false;
+  tab.n = ntrace;
+  for (int t = 0; t < ntrace; ++t) {
+    tab.type[t] = ttype[t];
+    tab.parent[t] = parent[t];
+  }
+  return true;
+}
+
 template <typename T>
 int run(int ncat, int ntrace, int ny, int nx, const int* ttype,
         const int* parent, const T* mmE2, const T* tmE2, const T* hmE2,
         const int* dnN, const T* taN, const T* qxN, const T* qyN,
         const int* dnE, const T* taE, const T* qxE, const T* qyE, T* recon,
         T* fn_mflx, T* fn_mtflx, T* fe_mflx, T* fe_mtflx, void* stream) {
-  if (ntrace > REMAP_MAX_TRACERS) return (int)cudaErrorInvalidValue;
   TracerTable tab;
-  tab.n = ntrace;
-  for (int t = 0; t < ntrace; ++t) {
-    tab.type[t] = ttype[t];
-    tab.parent[t] = parent[t];
-  }
+  if (!make_table(ntrace, ttype, parent, tab))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const dim3 block(32, 8);
   const dim3 grid_c((nx + 2 + 31) / 32, (ny + 2 + 7) / 8, ncat);
@@ -396,6 +409,37 @@ int run(int ncat, int ntrace, int ny, int nx, const int* ttype,
   remap_flux<T, 1><<<grid_e, block, 0, s>>>(ntrace, ny, nx, tab, mmE2, recon,
                                             dnE, taE, qxE, qyE, fe_mflx,
                                             fe_mtflx);
+  return (int)cudaGetLastError();
+}
+
+// the reconstruction, then one edge set's integrals (east: 0 north, 1 east)
+template <typename T>
+int run_edge(int east, int ncat, int ntrace, int ny, int nx,
+             const int* ttype, const int* parent, const T* mmE2,
+             const T* tmE2, const T* hmE2, const int* dn, const T* ta,
+             const T* qx, const T* qy, T* recon, T* mflx, T* mtflx,
+             void* stream) {
+  TracerTable tab;
+  if (!make_table(ntrace, ttype, parent, tab))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const dim3 block(32, 8);
+  const dim3 grid_c((nx + 2 + 31) / 32, (ny + 2 + 7) / 8, ncat);
+  remap_recon<T><<<grid_c, block, 0, s>>>(ntrace, ny, nx, tab, mmE2, tmE2,
+                                          hmE2, recon);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (east) {
+    const dim3 grid_e((nx + 1 + 31) / 32, (ny + 7) / 8, ncat);
+    remap_flux<T, 1><<<grid_e, block, 0, s>>>(ntrace, ny, nx, tab, mmE2,
+                                              recon, dn, ta, qx, qy, mflx,
+                                              mtflx);
+  } else {
+    const dim3 grid_n((nx + 31) / 32, (ny + 1 + 7) / 8, ncat);
+    remap_flux<T, 0><<<grid_n, block, 0, s>>>(ntrace, ny, nx, tab, mmE2,
+                                              recon, dn, ta, qx, qy, mflx,
+                                              mtflx);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -431,6 +475,32 @@ int remap_flux_both_f64(int ncat, int ntrace, int ny, int nx,
 }
 
 const char* remap_flux_both_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+int remap_flux_edge_f32(int east, int ncat, int ntrace, int ny, int nx,
+                        const int* ttype, const int* parent,
+                        const float* mmE2, const float* tmE2,
+                        const float* hmE2, const int* dn, const float* ta,
+                        const float* qx, const float* qy, float* recon,
+                        float* mflx, float* mtflx, void* stream) {
+  return run_edge<float>(east, ncat, ntrace, ny, nx, ttype, parent, mmE2,
+                         tmE2, hmE2, dn, ta, qx, qy, recon, mflx, mtflx,
+                         stream);
+}
+
+int remap_flux_edge_f64(int east, int ncat, int ntrace, int ny, int nx,
+                        const int* ttype, const int* parent,
+                        const double* mmE2, const double* tmE2,
+                        const double* hmE2, const int* dn, const double* ta,
+                        const double* qx, const double* qy, double* recon,
+                        double* mflx, double* mtflx, void* stream) {
+  return run_edge<double>(east, ncat, ntrace, ny, nx, ttype, parent, mmE2,
+                          tmE2, hmE2, dn, ta, qx, qy, recon, mflx, mtflx,
+                          stream);
+}
+
+const char* remap_flux_edge_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 

@@ -35,8 +35,9 @@ def check_supported(cfg: ModelConfig) -> None:
     (the BL99 + CCSM3 model on a rectangular grid, and the gx1-parity
     model with all of its options together: POP/tripole grid with a U-fold
     seam, mushy thermodynamics, delta-Eddington shortwave, the
-    iage/FY/lvl/level-pond tracers with the refrozen pond lid), naming the
-    slice that brings it. Nothing is silently approximated."""
+    iage/FY/lvl/level-pond tracers with the refrozen pond lid; either with
+    ``evp_algorithm="pallas"``, the fused EVP sweep, off a tripole seam),
+    naming the slice that brings it. Nothing is silently approximated."""
     g, th, dy, tc = cfg.grid, cfg.thermo, cfg.dyn, cfg.tracers
     parity = {"grid_type='tripole'": g.grid_type == "tripole",
               "the tripole seam": g.ns_boundary == "tripole",
@@ -73,8 +74,6 @@ def check_supported(cfg: ModelConfig) -> None:
          "dynamics without transport", _LATER),
         (dy.evp_algorithm == "chunked", "evp_algorithm='chunked'",
          "the multi-GPU slice of the port"),
-        (dy.evp_algorithm == "pallas",
-         "evp_algorithm='pallas' (the evp_fused kernel)", _LATER),
         (dy.conserv_check or dy.monotonicity_check,
          "the transport conservation/monotonicity checks", _LATER),
         (dy.diag_mechred, "diag_mechred", _LATER),
@@ -83,6 +82,20 @@ def check_supported(cfg: ModelConfig) -> None:
         if bad:
             raise NotImplementedError(f"{what} is not ported yet: it comes "
                                       f"with {where}")
+    fused = dy.evp_algorithm == "pallas" and g.ns_boundary not in (
+        "tripole", "tripoleT")
+    if fused and g.ns_boundary == "cyclic":
+        raise NotImplementedError(
+            "evp_algorithm='pallas' with a cyclic north-south boundary: the "
+            "JAX package's fused EVP kernel pads its windows with zero rows "
+            "as if the boundary were open (cice5_tpu/ops/pallas/"
+            "evp_fused.py:165-173), so it computes open-boundary dynamics "
+            "there and is no reference to hold the port against")
+    if fused and dy.ndte % 10 != 0:
+        raise NotImplementedError(
+            f"evp_algorithm='pallas' with ndte={dy.ndte}: the fused EVP "
+            f"sweep runs chunks of 10 subcycles, so ndte must be a multiple "
+            f"of 10 (cice5_tpu/ops/pallas/evp_fused.py:162)")
     if dy.yield_curve != "ellipse":
         raise NotImplementedError(
             f"yield_curve={dy.yield_curve!r}: only 'ellipse' exists "

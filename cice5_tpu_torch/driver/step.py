@@ -36,6 +36,7 @@ from cice5_tpu_torch.models.radiation.ccsm3 import (AbsorbedSolar, Albedos,
 from cice5_tpu_torch.models.thermo import itd, vertical
 from cice5_tpu_torch.models.tracers import ponds, simple
 from cice5_tpu_torch.models.transport.remap import transport_remap
+from cice5_tpu_torch.ops.evp_fused import evp_fused
 from cice5_tpu_torch.parallel import Topology, global_min, global_sum
 from cice5_tpu_torch.state import State, TracerRegistry
 
@@ -430,12 +431,18 @@ def step(state: State, forcing: Forcing, grid: Grid, cfg: ModelConfig,
                                            Pstar=cfg.dyn.Pstar,
                                            Cstar=cfg.dyn.Cstar)
             strength_d = strength
-            ev = evp(dt_dyn, p, grid, topo, aice=agg.aice, vice=agg.vice,
-                     vsno=agg.vsno, strength=strength,
-                     strairxT=dg["strairxT"], strairyT=dg["strairyT"],
-                     uocn=forcing.uocn, vocn=forcing.vocn, uvel=uvel,
-                     vvel=vvel, stressp=stressp, stressm=stressm,
-                     stress12=stress12, iceumask=iceumask, Cw=ct.dragio)
+            # the fused subcycle sweep where the JAX step takes it
+            # (cice5_tpu/driver/step.py:1010-1014): not on a tripole seam
+            evp_fn = evp
+            if (cfg.dyn.evp_algorithm == "pallas"
+                    and topo.ns not in ("tripole", "tripoleT")):
+                evp_fn = evp_fused
+            ev = evp_fn(dt_dyn, p, grid, topo, aice=agg.aice, vice=agg.vice,
+                        vsno=agg.vsno, strength=strength,
+                        strairxT=dg["strairxT"], strairyT=dg["strairyT"],
+                        uocn=forcing.uocn, vocn=forcing.vocn, uvel=uvel,
+                        vvel=vvel, stressp=stressp, stressm=stressm,
+                        stress12=stress12, iceumask=iceumask, Cw=ct.dragio)
             uvel, vvel = ev.uvel, ev.vvel
             prs_sig_d = ev.prs_sig
             strintx_d, strinty_d = ev.strintx, ev.strinty

@@ -11,7 +11,9 @@ The ndte-subcycle sweep has two implementations with one signature:
 ``subcycle_sweep`` (plain PyTorch, the CPU path and the reference for the
 kernel) and ``evp_sweep``, which launches the hand-written CUDA kernel
 ``csrc/evp_sweep.cu`` for tensors on the GPU. ``evp`` always calls
-``evp_sweep``; a CPU tensor takes the plain version there.
+``evp_sweep``; a CPU tensor takes the plain version there. Its prep
+(``evp_prep``) and finish (``evp_result``) are shared with the fused
+driver of ``evp_algorithm="pallas"`` (``cice5_tpu_torch/ops/evp_fused.py``).
 """
 from __future__ import annotations
 
@@ -329,6 +331,27 @@ def subcycle_sweep(p: dyn.EVPParams, ndte: int, topo: Topology, *, uvel,
     return u, v, stress, diags
 
 
+def kernel_args(*, uvel, vvel, stressR, maskR, strengthR, gR, icem_u,
+                **planes):
+    """The sweep inputs packed as the EVP kernels (``kernels.evp_sweep``,
+    ``kernels.evp_fused``) take them: contiguous planes, the metrics stacked
+    in GR_NAMES order, the U-point planes in U_NAMES order plus a Cw plane
+    when ``Cw`` is one, masks as 0/1 floats."""
+    dtype = uvel.dtype
+    Cw = planes.pop("Cw")
+    planes["icem_u"] = icem_u.to(dtype)
+    uin = torch.stack([planes[k] for k in U_NAMES])
+    cw_plane = torch.is_tensor(Cw) and Cw.dim() > 0
+    if cw_plane:
+        uin = torch.cat([uin, Cw.to(dtype)[None]])
+    return dict(u=uvel.contiguous(), v=vvel.contiguous(),
+                stress=stressR.contiguous(),
+                maskR=maskR.to(dtype).contiguous(),
+                strengthR=strengthR.contiguous(),
+                gR=torch.stack([gR[k] for k in GR_NAMES]), uin=uin,
+                cw_plane=cw_plane, Cw=0.0 if cw_plane else float(Cw))
+
+
 def evp_sweep(p: dyn.EVPParams, ndte: int, topo: Topology, *, uvel, vvel,
               stressR, maskR, strengthR, gR, icem_u, aiu, uocn, vocn,
               waterx, watery, forcex, forcey, umassdti, fm, uarear,
@@ -349,39 +372,31 @@ def evp_sweep(p: dyn.EVPParams, ndte: int, topo: Topology, *, uvel, vvel,
         raise NotImplementedError(
             "evp_sweep: the T-fold (tripoleT) seam in the CUDA kernel comes "
             "with a later slice of the port")
-    dtype = uvel.dtype
-    planes = dict(icem_u=icem_u.to(dtype), aiu=aiu, uocn=uocn, vocn=vocn,
-                  waterx=waterx, watery=watery, forcex=forcex,
-                  forcey=forcey, umassdti=umassdti, fm=fm, uarear=uarear,
-                  uvel_init=uvel_init, vvel_init=vvel_init)
-    uin = torch.stack([planes[k] for k in U_NAMES])
-    cw_plane = torch.is_tensor(Cw) and Cw.dim() > 0
-    if cw_plane:
-        uin = torch.cat([uin, Cw.to(dtype)[None]])
     out = kernels.evp_sweep(
         ndte=ndte, cyc_x=topo.ew == "cyclic", cyc_y=topo.ns == "cyclic",
-        fold=topo.ns == "tripole",
-        u=uvel.contiguous(), v=vvel.contiguous(),
-        stress=stressR.contiguous(), maskR=maskR.to(dtype).contiguous(),
-        strengthR=strengthR.contiguous(),
-        gR=torch.stack([gR[k] for k in GR_NAMES]),
-        uin=uin, cw_plane=cw_plane,
-        Cw=0.0 if cw_plane else float(Cw), p=p)
+        fold=topo.ns == "tripole", p=p, **kernel_args(
+            uvel=uvel, vvel=vvel, stressR=stressR, maskR=maskR,
+            strengthR=strengthR, gR=gR, icem_u=icem_u, aiu=aiu, uocn=uocn,
+            vocn=vocn, waterx=waterx, watery=watery, forcex=forcex,
+            forcey=forcey, umassdti=umassdti, fm=fm, uarear=uarear,
+            uvel_init=uvel_init, vvel_init=vvel_init, Cw=Cw))
     u, v, stress, diagR, strint = out
     return u, v, stress, (diagR[0], diagR[1], diagR[2], diagR[3],
                           diagR[4], strint[0], strint[1])
 
 
-def evp(dt, p: dyn.EVPParams, grid, topo: Topology, *, aice, vice, vsno,
-        strength, strairxT, strairyT, uocn, vocn, uvel, vvel,
-        stressp, stressm, stress12, iceumask,
-        ss_tltx=None, ss_tlty=None, Cw=ct.dragio) -> EVPResult:
-    """EVP dynamics driver (ice_dyn_evp.F90:68-517 evp).
+def evp_prep(dt, p: dyn.EVPParams, grid, topo: Topology, *, aice, vice,
+             vsno, strength, strairxT, strairyT, uocn, vocn, uvel, vvel,
+             stressp, stressm, stress12, iceumask, ss_tltx=None,
+             ss_tlty=None, Cw=ct.dragio):
+    """The EVP driver's preparation (ice_dyn_evp.F90:68-330): masks, T -> U
+    interpolation, forcing terms, region metrics and the stress ghost
+    ring. Shared by ``evp`` and the fused driver
+    (``cice5_tpu_torch/ops/evp_fused.py``).
 
     stressp/stressm/stress12: (4, ny, nx) from State. strength: T-grid
-    ice strength. uocn/vocn on the U grid."""
-    ny, nx = aice.shape
-
+    ice strength. uocn/vocn on the U grid. Returns (the keyword arguments
+    of the subcycle sweep, {strairx, strairy, strtltx, strtlty})."""
     # prep1: masses + masks
     tmass, icetmask = dyn.icet_mask(aice, vice, vsno, grid.tmask, topo)
     maskR = _region(icetmask.to(aice.dtype), topo) > 0.5
@@ -399,7 +414,6 @@ def evp(dt, p: dyn.EVPParams, grid, topo: Topology, *, aice, vice, vsno,
     vvel = torch.where(new_pts, vocn, vvel)
     uvel = torch.where(icem_u, uvel, 0.0)
     vvel = torch.where(icem_u, vvel, 0.0)
-    uvel_init, vvel_init = uvel, vvel
 
     umassdti = torch.where(icem_u, umass / dt, 0.0)
     fm = grid.fcor * umass
@@ -421,19 +435,29 @@ def evp(dt, p: dyn.EVPParams, grid, topo: Topology, *, aice, vice, vsno,
     stress0 = torch.cat([stressp, stressm, stress12], dim=0)
     stressR = _extend_stress(stress0, topo)
     stressR = torch.where(maskR[None], stressR, 0.0)
+    sweep = dict(uvel=uvel, vvel=vvel, stressR=stressR, maskR=maskR,
+                 strengthR=strengthR, gR=gR, icem_u=icem_u, aiu=aiu,
+                 uocn=uocn, vocn=vocn, waterx=waterx, watery=watery,
+                 forcex=forcex, forcey=forcey, umassdti=umassdti, fm=fm,
+                 uarear=grid.uarear, uvel_init=uvel, vvel_init=vvel, Cw=Cw)
+    return sweep, dict(strairx=strairx, strairy=strairy, strtltx=strtltx,
+                       strtlty=strtlty)
 
-    # subcycling loop (ice_dyn_evp.F90:336-410)
-    u, v, stressR, diags = evp_sweep(
-        p, p.ndte, topo, uvel=uvel, vvel=vvel, stressR=stressR,
-        maskR=maskR, strengthR=strengthR, gR=gR, icem_u=icem_u, aiu=aiu,
-        uocn=uocn, vocn=vocn, waterx=waterx, watery=watery, forcex=forcex,
-        forcey=forcey, umassdti=umassdti, fm=fm, uarear=grid.uarear,
-        uvel_init=uvel_init, vvel_init=vvel_init, Cw=Cw)
+
+def evp_result(p: dyn.EVPParams, grid, topo: Topology, sweep: dict,
+               forcing: dict, out) -> EVPResult:
+    """The EVP driver's finish (ice_dyn_evp.F90:411-517): ocean stress on
+    the U and T grids and the crop of the region fields. ``sweep`` and
+    ``forcing`` are what ``evp_prep`` returned, ``out`` the sweep's
+    (u, v, stressR, diags)."""
+    u, v, stressR, diags = out
     divuR, shearR, rconvR, rshearR, prsR, strintx, strinty = diags
+    icem_u, aiu, fm = sweep["icem_u"], sweep["aiu"], sweep["fm"]
+    ny, nx = u.shape
 
     strocnx, strocny, sTx_u, sTy_u = dyn.evp_finish(
-        p, icemask=icem_u, uvel=u, vvel=v, uocn=uocn, vocn=vocn, aiu=aiu,
-        fm=fm, Cw=Cw)
+        p, icemask=icem_u, uvel=u, vvel=v, uocn=sweep["uocn"],
+        vocn=sweep["vocn"], aiu=aiu, fm=fm, Cw=sweep["Cw"])
     strocnxT = dyn.to_tgrid(sTx_u, grid, topo)
     strocnyT = dyn.to_tgrid(sTy_u, grid, topo)
 
@@ -442,11 +466,20 @@ def evp(dt, p: dyn.EVPParams, grid, topo: Topology, *, aice, vice, vsno,
         uvel=u, vvel=v,
         stressp=crop(stressR[0:4]), stressm=crop(stressR[4:8]),
         stress12=crop(stressR[8:12]),
-        iceumask=icem_u.to(aice.dtype),
+        iceumask=icem_u.to(aiu.dtype),
         strocnx=strocnx, strocny=strocny,
         strocnxT=strocnxT, strocnyT=strocnyT,
-        strairx=strairx, strairy=strairy,
         strintx=strintx, strinty=strinty,
-        strtltx=strtltx, strtlty=strtlty,
         divu=crop(divuR), shear=crop(shearR), rdg_conv=crop(rconvR),
-        rdg_shear=crop(rshearR), prs_sig=crop(prsR), fm=fm)
+        rdg_shear=crop(rshearR), prs_sig=crop(prsR), fm=fm, **forcing)
+
+
+def evp(dt, p: dyn.EVPParams, grid, topo: Topology, **fields) -> EVPResult:
+    """EVP dynamics driver (ice_dyn_evp.F90:68-517 evp). ``fields``: the
+    keyword arguments of ``evp_prep`` (aice, vice, vsno, strength,
+    strairxT/strairyT, uocn/vocn, uvel/vvel, stressp/stressm/stress12,
+    iceumask; optional ss_tltx/ss_tlty and Cw)."""
+    sweep, forcing = evp_prep(dt, p, grid, topo, **fields)
+    # subcycling loop (ice_dyn_evp.F90:336-410)
+    out = evp_sweep(p, p.ndte, topo, **sweep)
+    return evp_result(p, grid, topo, sweep, forcing, out)

@@ -576,6 +576,38 @@ def remap_flux_both(geomN, geomE, mmE2, tmE2, hmE2, tracer_type, parent,
         tracer_type=tracer_type, parent=parent, ny=ny, nx=nx)
 
 
+def remap_flux_edge_plain(edge: str, geom, mmE2, tmE2, hmE2, tracer_type,
+                          parent, ny: int, nx: int):
+    """Reconstruction + transport integrals of ONE edge set for all
+    categories in plain PyTorch (the function the Pallas kernel
+    integrals_tiled computes, cice5_tpu/ops/pallas/remap_flux.py:75): one
+    half of ``remap_flux_plain``.
+
+    edge: "north" (ny+1, nx edges) or "east" (ny, nx+1); geom: (donor,
+    triarea, qx, qy) of that edge set. Returns (mflx (ncat, nyr, nxr),
+    mtflx (ncat, ntrace, nyr, nxr))."""
+    views = {"north": _nbr_views_north, "east": _nbr_views_east}[edge]
+    recon = _reconstruct_ext(mmE2, tmE2, hmE2, tracer_type, parent)
+    fl = _integrals(*geom, *(views(f, ny, nx) for f in recon), tracer_type,
+                    parent)
+    return fl.mflx, fl.mtflx
+
+
+def remap_flux_edge(edge: str, geom, mmE2, tmE2, hmE2, tracer_type, parent,
+                    ny: int, nx: int):
+    """``remap_flux_edge_plain`` with the same signature and results: the
+    plain version for CPU tensors, the ``remap_flux_edge`` entry of
+    csrc/remap_flux_both.cu for CUDA tensors. Nothing on the model's path
+    calls it (the step takes both edge sets in one ``remap_flux_both``)."""
+    if mmE2.device.type == "cpu":
+        return remap_flux_edge_plain(edge, geom, mmE2, tmE2, hmE2,
+                                     tracer_type, parent, ny, nx)
+    return kernels.remap_flux_edge(
+        edge=edge, mmE2=mmE2.contiguous(), tmE2=tmE2.contiguous(),
+        hmE2=hmE2.contiguous(), geom=tuple(t.contiguous() for t in geom),
+        tracer_type=tracer_type, parent=parent, ny=ny, nx=nx)
+
+
 def _update(grid, *, mm, tm, fe_mflx, fe_mtflx, fn_mflx, fn_mtflx,
             tracer_type, parent):
     """Divergence update of mass + tracers (update_fields :3517-3730),

@@ -7,12 +7,18 @@ of the checkout, or ``$CICE5_TORCH_BUILD_DIR``) and loaded with ctypes.
 Nothing here runs when the module is imported, so the CPU tests import it
 on machines without CUDA.
 
+A source may export more than one kernel (``remap_flux_both.cu`` also
+holds the single-edge ``remap_flux_edge``); a kernel is rebuilt when its
+source, or a ``csrc/*.cuh`` header the source includes, is newer than
+its library.
+
 The launch functions take CUDA tensors only: they check device, dtype,
 shape and contiguity, allocate their outputs with ``torch.empty``, launch
 on ``torch.cuda.current_stream()``, raise if the C function returns a
 CUDA error, and add one to their kernel's ``launches`` counter. The
 choice between a kernel and its plain PyTorch version is made by the
-callers (``evp.evp_sweep``, ``remap.remap_flux_both``,
+callers (``evp.evp_sweep``, ``evp_fused.fused_sweep``,
+``remap.remap_flux_both``, ``remap.remap_flux_edge``,
 ``dedd.shortwave_dEdd_ncat``) from the device of the tensors, never by
 catching an error.
 """
@@ -20,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -61,31 +68,43 @@ _ARGTYPES = {
     "evp_sweep": [_I] * 6 + [_VP] * 7 + [_I] + [_D] * 8 + [_VP] * 4,
     "remap_flux_both": [_I, _I, _I, _I, _IP, _IP] + [_VP] * 17,
     "shortwave_dedd": [_I] * 5 + [_VP] * 13 + [_D] * 7 + [_I, _VP, _VP],
+    "evp_fused": [_I] * 4 + [_VP] * 7 + [_I] + [_D] * 8 + [_VP] * 6,
+    "remap_flux_edge": [_I] * 5 + [_IP, _IP] + [_VP] * 11,
 }
 
 
 class CudaKernel:
-    """One ``csrc/<name>.cu`` source: its build, its library, and the
-    count of launches made through its wrapper."""
+    """One kernel, exported as ``<name>_f32``/``<name>_f64`` by the source
+    ``csrc/<source>.cu`` (by default ``<name>.cu``): its build, its
+    library, and the count of launches made through its wrapper."""
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, source: str | None = None):
         self.name = name
-        self.source = _SRC_DIR / f"{name}.cu"
+        self.source = _SRC_DIR / f"{source or name}.cu"
         self.launches = 0
         self._lib = None
 
     @property
     def library(self) -> Path:
-        return build_dir() / f"lib{self.name}.so"
+        return build_dir() / f"lib{self.source.stem}.so"
 
     def build_command(self) -> list[str]:
         return [_nvcc(), *NVCC_FLAGS, "-o", str(self.library),
                 str(self.source)]
 
+    def headers(self) -> list[Path]:
+        """The ``csrc`` headers the source includes."""
+        names = re.findall(r'^#include "([^"]+)"', self.source.read_text(),
+                           re.M)
+        return [_SRC_DIR / n for n in names]
+
     def needs_build(self) -> bool:
         lib = self.library
-        return not lib.exists() or \
-            lib.stat().st_mtime < self.source.stat().st_mtime
+        if not lib.exists():
+            return True
+        built = lib.stat().st_mtime
+        return any(built < f.stat().st_mtime
+                   for f in (self.source, *self.headers()))
 
     def lib(self):
         if self._lib is None:
@@ -115,14 +134,17 @@ class CudaKernel:
         self.launches += 1
 
 
-KERNELS = {name: CudaKernel(name)
-           for name in ("evp_sweep", "remap_flux_both", "shortwave_dedd")}
+KERNELS = {k.name: k for k in (
+    CudaKernel("evp_sweep"), CudaKernel("remap_flux_both"),
+    CudaKernel("shortwave_dedd"), CudaKernel("evp_fused"),
+    CudaKernel("remap_flux_edge", source="remap_flux_both"))}
 
 
 def build_all(kernels=None) -> float:
     """Compile every kernel (or the given ones), one nvcc process per
     source, all started together. Returns the wall seconds taken."""
     ks = list(KERNELS.values()) if kernels is None else list(kernels)
+    ks = list({k.source: k for k in ks}.values())     # one build per source
     build_dir().mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     procs = [(k, subprocess.Popen(k.build_command(), stdout=subprocess.PIPE,
@@ -191,6 +213,31 @@ def _cuda_device(t: torch.Tensor):
     return t.device, t.dtype
 
 
+def _check_evp(u, v, stress, maskR, strengthR, gR, uin, cw_plane):
+    """Check the inputs of the EVP kernels (see ``evp_sweep``); returns
+    (device, dtype, ny, nx)."""
+    device, dtype = _cuda_device(u)
+    ny, nx = u.shape
+    nyr, nxr = ny + 1, nx + 1
+    for name, t, shp in (("u", u, (ny, nx)), ("v", v, (ny, nx)),
+                         ("stress", stress, (12, nyr, nxr)),
+                         ("maskR", maskR, (nyr, nxr)),
+                         ("strengthR", strengthR, (nyr, nxr)),
+                         ("gR", gR, (10, nyr, nxr)),
+                         ("uin", uin, (14 if cw_plane else 13, ny, nx))):
+        _check(name, t, shp, dtype, device)
+    return device, dtype, ny, nx
+
+
+def _check_geom(tag, geom, nyr, nxr, dtype, device):
+    """Check one edge set's (donor, triarea, qx, qy) of the remap kernels."""
+    dn, ta, qx, qy = geom
+    _check(f"{tag} donor", dn, (6, nyr, nxr), torch.int32, device)
+    _check(f"{tag} triarea", ta, (6, nyr, nxr), dtype, device)
+    _check(f"{tag} qx", qx, (6, 3, nyr, nxr), dtype, device)
+    _check(f"{tag} qy", qy, (6, 3, nyr, nxr), dtype, device)
+
+
 def evp_sweep(*, ndte: int, cyc_x: bool, cyc_y: bool, u, v, stress, maskR,
               strengthR, gR, uin, cw_plane: bool, Cw: float, p,
               fold: bool = False):
@@ -202,20 +249,13 @@ def evp_sweep(*, ndte: int, cyc_x: bool, cyc_y: bool, u, v, stress, maskR,
     evp.GR_NAMES order; uin: (13 or 14, ny, nx) in evp.U_NAMES order,
     plus the Cw plane when ``cw_plane``. Inputs are not modified. Returns
     (u, v, stress, diagR (5, ny+1, nx+1), strint (2, ny, nx))."""
-    device, dtype = _cuda_device(u)
-    ny, nx = u.shape
+    device, dtype, ny, nx = _check_evp(u, v, stress, maskR, strengthR, gR,
+                                       uin, cw_plane)
     nyr, nxr = ny + 1, nx + 1
     if ndte < 1:
         raise ValueError("evp_sweep needs ndte >= 1")
     if fold and ny < 2:
         raise ValueError("the tripole fold needs ny >= 2")
-    for name, t, shp in (("u", u, (ny, nx)), ("v", v, (ny, nx)),
-                         ("stress", stress, (12, nyr, nxr)),
-                         ("maskR", maskR, (nyr, nxr)),
-                         ("strengthR", strengthR, (nyr, nxr)),
-                         ("gR", gR, (10, nyr, nxr)),
-                         ("uin", uin, (14 if cw_plane else 13, ny, nx))):
-        _check(name, t, shp, dtype, device)
     u_o, v_o, s_o = u.clone(), v.clone(), stress.clone()
     str8 = torch.empty((8, nyr, nxr), dtype=dtype, device=device)
     diagR = torch.empty((5, nyr, nxr), dtype=dtype, device=device)
@@ -227,6 +267,47 @@ def evp_sweep(*, ndte: int, cyc_x: bool, cyc_y: bool, u, v, stress, maskR,
         int(cw_plane), float(Cw), p.arlx1i, p.denom1, p.ecci, p.brlx,
         p.revp, p.cosw, p.sinw, _ptr(str8), _ptr(diagR), _ptr(strint))
     return u_o, v_o, s_o, diagR, strint
+
+
+def evp_fused(*, kchunk: int, cyc_x: bool, u, v, stress, maskR, strengthR,
+              gR, uin, cw_plane: bool, Cw: float, p):
+    """Launch csrc/evp_fused.cu: one chunk of ``kchunk`` EVP subcycles on
+    2-D tiles with margins, for an open or closed north-south boundary
+    (``cyc_x``: cyclic east-west, else open or closed).
+
+    Takes what ``evp_sweep`` takes. Inputs are not modified. Returns
+    (u, v, stress, diagR (5, ny+1, nx+1), strint (2, ny, nx)), the
+    diagnostics of the chunk's last subcycle."""
+    device, dtype, ny, nx = _check_evp(u, v, stress, maskR, strengthR, gR,
+                                       uin, cw_plane)
+    nyr, nxr = ny + 1, nx + 1
+    if kchunk < 1:
+        raise ValueError("evp_fused needs kchunk >= 1")
+    out = (torch.empty((ny, nx), dtype=dtype, device=device),
+           torch.empty((ny, nx), dtype=dtype, device=device),
+           torch.empty((12, nyr, nxr), dtype=dtype, device=device),
+           torch.empty((5, nyr, nxr), dtype=dtype, device=device),
+           torch.empty((2, ny, nx), dtype=dtype, device=device))
+    KERNELS["evp_fused"].call(
+        dtype, ny, nx, kchunk, int(cyc_x), _ptr(u), _ptr(v), _ptr(stress),
+        _ptr(maskR), _ptr(strengthR), _ptr(gR), _ptr(uin), int(cw_plane),
+        float(Cw), p.arlx1i, p.denom1, p.ecci, p.brlx, p.revp, p.cosw,
+        p.sinw, *[_ptr(t) for t in out])
+    return out
+
+
+def _tracer_table(name, tracer_type, parent):
+    ntrace = len(tracer_type)
+    if ntrace > 64:
+        raise ValueError(f"{name} takes at most 64 tracers")
+    for nt in range(ntrace):
+        t, q = tracer_type[nt], parent[nt]
+        if (t == 2 and tracer_type[q] != 1) or \
+                (t == 3 and tracer_type[q] != 2):
+            raise ValueError(f"{name}: a type-2 tracer needs a type-1 parent "
+                             "and a type-3 tracer a type-2 one")
+    return ((ctypes.c_int * ntrace)(*[int(t) for t in tracer_type]),
+            (ctypes.c_int * ntrace)(*[int(q) for q in parent]))
 
 
 def remap_flux_both(*, mmE2, tmE2, hmE2, geomN, geomE, tracer_type, parent,
@@ -244,21 +325,9 @@ def remap_flux_both(*, mmE2, tmE2, hmE2, geomN, geomE, tracer_type, parent,
     _check("mmE2", mmE2, (ncat, ny + 4, nx + 4), dtype, device)
     _check("tmE2", tmE2, (ncat, ntrace, ny + 4, nx + 4), dtype, device)
     _check("hmE2", hmE2, (ny + 4, nx + 4), dtype, device)
-    for tag, geom, (nyr, nxr) in (("north", geomN, (ny + 1, nx)),
-                                  ("east", geomE, (ny, nx + 1))):
-        dn, ta, qx, qy = geom
-        _check(f"{tag} donor", dn, (6, nyr, nxr), torch.int32, device)
-        _check(f"{tag} triarea", ta, (6, nyr, nxr), dtype, device)
-        _check(f"{tag} qx", qx, (6, 3, nyr, nxr), dtype, device)
-        _check(f"{tag} qy", qy, (6, 3, nyr, nxr), dtype, device)
-    if ntrace > 64:
-        raise ValueError("remap_flux_both takes at most 64 tracers")
-    for nt in range(ntrace):
-        t, q = tracer_type[nt], parent[nt]
-        if (t == 2 and tracer_type[q] != 1) or \
-                (t == 3 and tracer_type[q] != 2):
-            raise ValueError("remap_flux_both: a type-2 tracer needs a "
-                             "type-1 parent and a type-3 tracer a type-2 one")
+    _check_geom("north", geomN, ny + 1, nx, dtype, device)
+    _check_geom("east", geomE, ny, nx + 1, dtype, device)
+    ttype, par = _tracer_table("remap_flux_both", tracer_type, parent)
     recon = torch.empty((ncat, 3 + 3 * ntrace, ny + 2, nx + 2), dtype=dtype,
                         device=device)
     out = (torch.empty((ncat, ny + 1, nx), dtype=dtype, device=device),
@@ -267,11 +336,37 @@ def remap_flux_both(*, mmE2, tmE2, hmE2, geomN, geomE, tracer_type, parent,
            torch.empty((ncat, ny, nx + 1), dtype=dtype, device=device),
            torch.empty((ncat, ntrace, ny, nx + 1), dtype=dtype,
                        device=device))
-    ttype = (ctypes.c_int * ntrace)(*[int(t) for t in tracer_type])
-    par = (ctypes.c_int * ntrace)(*[int(q) for q in parent])
     KERNELS["remap_flux_both"].call(
         dtype, ncat, ntrace, ny, nx, ttype, par, _ptr(mmE2), _ptr(tmE2),
         _ptr(hmE2), *[_ptr(t) for t in geomN], *[_ptr(t) for t in geomE],
+        _ptr(recon), *[_ptr(t) for t in out])
+    return out
+
+
+def remap_flux_edge(*, edge: str, mmE2, tmE2, hmE2, geom, tracer_type,
+                    parent, ny: int, nx: int):
+    """Launch the ``remap_flux_edge`` entry of csrc/remap_flux_both.cu:
+    reconstruction + transport integrals of ONE edge set (``edge`` "north":
+    (ny+1, nx) edges; "east": (ny, nx+1)), all categories. Takes what
+    ``remap_flux_both`` takes with one geometry set. Returns (mflx
+    (ncat, nyr, nxr), mtflx (ncat, ntrace, nyr, nxr))."""
+    device, dtype = _cuda_device(mmE2)
+    if edge not in ("north", "east"):
+        raise ValueError(f"edge must be 'north' or 'east', not {edge!r}")
+    ncat, ntrace = tmE2.shape[0], tmE2.shape[1]
+    _check("mmE2", mmE2, (ncat, ny + 4, nx + 4), dtype, device)
+    _check("tmE2", tmE2, (ncat, ntrace, ny + 4, nx + 4), dtype, device)
+    _check("hmE2", hmE2, (ny + 4, nx + 4), dtype, device)
+    nyr, nxr = (ny + 1, nx) if edge == "north" else (ny, nx + 1)
+    _check_geom(edge, geom, nyr, nxr, dtype, device)
+    ttype, par = _tracer_table("remap_flux_edge", tracer_type, parent)
+    recon = torch.empty((ncat, 3 + 3 * ntrace, ny + 2, nx + 2), dtype=dtype,
+                        device=device)
+    out = (torch.empty((ncat, nyr, nxr), dtype=dtype, device=device),
+           torch.empty((ncat, ntrace, nyr, nxr), dtype=dtype, device=device))
+    KERNELS["remap_flux_edge"].call(
+        dtype, int(edge == "east"), ncat, ntrace, ny, nx, ttype, par,
+        _ptr(mmE2), _ptr(tmE2), _ptr(hmE2), *[_ptr(t) for t in geom],
         _ptr(recon), *[_ptr(t) for t in out])
     return out
 
@@ -327,4 +422,5 @@ if __name__ == "__main__":
     # python -m cice5_tpu_torch.ops.kernels [file.cu ...]: ptxas's resource
     # report for the given sources (default: every kernel of the port)
     import sys
-    print(resource_usage(sys.argv[1:] or [k.source for k in KERNELS.values()]))
+    print(resource_usage(sys.argv[1:] or sorted({k.source for k in
+                                                 KERNELS.values()})))

@@ -1,12 +1,13 @@
 """Where the time of one model step goes on the GPU.
 
     python -m cice5_tpu_torch.profile_step [--config gx1_parity]
-        [--ny 384 --nx 320 --steps 3]
+        [--evp-algorithm pallas] [--ny 384 --nx 320 --steps 3]
 
 Runs the BL99 + CCSM3 configuration (``bench_easy``, the default) or the
 gx1-parity configuration (``gx1_parity``: mushy thermo, dEdd, tracers,
-tripole seam, on ``synth_gx1_grid``), float32, ndte=120, on the GPU and
-prints one JSON line with
+tripole seam, on ``synth_gx1_grid``), float32, ndte=120, on the GPU;
+``--evp-algorithm pallas`` takes the fused EVP sweep (kernel evp_fused)
+where the step does (not on the tripole seam). Prints one JSON line with
 
 - ``phase_ms``: wall time per step phase (column physics, strength, EVP,
   transport, ridging, slab ocean, and the rest), each phase bracketed by
@@ -39,13 +40,14 @@ from cice5_tpu_torch.driver.model import Model
 from cice5_tpu_torch.grid import synth_gx1_grid
 
 PHASES = {"_column_physics": "column_physics",
-          "strength_rothrock": "strength", "evp": "evp",
+          "strength_rothrock": "strength", "evp": "evp", "evp_fused": "evp",
           "transport_remap": "transport", "ridge_ice": "ridging",
           "ocean_mixed_layer": "ocean"}
 # inside _column_physics: reported apart, not added to phase_ms
 COLUMN_PHASES = {"_step_radiation": "radiation",
                  "thermo_vertical": "vertical_thermo"}
 OWN_KERNELS = {"evp_stress": "evp_sweep", "evp_stepu": "evp_sweep",
+               "evp_fused_chunk": "evp_fused",
                "remap_recon": "remap_flux_both",
                "remap_flux": "remap_flux_both",
                "shortwave_dedd": "shortwave_dedd"}
@@ -87,6 +89,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", choices=("bench_easy", "gx1_parity"),
                     default="bench_easy")
+    ap.add_argument("--evp-algorithm", choices=("auto", "pallas"),
+                    default="auto")
     ap.add_argument("--ny", type=int, default=384)
     ap.add_argument("--nx", type=int, default=320)
     ap.add_argument("--steps", type=int, default=3)
@@ -98,10 +102,15 @@ def main(argv=None):
         cfg = gx1_parity_config()
         cfg = cfg.replace(grid=dataclasses.replace(cfg.grid, ny=args.ny,
                                                    nx=args.nx))
+    else:
+        cfg = bench_easy_config(ny=args.ny, nx=args.nx)
+    cfg = cfg.replace(dyn=dataclasses.replace(
+        cfg.dyn, evp_algorithm=args.evp_algorithm))
+    if args.config == "gx1_parity":
         m = Model(cfg, grid=synth_gx1_grid(cfg, device="cuda"))
         st = m.init_state()
     else:
-        m = Model(bench_easy_config(ny=args.ny, nx=args.nx))
+        m = Model(cfg)
         st = m.init_state(ice_mask=m.grid.tmask)
     f = m.forcing_at(0)
     st, _ = m.rollout(st, f, 2)
@@ -147,7 +156,8 @@ def main(argv=None):
             dev[key][1] += 1
     busy = sum(v[0] for v in dev.values())
     out = dict(
-        config=args.config, grid=[args.ny, args.nx], steps=args.steps,
+        config=args.config, evp_algorithm=args.evp_algorithm,
+        grid=[args.ny, args.nx], steps=args.steps,
         card=torch.cuda.get_device_name(0), ms_per_step=ms_step,
         ms_per_step_phase_synced=ms_synced, phase_ms=phase_ms,
         column_ms=column_ms,

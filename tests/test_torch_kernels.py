@@ -26,7 +26,7 @@ from cice5_tpu_torch.grid import popgrid_np
 from cice5_tpu_torch.models.dynamics import evp as tevp
 from cice5_tpu_torch.models.radiation import dedd
 from cice5_tpu_torch.models.transport import remap as trm
-from cice5_tpu_torch.ops import check, kernels
+from cice5_tpu_torch.ops import check, evp_fused, kernels
 from torch_port_util import (PARITY_ISTEP, cuda_device,  # noqa: F401
                              parity_grid_arrays)
 
@@ -71,6 +71,37 @@ def _evp_rel(got):
     return check.worst(check.field_errors(ref, out))[1]
 
 
+def _fused_rel(got, kchunk):
+    """Worst relative differences of kernel D (evp_fused, ndte/kchunk
+    launches) from its plain version and from kernel A on the same
+    inputs, each output against its own scale."""
+    p, nd, topo, kw = got["evp"]
+    sweep = dict(kchunk=kchunk, nwin=4, **kw)
+    out = check.evp_outputs(evp_fused.fused_sweep(p, nd, topo, **sweep))
+    plain = check.evp_outputs(evp_fused.fused_sweep_plain(p, nd, topo,
+                                                          **sweep))
+    a = check.evp_outputs(tevp.evp_sweep(p, nd, topo, **kw))
+    return (check.worst(check.field_errors(plain, out))[1],
+            check.worst(check.field_errors(a, out))[1])
+
+
+def _edge_rel(args, edge):
+    """Worst relative differences of kernel E (remap_flux_edge) from its
+    plain version and from the matching half of kernel B."""
+    geomN, geomE, mmE2, tmE2, hmE2, tt, par, ny, nx = args
+    geom = geomN if edge == "north" else geomE
+    names = ("mflx", "mtflx")
+    out = dict(zip(names, trm.remap_flux_edge(edge, geom, mmE2, tmE2, hmE2,
+                                              tt, par, ny, nx)))
+    plain = dict(zip(names, trm.remap_flux_edge_plain(
+        edge, geom, mmE2, tmE2, hmE2, tt, par, ny, nx)))
+    both = trm.remap_flux_both(*args)
+    b = dict(zip(names, both[:2] if edge == "north" else both[2:]))
+    axes = {"mtflx": 1}
+    return (check.worst(check.field_errors(plain, out, axes))[1],
+            check.worst(check.field_errors(b, out, axes))[1])
+
+
 def _remap_rel(args):
     ref = check.remap_outputs(trm.remap_flux_plain(*args))
     out = check.remap_outputs(trm.remap_flux_both(*args))
@@ -103,12 +134,23 @@ def test_field_errors_scale_each_field_on_its_own():
         == {"x": (1e-30, float("inf"))}
 
 
-@pytest.mark.parametrize("kernel", ["evp", "remap", "dedd"])
+@pytest.mark.parametrize("kernel", ["evp", "remap", "dedd", "evp_fused",
+                                    "remap_edge"])
 def test_wrappers_take_plain_version_on_cpu(kernel):
     got = (_captured_parity if kernel == "dedd" else _captured)(
         "cpu", "float64", ndte=2)
     kernels.reset_launch_counts()
-    if kernel == "dedd":
+    if kernel == "evp_fused":
+        p, nd, topo, kw = got["evp"]
+        a = evp_fused.fused_sweep(p, nd, topo, kchunk=1, nwin=2, **kw)
+        b = evp_fused.fused_sweep_plain(p, nd, topo, kchunk=1, nwin=2, **kw)
+        assert all(torch.equal(x, y) for x, y in zip(a[:3], b[:3]))
+    elif kernel == "remap_edge":
+        geomN, _, *rest = got["remap"]
+        a = trm.remap_flux_edge("north", geomN, *rest)
+        b = trm.remap_flux_edge_plain("north", geomN, *rest)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    elif kernel == "dedd":
         a = dedd.shortwave_dEdd_ncat(**got["dedd"])
         b = dedd.shortwave_dEdd_plain(**got["dedd"])
         assert all(torch.equal(x, y) for x, y in zip(a, b))
@@ -169,7 +211,8 @@ def test_main_path_launches_each_kernel_once_per_step(cuda_device):
     st, d = m.rollout(st, m.forcing_at(0), 3)
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {"evp_sweep": 3, "remap_flux_both": 3,
-                                       "shortwave_dedd": 0}
+                                       "shortwave_dedd": 0, "evp_fused": 0,
+                                       "remap_flux_edge": 0}
     assert int(d.state_bad) == 0 and bool(torch.isfinite(st.vicen).all())
 
 
@@ -242,5 +285,51 @@ def test_parity_path_launches_each_kernel_once_per_step(cuda_device):
     st, d = m.rollout(st, m.forcing_at(PARITY_ISTEP), 3)
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {"evp_sweep": 3, "remap_flux_both": 3,
-                                       "shortwave_dedd": 3}
+                                       "shortwave_dedd": 3, "evp_fused": 0,
+                                       "remap_flux_edge": 0}
+    assert int(d.state_bad) == 0 and bool(torch.isfinite(st.vicen).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,ndte,kchunk,tol", [
+    ("float64", 1, 1, 1e-12), ("float64", 20, 10, 3e-8),
+    ("float32", 1, 1, 1e-6), ("float32", 20, 10, 1e-5)])
+def test_evp_fused_kernel_matches_plain_and_evp_sweep(cuda_device, dtype,
+                                                      ndte, kchunk, tol):
+    """Kernel D against its plain version and against kernel A on the same
+    captured inputs: the same function, the same per-point code
+    (csrc/evp_point.cuh), so bit for bit when the build rounds alike."""
+    got = _captured(cuda_device, dtype, ndte=ndte)
+    rel_plain, rel_a = _fused_rel(got, kchunk)
+    assert rel_plain <= tol and rel_a <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("float64", 1e-12),
+                                       ("float32", 1e-5)])
+@pytest.mark.parametrize("edge", ["north", "east"])
+def test_remap_flux_edge_kernel_matches_plain_and_both(cuda_device, dtype,
+                                                       tol, edge):
+    """Kernel E against its plain version, and against the same edge set
+    of kernel B (the same device code), with an ice-free band."""
+    args = list(_captured(cuda_device, dtype)["remap"])
+    args[2] = args[2].clone()
+    args[2][:, :14] = 0.0
+    rel_plain, rel_b = _edge_rel(args, edge)
+    assert rel_plain <= tol and rel_b == 0.0
+
+
+@pytest.mark.gpu
+def test_fused_path_launches_evp_fused_per_chunk(cuda_device):
+    cfg = bench_easy_config(ny=16, nx=32, ndte=20)
+    cfg = cfg.replace(dyn=dataclasses.replace(cfg.dyn,
+                                              evp_algorithm="pallas"))
+    m = Model(cfg, device=cuda_device)
+    st = m.init_state(ice_mask=m.grid.tmask)
+    kernels.reset_launch_counts()
+    st, d = m.rollout(st, m.forcing_at(0), 3)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {
+        "evp_sweep": 0, "remap_flux_both": 3, "shortwave_dedd": 0,
+        "evp_fused": 6, "remap_flux_edge": 0}
     assert int(d.state_bad) == 0 and bool(torch.isfinite(st.vicen).all())

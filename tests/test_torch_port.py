@@ -100,8 +100,6 @@ def _unsupported():
         "upwind": base.replace(dyn=r(base.dyn, advection="upwind")),
         "chunked": base.replace(dyn=r(base.dyn, evp_algorithm="chunked")),
         "compact": base.replace(grid=r(base.grid, compact_columns="on")),
-        "gx1_parity": parity.replace(dyn=r(parity.dyn,
-                                           evp_algorithm="pallas")),
         # the gx1-parity options are held against JAX only all together
         "tripole_seam_alone": base.replace(
             grid=r(base.grid, ns_boundary="tripole")),
@@ -128,11 +126,19 @@ def test_options_outside_the_slice_raise(name):
 
 
 def _ported():
+    r = dataclasses.replace
+    parity = tconfig.gx1_parity_config()
+    easy = tconfig.bench_easy_config()
     return {
-        "gx1_parity": tconfig.gx1_parity_config(),
+        "gx1_parity": parity,
         "gx1_parity_f64": tconfig.gx1_parity_config(dtype="float64",
                                                     accum_dtype="float64"),
-        "bench_easy": tconfig.bench_easy_config(),
+        # the JAX step sends "pallas" on a tripole seam to evp
+        "gx1_parity_pallas": parity.replace(dyn=r(parity.dyn,
+                                                  evp_algorithm="pallas")),
+        "bench_easy": easy,
+        "bench_easy_fused": easy.replace(dyn=r(easy.dyn,
+                                               evp_algorithm="pallas")),
         "rect": tconfig.rect_config(ny=8, nx=8),
     }
 
@@ -140,6 +146,28 @@ def _ported():
 @pytest.mark.parametrize("name", sorted(_ported()))
 def test_ported_options_are_accepted(name):
     check_supported(_ported()[name])
+
+
+def _fused_refusals():
+    r = dataclasses.replace
+    easy = tconfig.bench_easy_config()
+    fused = easy.replace(dyn=r(easy.dyn, evp_algorithm="pallas"))
+    return {
+        "cyclic_ns": (fused.replace(grid=r(fused.grid, ns_boundary="cyclic")),
+                      "open-boundary dynamics"),
+        "ndte_not_multiple_of_10": (fused.replace(dyn=r(fused.dyn, ndte=25)),
+                                    "multiple of 10"),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_fused_refusals()))
+def test_fused_evp_refusals_name_their_reason(name):
+    """Two refusals of the fused EVP path that no later slice lifts: the
+    JAX fused kernel computes open-boundary dynamics on a cyclic
+    north-south grid, and runs chunks of 10 subcycles."""
+    cfg, reason = _fused_refusals()[name]
+    with pytest.raises(NotImplementedError, match=reason):
+        check_supported(cfg)
 
 
 def test_parity_model_on_cpu_and_without_cuda(monkeypatch):
@@ -183,6 +211,15 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                 tmE2=torch.zeros(1, 1, 8, 8), hmE2=z,
                                 geomN=None, geomE=None, tracer_type=(1,),
                                 parent=(-1,), ny=4, nx=4)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.evp_fused(kchunk=10, cyc_x=True, u=z, v=z, stress=z,
+                          maskR=z, strengthR=z, gR=z, uin=z, cw_plane=False,
+                          Cw=0.0, p=None)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.remap_flux_edge(edge="north", mmE2=torch.zeros(1, 8, 8),
+                                tmE2=torch.zeros(1, 1, 8, 8), hmE2=z,
+                                geom=None, tracer_type=(1,), parent=(-1,),
+                                ny=4, nx=4)
 
 
 def test_kernel_build_targets_hopper():
@@ -193,6 +230,28 @@ def test_kernel_build_targets_hopper():
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
     kernels.reset_launch_counts()
     assert set(kernels.launch_counts().values()) == {0}
+
+
+def test_kernel_rebuilds_when_its_source_or_a_header_is_newer(tmp_path,
+                                                               monkeypatch):
+    """A library older than its .cu or than a csrc header the .cu includes
+    is rebuilt; the two EVP kernels share evp_point.cuh, and the
+    single-edge remap kernel is built from the merged remap source."""
+    import os
+    monkeypatch.setenv("CICE5_TORCH_BUILD_DIR", str(tmp_path))
+    d, a = kernels.KERNELS["evp_fused"], kernels.KERNELS["evp_sweep"]
+    assert [h.name for h in d.headers()] == ["evp_point.cuh"] == \
+        [h.name for h in a.headers()]
+    e = kernels.KERNELS["remap_flux_edge"]
+    assert e.library == kernels.KERNELS["remap_flux_both"].library
+    assert d.needs_build()                       # no library yet
+    header = d.headers()[0].stat().st_mtime
+    newest = max(header, d.source.stat().st_mtime)
+    d.library.touch()
+    os.utime(d.library, (newest + 10, newest + 10))
+    assert not d.needs_build()
+    os.utime(d.library, (header - 10, header - 10))
+    assert d.needs_build()
 
 
 def test_config_copies_match_jax():

@@ -97,6 +97,51 @@ def test_remap_fields_batch_matches_pallas_interpret():
     assert np.all(out[0].numpy()[-1, :6] == 0.0)
 
 
+@pytest.mark.parametrize("edge", ["north", "east"])
+def test_remap_flux_edge_plain_matches_integrals_tiled_interpret(edge):
+    """The plain version of the single-edge kernel (remap_flux_edge) against
+    the JAX package's integrals_tiled (interpret mode) on the inputs of
+    test_remap_fields_batch_matches_pallas_interpret, each flux on its own
+    scale; and against the matching half of remap_flux_plain, bit for
+    bit."""
+    from cice5_tpu.ops.pallas.remap_flux import integrals_tiled
+    from cice5_tpu_torch.parallel import extend_wide
+    ny, nx = 16, 16
+    _, _, tg = _grid(ny, nx)
+    rng = np.random.default_rng(1)
+    ncat, ntrace = 2, 6
+    mm = rng.uniform(0, 1, (ncat, ny, nx))
+    tm = rng.uniform(0, 1, (ncat, ntrace, ny, nx))
+    mm[0] = 0.0
+    mm[-1, :14] = 0.0
+    tracer_type = (1, 1, 1, 2, 3, 2)
+    parent = (-1, -1, -1, 0, 3, 1)
+    u = 0.2 * (rng.uniform(size=(ny, nx)) - 0.5)
+    v = 0.2 * (rng.uniform(size=(ny, nx)) - 0.5)
+    topo = Topology(ew="cyclic", ns="open")
+    geo = trm.remap_geometry(3600.0, tg, topo, uvel=torch.as_tensor(u),
+                             vvel=torch.as_tensor(v))
+    fields = (extend_wide(torch.as_tensor(mm), topo, 2),
+              extend_wide(torch.as_tensor(tm), topo, 2),
+              extend_wide(tg.hm, topo, 2))
+    geoms = {k: (g.donor, g.triarea, *trm._triangle_midpoints(g))
+             for k, g in geo._asdict().items()}
+    J = lambda t: jnp.asarray(t.numpy())
+    ref = integrals_tiled(edge, *map(J, geoms[edge]), *map(J, fields),
+                          tracer_type, parent, ny, nx, interpret=True)
+    got = trm.remap_flux_edge_plain(edge, geoms[edge], *fields, tracer_type,
+                                    parent, ny, nx)
+    assert_close(ref[0], got[0], 1e-12, "mflx")
+    for k in range(ntrace):
+        assert_close(np.asarray(ref[1])[:, k], got[1][:, k], 1e-12,
+                     f"mtflx[{k}]")
+    both = trm.remap_flux_plain(geoms["north"], geoms["east"], *fields,
+                                tracer_type, parent, ny, nx)
+    half = both[:2] if edge == "north" else both[2:]
+    assert all(torch.equal(a, b) for a, b in zip(half, got))
+    assert float(got[0].abs().max()) > 0.0
+
+
 def test_remap_flux_plain_zero_where_no_ice():
     """The plain flux function gives exact zeros wherever the window holds
     no ice: the kernel's skip writes the same values."""

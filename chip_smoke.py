@@ -24,7 +24,16 @@ toolkit. Phases (any failure exits non-zero):
    and against the EVP sweep kernel; the single-edge remap kernel (both
    edges, float64 and float32, both tracer tables, with the ice-free
    band) against its plain version and the same edge set of the merged
-   remap kernel. Kernel and plain times come from CUDA events.
+   remap kernel. Kernel and plain times come from CUDA events. Both EVP
+   kernels are one engine (csrc/evp_resident.cu): its forced
+   device-memory branch must equal the plain sweep bit for bit on the EVP
+   sweep's inputs, and for each model the script prints the EVP tile plan
+   and, from CUDA graph replays of one call as the step makes it (its
+   replay must equal the eager call bit for bit), the per-subcycle cost
+   and one grid barrier's cost. The EVP kernels' times in the kernels
+   line are those replays' device times (one call of 120 subcycles,
+   argument packing included); the eager times, which include the host's
+   launch gaps, are printed beside them.
 3. Check the whole paths against the plain paths on small inputs: two
    float64 steps on the GPU (kernels) and on the CPU (plain versions)
    from one warmed-up state, for the BL99 model (with the EVP sweep, and
@@ -107,15 +116,29 @@ def cuda_time_ms(fn, reps: int, warmup: int = 1) -> float:
     return a.elapsed_time(b) / reps
 
 
+def device_plan(kw):
+    """The EVP kernels' device-memory branch forced on these inputs: tiles
+    of at most 30x32 U points on a third of the card's SMs, so each block
+    walks several tiles per subcycle (130 tiles on 44 blocks at 384x320
+    on 132 SMs)."""
+    from cice5_tpu_torch.ops import kernels
+    from cice5_tpu_torch.ops.evp_resident import tile_plan
+    (ny, nx), dtype = kw["uvel"].shape, kw["uvel"].dtype
+    n_sm, smem = kernels.device_limits(kw["uvel"].device)
+    return tile_plan(ny, nx, dtype, max(1, n_sm // 3), smem, "device")
+
+
 def evp_phase(cap64, cap32, label):
     """Kernel A (evp_sweep) against subcycle_sweep on the card, each output
     (u, v, each stress component, each diagnostic) against its own scale.
     Built without FMA contraction, the kernel rounds as its plain version
-    does, so float32 is held as tightly as float64 allows."""
+    does, so float32 is held as tightly as float64 allows. The same inputs
+    go through the kernel's device-memory branch (``device_plan``), which
+    must equal the plain version bit for bit."""
     import torch
     from cice5_tpu_torch.models.dynamics import evp as tevp
     from cice5_tpu_torch.ops import check
-    results = {}
+    results, inexact = {}, []
     for tag, (p, _, topo, kw), ndte, tol in (
             ("f64 ndte=1", cap64, 1, 1e-12),
             ("f64 ndte=120", cap64, 120, 3e-8),
@@ -123,17 +146,27 @@ def evp_phase(cap64, cap32, label):
             ("f32 ndte=120", cap32, 120, 1e-5)):
         ref = check.evp_outputs(tevp.subcycle_sweep(p, ndte, topo, **kw))
         got = check.evp_outputs(tevp.evp_sweep(p, ndte, topo, **kw))
+        dplan = device_plan(kw)
+        dev = check.evp_outputs(check.evp_on_plan(p, ndte, topo, dplan,
+                                                  **kw))
         torch.cuda.synchronize()
         field, rel, err = check.worst(check.field_errors(ref, got))
+        _, _, err_dev = check.worst(check.field_errors(ref, dev))
         print(f"evp_sweep {label} {tag}: max abs diff {err:.3e}; worst field "
               f"{field}: rel diff {rel:.3e} (bound {tol:.0e} x the field's "
-              f"scale)")
+              f"scale); device-memory branch ({dplan.describe()}): max abs "
+              f"diff {err_dev:.3e} (must be 0)")
         results[tag] = (err, rel, tol)
+        if err_dev != 0.0:
+            inexact.append(tag)
     bad = [t for t, (_, rel, tol) in results.items() if not rel <= tol]
     if bad:
         fail(f"evp_sweep disagrees with subcycle_sweep ({label}): {bad}")
+    if inexact:
+        fail(f"evp_sweep's device-memory branch differs from subcycle_sweep "
+             f"({label}): {inexact}")
     p, ndte, topo, kw = cap32
-    ms = cuda_time_ms(lambda: tevp.evp_sweep(p, ndte, topo, **kw), reps=5)
+    ms = cuda_time_ms(lambda: tevp.evp_sweep(p, ndte, topo, **kw), reps=20)
     plain_ms = cuda_time_ms(lambda: tevp.subcycle_sweep(p, ndte, topo, **kw),
                             reps=2)
     ny, nx = kw["uvel"].shape
@@ -143,6 +176,72 @@ def evp_phase(cap64, cap32, label):
           f"({what})")
     return dict(err=results["f32 ndte=120"][0], ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
+
+
+def graph_ms(fn, reps: int):
+    """(ms per replay, outputs) of ``fn`` captured in one CUDA graph after
+    a warm-up call on a side stream: the device time of the call without
+    the host's launch gaps."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return cuda_time_ms(graph.replay, reps=reps), out
+
+
+def evp_costs(cap32, label):
+    """Kernel A's plan and cost split at the main path's shapes (f32), all
+    device times of CUDA graph replays: one A call as the step makes it
+    (``evp.evp_sweep``, argument packing included) at ndte=1 and ndte=120,
+    whose difference over 119 is the cost of one subcycle; one grid
+    barrier alone on the plan's blocks, split (the kernel's) and
+    cooperative_groups' ``grid.sync()``; the device-memory branch. The
+    ndte=120 replay must equal the eager call bit for bit. Returns the
+    ndte=120 replay's ms."""
+    from cice5_tpu_torch.models.dynamics import evp as tevp
+    from cice5_tpu_torch.ops import check, kernels
+    p, ndte, topo, kw = cap32
+    (ny, nx), dtype = kw["uvel"].shape, kw["uvel"].dtype
+    plan = kernels.evp_plan(ny, nx, dtype, kw["uvel"].device)
+    print(f"evp plan {label} f32 {ny}x{nx}: {plan.describe()}; grid "
+          f"barriers per call: evp_sweep {plan.barriers(ndte, True)} "
+          f"(ndte={ndte}), evp_fused {plan.barriers(10, False)} per launch "
+          f"of 10 subcycles", flush=True)
+    eager = tevp.evp_sweep(p, ndte, topo, **kw)
+    t = {}
+    for n in (1, ndte):
+        t[n], out = graph_ms(lambda n=n: tevp.evp_sweep(p, n, topo, **kw),
+                             reps=50)
+    _, _, err = check.worst(check.field_errors(check.evp_outputs(eager),
+                                               check.evp_outputs(out)))
+    if err != 0.0:
+        fail(f"evp_sweep's CUDA graph replay differs from the eager call "
+             f"({label}): {err:.3e}")
+    per_sub = (t[ndte] - t[1]) / (ndte - 1) * 1e3
+    bar = {}
+    for split in (True, False):
+        tb = {n: cuda_time_ms(lambda n=n: kernels.evp_barriers(
+            plan.blocks, n, split), reps=20) for n in (1, ndte + 1)}
+        bar[split] = (tb[ndte + 1] - tb[1]) / ndte * 1e3
+    dplan = device_plan(kw)
+    t_dev, _ = graph_ms(lambda: check.evp_on_plan(p, ndte, topo, dplan,
+                                                  **kw), reps=10)
+    print(f"evp_sweep {label} f32 cost split (CUDA graph replays): ndte=1 "
+          f"{t[1]:.4f} ms, ndte={ndte} {t[ndte]:.4f} ms (bit-equal to the "
+          f"eager call), per subcycle {per_sub:.3f} us; one grid barrier "
+          f"alone on {plan.blocks} blocks: split {bar[True]:.3f} us "
+          f"({100 * bar[True] / per_sub:.1f}% of a subcycle), "
+          f"cooperative_groups grid.sync() {bar[False]:.3f} us; "
+          f"device-memory branch ({dplan.describe()}) ndte={ndte} "
+          f"{t_dev:.4f} ms", flush=True)
+    return t[ndte]
 
 
 def evp_bound(kw, ndte):
@@ -161,12 +260,12 @@ def evp_bound(kw, ndte):
 
 
 def evp_fused_phase(cap64, cap32):
-    """Kernel D (evp_fused, ndte/kchunk launches of kchunk subcycles on
-    2-D tiles with margins) against its plain version fused_sweep_plain
-    (nwin=4 Y-windows) and against kernel A on the same captured inputs of
-    the open-boundary BL99 grid, each output against its own scale. D is
-    the same function as A with the same per-point code
-    (csrc/evp_point.cuh), so it is held with A's bounds."""
+    """Kernel D (evp_fused, ndte/kchunk cooperative launches of kchunk
+    subcycles) against its plain version fused_sweep_plain (nwin=4
+    Y-windows) and against kernel A on the same captured inputs of the
+    open-boundary BL99 grid, each output against its own scale. D is the
+    same function as A run by the same kernel (csrc/evp_resident.cu), so it
+    is held with A's bounds and must equal A bit for bit."""
     import torch
     from cice5_tpu_torch.models.dynamics import evp as tevp
     from cice5_tpu_torch.ops import check
@@ -190,24 +289,31 @@ def evp_fused_phase(cap64, cap32):
               f"vs evp_sweep max abs diff {ea:.3e}, worst field {fa}: rel "
               f"diff {ra:.3e} (bound {tol:.0e} x the field's scale)")
         results[tag] = ep
-        if not (rp <= tol and ra <= tol):
+        # one engine (csrc/evp_resident.cu) runs both: D equals A exactly
+        if not (rp <= tol and ra <= tol and ea == 0.0):
             bad.append(tag)
     if bad:
         fail(f"evp_fused disagrees with its plain version or evp_sweep: {bad}")
     p, ndte, topo, kw = cap32
     sw = dict(kchunk=10, nwin=4, **kw)
-    ms = cuda_time_ms(lambda: tfused.fused_sweep(p, ndte, topo, **sw), reps=5)
+    ms = cuda_time_ms(lambda: tfused.fused_sweep(p, ndte, topo, **sw),
+                      reps=20)
     plain_ms = cuda_time_ms(
         lambda: tfused.fused_sweep_plain(p, ndte, topo, **sw), reps=2)
-    a_ms = cuda_time_ms(lambda: tevp.evp_sweep(p, ndte, topo, **kw), reps=5)
+    a_ms = cuda_time_ms(lambda: tevp.evp_sweep(p, ndte, topo, **kw),
+                        reps=20)
+    g_ms, _ = graph_ms(lambda: tfused.fused_sweep(p, ndte, topo, **sw),
+                       reps=20)
+    ga_ms, _ = graph_ms(lambda: tevp.evp_sweep(p, ndte, topo, **kw), reps=20)
     ny, nx = kw["uvel"].shape
     bound_ms, bound_by, what = evp_bound(kw, ndte)
     print(f"evp_fused BL99 f32 ndte={ndte} kchunk=10 at {ny}x{nx}: kernel "
-          f"{ms:.3f} ms ({ndte // 10} launches), plain {plain_ms:.3f} ms, "
-          f"evp_sweep on the same inputs {a_ms:.3f} ms, bound "
+          f"{ms:.3f} ms ({ndte // 10} launches), in a CUDA graph {g_ms:.4f} "
+          f"ms; plain {plain_ms:.3f} ms; evp_sweep on the same inputs "
+          f"{a_ms:.3f} ms, in a CUDA graph {ga_ms:.4f} ms; bound "
           f"{bound_ms:.4f} ms ({what}, the work of evp_sweep)")
-    return dict(err=results["f32 ndte=120"], ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+    return dict(err=results["f32 ndte=120"], ms=g_ms, eager_ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def remap_args_with_band(args):
@@ -668,6 +774,7 @@ def main():
 
     caps = {dt: capture(bl99_model, dt) for dt in ("float64", "float32")}
     evp_phase(caps["float64"][1]["evp"], caps["float32"][1]["evp"], "BL99")
+    evp_costs(caps["float32"][1]["evp"], "BL99")
     remap_phase(caps["float64"][1]["remap"], caps["float32"][1]["remap"],
                 caps["float64"][0], caps["float32"][0], "BL99")
     # slice 3: kernel D on the same open-boundary inputs, E beside B
@@ -683,6 +790,8 @@ def main():
     caps = {dt: capture(parity_model, dt) for dt in ("float64", "float32")}
     a = evp_phase(caps["float64"][1]["evp"], caps["float32"][1]["evp"],
                   "gx1 tripole")
+    a["eager_ms"], a["ms"] = a["ms"], evp_costs(caps["float32"][1]["evp"],
+                                                "gx1 tripole")
     b = remap_phase(caps["float64"][1]["remap"], caps["float32"][1]["remap"],
                     caps["float64"][0], caps["float32"][0], "gx1")
     c = dedd_phase(caps["float64"][1]["dedd"], caps["float32"][1]["dedd"])
@@ -705,7 +814,7 @@ def main():
 
     line = {"kernels": [
         dict(name="evp_sweep", route="cuda",
-             source="cice5_tpu_torch/csrc/evp_sweep.cu",
+             source="cice5_tpu_torch/csrc/evp_resident.cu",
              replaces="cice5_tpu/ops/pallas/evp_resident.py:35",
              launches=launches["evp_sweep"], max_abs_err=a["err"],
              ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
@@ -723,7 +832,7 @@ def main():
              ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
              bound_by=c["bound_by"], library_ms=None),
         dict(name="evp_fused", route="cuda",
-             source="cice5_tpu_torch/csrc/evp_fused.cu",
+             source="cice5_tpu_torch/csrc/evp_resident.cu",
              replaces="cice5_tpu/ops/pallas/evp_fused.py:49",
              launches=fused["evp_fused"], max_abs_err=d["err"],
              ms=d["ms"], plain_ms=d["plain_ms"], bound_ms=d["bound_ms"],

@@ -1,9 +1,9 @@
-// The per-point arithmetic of one EVP subcycle, shared by the EVP kernels
-// (evp_sweep.cu, evp_fused.cu) so that both compute every point with the
-// same operations in the same order as the plain version
+// The per-point arithmetic of one EVP subcycle, used by both entries of
+// the EVP kernel (evp_resident.cu) so that it computes every point with
+// the same operations in the same order as the plain version
 // (models/dynamics/evp.py:stress_kernel, models/dynamics/shared.py:stepu).
-// Built without FMA contraction (ops/kernels.py NVCC_FLAGS), the kernels
-// then round like the plain version and like each other.
+// Built without FMA contraction (ops/kernels.py NVCC_FLAGS), the kernel
+// then rounds like the plain version.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -29,6 +29,23 @@ template <typename T>
 __device__ __forceinline__ T tmin(T a, T b) { return a < b ? a : b; }
 template <typename T>
 __device__ __forceinline__ T tabs(T a) { return a < T(0) ? -a : a; }
+
+// sqrt(x) and a / b for b > 0, the IEEE-rounded results bit for bit, with
+// an exact zero kept out of the rounding routine: sqrt(+-0) = +-0 and
+// +-0 / b = +-0, but a zero input takes the routine's slow path, whose
+// cost the whole warp pays, and land and ice-free points (zero strain,
+// zero strength, zero velocity) give zeros everywhere. The routine sees
+// 1 in their place, so the compiler may evaluate it for every lane.
+template <typename T>
+__device__ __forceinline__ T sqrt_z(T x) {
+  const T r = sqrt(x == T(0) ? T(1) : x);
+  return x == T(0) ? x : r;
+}
+template <typename T>
+__device__ __forceinline__ T div_z(T a, T b) {
+  const T r = (a == T(0) ? T(1) : a) / b;
+  return a == T(0) ? a : r;
+}
 
 // region metric planes, in evp.GR_NAMES order
 enum { G_DXT, G_DYT, G_DXHY, G_DYHX, G_CXP, G_CYP, G_CXM, G_CYM, G_TAREAR,
@@ -78,21 +95,21 @@ __device__ __forceinline__ void stress_point(
   const T shearsw = -cyp * vSW + dyt * vS - cxp * uSW + dxt * uW;
   const T shearse = -cym * vS - dyt * vSW - cxp * uS + dxt * u00;
 
-  const T Deltane = sqrt(divune * divune
+  const T Deltane = sqrt_z(divune * divune
                          + ecci * (tensionne * tensionne + shearne * shearne));
-  const T Deltanw = sqrt(divunw * divunw
+  const T Deltanw = sqrt_z(divunw * divunw
                          + ecci * (tensionnw * tensionnw + shearnw * shearnw));
-  const T Deltase = sqrt(divuse * divuse
+  const T Deltase = sqrt_z(divuse * divuse
                          + ecci * (tensionse * tensionse + shearse * shearse));
-  const T Deltasw = sqrt(divusw * divusw
+  const T Deltasw = sqrt_z(divusw * divusw
                          + ecci * (tensionsw * tensionsw + shearsw * shearsw));
 
   // replacement pressure (:683-699)
   const T tiny = tmax(tinyarea, T(1e-30));
-  T c0ne = strength / tmax(Deltane, tiny);
-  T c0nw = strength / tmax(Deltanw, tiny);
-  T c0sw = strength / tmax(Deltasw, tiny);
-  T c0se = strength / tmax(Deltase, tiny);
+  T c0ne = div_z(strength, tmax(Deltane, tiny));
+  T c0nw = div_z(strength, tmax(Deltanw, tiny));
+  T c0sw = div_z(strength, tmax(Deltasw, tiny));
+  T c0se = div_z(strength, tmax(Deltase, tiny));
   const T prs_sig = c0ne * Deltane;
 
   const T arlx1i = P.arlx1i;
@@ -137,7 +154,7 @@ __device__ __forceinline__ void stress_point(
     const T ts = tensionne + tensionnw + tensionse + tensionsw;
     const T ss = shearne + shearnw + shearse + shearsw;
     diag[0] = divu;
-    diag[1] = K::p25 * tarear * sqrt(ts * ts + ss * ss);
+    diag[1] = K::p25 * tarear * sqrt_z(ts * ts + ss * ss);
     diag[2] = -tmin(divu, T(0));
     diag[3] = K::p5 * (Delta_avg - tabs(divu));
     diag[4] = prs_sig;
@@ -225,7 +242,7 @@ __device__ __forceinline__ void stepu_point(
   const T uocn = uin[U_UOCN * np + k], vocn = uin[U_VOCN * np + k];
   const T cw = cw_plane ? uin[U_CW * np + k] : Cw;
   const T du = uocn - uold, dv = vocn - vold;
-  const T vrel = aiu * T(1026.0) * cw * sqrt(du * du + dv * dv);
+  const T vrel = aiu * T(1026.0) * cw * sqrt_z(du * du + dv * dv);
   const T taux = vrel * uin[U_WATERX * np + k];
   const T tauy = vrel * uin[U_WATERY * np + k];
 
@@ -246,8 +263,8 @@ __device__ __forceinline__ void stepu_point(
                 + umassdti * (P.brlx * vold + P.revp * uin[U_VINIT * np + k]);
   ab2 = tmax(ab2, T(1e-30));
   const bool m = uin[U_ICEM * np + k] > T(0.5);
-  u = m ? (cca * cc1 + ccb * cc2) / ab2 : T(0);
-  v = m ? (cca * cc2 - ccb * cc1) / ab2 : T(0);
+  u = m ? div_z(cca * cc1 + ccb * cc2, ab2) : T(0);
+  v = m ? div_z(cca * cc2 - ccb * cc1, ab2) : T(0);
   strintx_out = m ? strintx : T(0);
   strinty_out = m ? strinty : T(0);
 }

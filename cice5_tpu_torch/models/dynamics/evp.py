@@ -10,7 +10,8 @@ column, so stepu's stress divergence needs no second halo per subcycle.
 The ndte-subcycle sweep has two implementations with one signature:
 ``subcycle_sweep`` (plain PyTorch, the CPU path and the reference for the
 kernel) and ``evp_sweep``, which launches the hand-written CUDA kernel
-``csrc/evp_sweep.cu`` for tensors on the GPU. ``evp`` always calls
+(the ``evp_sweep`` entry of ``csrc/evp_resident.cu``: the whole sweep in
+one persistent, SM-resident launch) for tensors on the GPU. ``evp`` always calls
 ``evp_sweep``; a CPU tensor takes the plain version there. Its prep
 (``evp_prep``) and finish (``evp_result``) are shared with the fused
 driver of ``evp_algorithm="pallas"`` (``cice5_tpu_torch/ops/evp_fused.py``).
@@ -357,9 +358,12 @@ def evp_sweep(p: dyn.EVPParams, ndte: int, topo: Topology, *, uvel, vvel,
               waterx, watery, forcex, forcey, umassdti, fm, uarear,
               uvel_init, vvel_init, Cw):
     """``subcycle_sweep`` with the same signature and results: the plain
-    version for CPU tensors, the ``evp_sweep`` CUDA kernel
-    (csrc/evp_sweep.cu) for CUDA tensors. The kernel replaces the
-    JAX package's Pallas ``sweep_resident``
+    version for CPU tensors, the ``evp_sweep`` CUDA kernel for CUDA
+    tensors: all ``ndte`` subcycles in one cooperative launch of
+    csrc/evp_resident.cu, one tile of the grid per SM with its state in
+    shared memory and one grid barrier per subcycle (tiles and branch from
+    ``ops/evp_resident.py:tile_plan``). The kernel replaces the JAX
+    package's Pallas ``sweep_resident``
     (cice5_tpu/ops/pallas/evp_resident.py:35)."""
     if uvel.device.type == "cpu":
         return subcycle_sweep(

@@ -93,3 +93,26 @@ def worst(errors: dict):
     largest absolute difference over all fields) of ``field_errors``."""
     key = max(errors, key=lambda k: errors[k][1])
     return key, errors[key][1], max(e for e, _ in errors.values())
+
+
+def evp_on_plan(p, ndte, topo, plan, *, kchunk=None, **kw):
+    """The EVP kernels on the sweep inputs ``kw`` (as ``evp.evp_sweep``
+    takes them) with a tile plan of the caller's (``evp_resident.tile_plan``,
+    e.g. a forced branch): kernel A in one launch of ``ndte`` subcycles, or
+    with ``kchunk`` kernel D in ``ndte // kchunk`` launches. Returns what
+    ``evp.evp_sweep`` returns."""
+    from cice5_tpu_torch.models.dynamics import evp
+    from cice5_tpu_torch.ops import kernels
+    args = evp.kernel_args(**kw)
+    if kchunk is None:
+        u, v, s, d, si = kernels.evp_sweep(
+            ndte=ndte, cyc_x=topo.ew == "cyclic", cyc_y=topo.ns == "cyclic",
+            fold=topo.ns == "tripole", p=p, plan=plan, **args)
+    else:
+        state = {k: args.pop(k) for k in ("u", "v", "stress")}
+        for _ in range(ndte // kchunk):
+            u, v, s, d, si = kernels.evp_fused(
+                kchunk=kchunk, cyc_x=topo.ew == "cyclic", p=p, plan=plan,
+                **state, **args)
+            state = dict(u=u, v=v, stress=s)
+    return u, v, s, (d[0], d[1], d[2], d[3], d[4], si[0], si[1])

@@ -1,14 +1,14 @@
 """Fused multi-subcycle EVP (PyTorch port of
 ``cice5_tpu/ops/pallas/evp_fused.py``, ``evp_algorithm="pallas"``).
 
-The EVP subcycles run in chunks of ``kchunk``: each chunk starts from the
-state of the whole domain, advances a set of overlapping pieces by
-``kchunk`` subcycles each, every piece carrying M = kchunk + 1 rows (and,
-in the CUDA kernel, columns) of margin, and keeps only their cores. With
-an open or closed north-south boundary the zero rows beyond the domain
-are the zero ghosts of ``extend``; a piece's own edge spreads an error one
-row per subcycle, which dies inside the margin. So the chunked sweep is
-the same function as the plain subcycle loop (``evp.subcycle_sweep``),
+The EVP subcycles run in chunks of ``kchunk``. In the plain version each
+chunk starts from the state of the whole domain, advances a set of
+overlapping Y-windows by ``kchunk`` subcycles each, every window carrying
+M = kchunk + 1 rows of margin, and keeps only their cores. With an open
+or closed north-south boundary the zero rows beyond the domain are the
+zero ghosts of ``extend``; a window's own edge spreads an error one row
+per subcycle, which dies inside the margin. So the chunked sweep is the
+same function as the plain subcycle loop (``evp.subcycle_sweep``),
 computed with temporal blocking.
 
 Two implementations with one signature:
@@ -18,9 +18,11 @@ Two implementations with one signature:
   ``kchunk`` subcycles of ``stress_kernel``/``stepu`` on each, cores
   reassembled, the stress re-padded with its north region row zeroed).
   The CPU path and the reference for the kernel.
-- ``fused_sweep``: the plain version for CPU tensors, the CUDA kernel
-  ``csrc/evp_fused.cu`` (2-D tiles with margins on all four sides, one
-  launch per chunk) for CUDA tensors.
+- ``fused_sweep``: the plain version for CPU tensors, for CUDA tensors
+  the ``evp_fused`` entry of ``csrc/evp_resident.cu``, the engine of the
+  EVP sweep kernel: one cooperative launch per chunk, one tile per SM
+  with its state in shared memory, no margins, one grid barrier between
+  subcycles.
 
 Unlike the JAX kernel, every subcycle here uses the caller's ``Cw`` (the
 JAX ``_fused_window_call`` calls ``stepu`` without it, evp_fused.py:81-84,
@@ -128,11 +130,13 @@ def fused_sweep(p: dyn.EVPParams, ndte: int, topo: Topology, *, kchunk: int,
                 nwin: int, **sweep):
     """``fused_sweep_plain`` with the same signature and results: the plain
     version for CPU tensors, the ``evp_fused`` CUDA kernel
-    (csrc/evp_fused.cu, one launch per chunk of ``kchunk`` subcycles) for
-    CUDA tensors. The kernel replaces the JAX package's Pallas
-    ``_fused_window_call`` (cice5_tpu/ops/pallas/evp_fused.py:49); it cuts
-    2-D tiles of its own, so ``nwin`` shapes only the plain version (the
-    function computed does not depend on it)."""
+    (csrc/evp_resident.cu, one cooperative launch per chunk of ``kchunk``
+    subcycles) for CUDA tensors. The kernel replaces the JAX package's
+    Pallas ``_fused_window_call`` (cice5_tpu/ops/pallas/evp_fused.py:49);
+    it needs no windows or margins (its tiles exchange a one-point ring
+    of (u, v) through a grid barrier each subcycle), so ``nwin`` shapes
+    only the plain version (the function computed does not depend on
+    it)."""
     if sweep["uvel"].device.type == "cpu":
         return fused_sweep_plain(p, ndte, topo, kchunk=kchunk, nwin=nwin,
                                  **sweep)

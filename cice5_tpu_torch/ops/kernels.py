@@ -8,9 +8,9 @@ Nothing here runs when the module is imported, so the CPU tests import it
 on machines without CUDA.
 
 A source may export more than one kernel (``remap_flux_both.cu`` also
-holds the single-edge ``remap_flux_edge``); a kernel is rebuilt when its
-source, or a ``csrc/*.cuh`` header the source includes, is newer than
-its library.
+holds the single-edge ``remap_flux_edge``, ``evp_resident.cu`` both EVP
+kernels); a kernel is rebuilt when its source, or a ``csrc/*.cuh`` header
+the source includes, is newer than its library.
 
 The launch functions take CUDA tensors only: they check device, dtype,
 shape and contiguity, allocate their outputs with ``torch.empty``, launch
@@ -25,6 +25,7 @@ catching an error.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import re
 import shutil
@@ -33,6 +34,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from cice5_tpu_torch.ops.evp_resident import TilePlan, tile_plan
 
 _SRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 # --fmad=false: every multiply and add rounds on its own, as in the plain
@@ -65,10 +68,12 @@ def _nvcc() -> str:
 _VP, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _IP = ctypes.POINTER(ctypes.c_int)
 _ARGTYPES = {
-    "evp_sweep": [_I] * 6 + [_VP] * 7 + [_I] + [_D] * 8 + [_VP] * 4,
+    "evp_sweep": [_I] * 6 + [_VP] * 7 + [_I] + [_D] * 8 + [_VP] * 2
+    + [_IP, _VP, _VP, _VP],
     "remap_flux_both": [_I, _I, _I, _I, _IP, _IP] + [_VP] * 17,
     "shortwave_dedd": [_I] * 5 + [_VP] * 13 + [_D] * 7 + [_I, _VP, _VP],
-    "evp_fused": [_I] * 4 + [_VP] * 7 + [_I] + [_D] * 8 + [_VP] * 6,
+    "evp_fused": [_I] * 4 + [_VP] * 7 + [_I] + [_D] * 8 + [_VP] * 5
+    + [_IP, _VP, _VP, _VP],
     "remap_flux_edge": [_I] * 5 + [_IP, _IP] + [_VP] * 11,
 }
 
@@ -135,8 +140,9 @@ class CudaKernel:
 
 
 KERNELS = {k.name: k for k in (
-    CudaKernel("evp_sweep"), CudaKernel("remap_flux_both"),
-    CudaKernel("shortwave_dedd"), CudaKernel("evp_fused"),
+    CudaKernel("evp_sweep", source="evp_resident"),
+    CudaKernel("remap_flux_both"), CudaKernel("shortwave_dedd"),
+    CudaKernel("evp_fused", source="evp_resident"),
     CudaKernel("remap_flux_edge", source="remap_flux_both"))}
 
 
@@ -238,11 +244,71 @@ def _check_geom(tag, geom, nyr, nxr, dtype, device):
     _check(f"{tag} qy", qy, (6, 3, nyr, nxr), dtype, device)
 
 
+def device_limits(device: torch.device) -> tuple[int, int]:
+    """(SMs, shared memory bytes a block may opt in to) of a CUDA card,
+    read through the EVP kernels' library."""
+    return _device_limits(device.index if device.index is not None
+                          else torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=None)
+def _device_limits(index: int) -> tuple[int, int]:
+    lib = KERNELS["evp_sweep"].lib()
+    fn = lib.evp_resident_limits
+    fn.argtypes, fn.restype = [_IP, _IP], ctypes.c_int
+    n_sm, smem = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(index):
+        err = fn(ctypes.byref(n_sm), ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError(f"evp_resident_limits: CUDA error {err}: "
+                           f"{lib.evp_sweep_error_string(err).decode()}")
+    return n_sm.value, smem.value
+
+
+def evp_barriers(blocks: int, nbar: int, split: bool = True) -> None:
+    """Launch ``nbar`` grid barriers, and nothing else, on ``blocks`` blocks
+    of 512 threads on the current stream: the EVP kernel's split barrier
+    (arrive, then wait at once), or with ``split=False``
+    cooperative_groups' ``grid.sync()``. A probe that times a barrier
+    alone; it counts no launch of a kernel."""
+    lib = KERNELS["evp_sweep"].lib()
+    fn = lib.evp_resident_barriers
+    fn.argtypes, fn.restype = [_I, _I, _I, _VP, _VP], ctypes.c_int
+    sync = torch.zeros(1, dtype=torch.int32, device="cuda")
+    err = fn(blocks, nbar, int(split), _ptr(sync),
+             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"evp_resident_barriers: CUDA error {err}: "
+                           f"{lib.evp_sweep_error_string(err).decode()}")
+
+
+def evp_plan(ny: int, nx: int, dtype: torch.dtype, device: torch.device,
+             plan: TilePlan | None = None) -> TilePlan:
+    """The EVP kernels' tile plan on this card (``evp_resident.tile_plan``),
+    or the caller's, checked against the grid."""
+    if plan is None:
+        return tile_plan(ny, nx, dtype, *device_limits(device))
+    if (plan.ny, plan.nx) != (ny, nx) or plan.itemsize != dtype.itemsize:
+        raise ValueError(f"the tile plan is for {plan.ny}x{plan.nx} with "
+                         f"{plan.itemsize}-byte values, not {ny}x{nx} "
+                         f"{dtype}")
+    return plan
+
+
+def _plan_args(plan: TilePlan, dtype, device):
+    """The plan, the scratch and the zeroed barrier counter of one launch
+    of the EVP kernel (the caller keeps the tensors until the launch)."""
+    return ((ctypes.c_int * 6)(*plan.as_ints()),
+            torch.empty(plan.scratch_values(), dtype=dtype, device=device),
+            torch.zeros(1, dtype=torch.int32, device=device))
+
+
 def evp_sweep(*, ndte: int, cyc_x: bool, cyc_y: bool, u, v, stress, maskR,
               strengthR, gR, uin, cw_plane: bool, Cw: float, p,
-              fold: bool = False):
-    """Launch csrc/evp_sweep.cu: ``ndte`` EVP subcycles; ``fold`` is the
-    tripole U-fold of a north seam.
+              fold: bool = False, plan: TilePlan | None = None):
+    """Launch the ``evp_sweep`` entry of csrc/evp_resident.cu: ``ndte`` EVP
+    subcycles in one cooperative launch; ``fold`` is the tripole U-fold of
+    a north seam; ``plan`` (default: ``evp_plan``'s) the tiles and branch.
 
     u, v: (ny, nx); stress: (12, ny+1, nx+1); maskR/strengthR:
     (ny+1, nx+1) (mask as 0/1 floats); gR: (10, ny+1, nx+1) in
@@ -256,24 +322,27 @@ def evp_sweep(*, ndte: int, cyc_x: bool, cyc_y: bool, u, v, stress, maskR,
         raise ValueError("evp_sweep needs ndte >= 1")
     if fold and ny < 2:
         raise ValueError("the tripole fold needs ny >= 2")
+    plan_i, scratch, sync = _plan_args(evp_plan(ny, nx, dtype, device, plan),
+                                       dtype, device)
     u_o, v_o, s_o = u.clone(), v.clone(), stress.clone()
-    str8 = torch.empty((8, nyr, nxr), dtype=dtype, device=device)
     diagR = torch.empty((5, nyr, nxr), dtype=dtype, device=device)
     strint = torch.empty((2, ny, nx), dtype=dtype, device=device)
     KERNELS["evp_sweep"].call(
         dtype, ny, nx, ndte, int(cyc_x), int(cyc_y), int(fold), _ptr(u_o),
-        _ptr(v_o),
-        _ptr(s_o), _ptr(maskR), _ptr(strengthR), _ptr(gR), _ptr(uin),
-        int(cw_plane), float(Cw), p.arlx1i, p.denom1, p.ecci, p.brlx,
-        p.revp, p.cosw, p.sinw, _ptr(str8), _ptr(diagR), _ptr(strint))
+        _ptr(v_o), _ptr(s_o), _ptr(maskR), _ptr(strengthR), _ptr(gR),
+        _ptr(uin), int(cw_plane), float(Cw), p.arlx1i, p.denom1, p.ecci,
+        p.brlx, p.revp, p.cosw, p.sinw, _ptr(diagR), _ptr(strint), plan_i,
+        _ptr(scratch), _ptr(sync))
     return u_o, v_o, s_o, diagR, strint
 
 
 def evp_fused(*, kchunk: int, cyc_x: bool, u, v, stress, maskR, strengthR,
-              gR, uin, cw_plane: bool, Cw: float, p):
-    """Launch csrc/evp_fused.cu: one chunk of ``kchunk`` EVP subcycles on
-    2-D tiles with margins, for an open or closed north-south boundary
-    (``cyc_x``: cyclic east-west, else open or closed).
+              gR, uin, cw_plane: bool, Cw: float, p,
+              plan: TilePlan | None = None):
+    """Launch the ``evp_fused`` entry of csrc/evp_resident.cu: one chunk of
+    ``kchunk`` EVP subcycles in one cooperative launch, for an open or
+    closed north-south boundary (``cyc_x``: cyclic east-west, else open or
+    closed).
 
     Takes what ``evp_sweep`` takes. Inputs are not modified. Returns
     (u, v, stress, diagR (5, ny+1, nx+1), strint (2, ny, nx)), the
@@ -283,6 +352,8 @@ def evp_fused(*, kchunk: int, cyc_x: bool, u, v, stress, maskR, strengthR,
     nyr, nxr = ny + 1, nx + 1
     if kchunk < 1:
         raise ValueError("evp_fused needs kchunk >= 1")
+    plan_i, scratch, sync = _plan_args(evp_plan(ny, nx, dtype, device, plan),
+                                       dtype, device)
     out = (torch.empty((ny, nx), dtype=dtype, device=device),
            torch.empty((ny, nx), dtype=dtype, device=device),
            torch.empty((12, nyr, nxr), dtype=dtype, device=device),
@@ -292,7 +363,7 @@ def evp_fused(*, kchunk: int, cyc_x: bool, u, v, stress, maskR, strengthR,
         dtype, ny, nx, kchunk, int(cyc_x), _ptr(u), _ptr(v), _ptr(stress),
         _ptr(maskR), _ptr(strengthR), _ptr(gR), _ptr(uin), int(cw_plane),
         float(Cw), p.arlx1i, p.denom1, p.ecci, p.brlx, p.revp, p.cosw,
-        p.sinw, *[_ptr(t) for t in out])
+        p.sinw, *[_ptr(t) for t in out], plan_i, _ptr(scratch), _ptr(sync))
     return out
 
 

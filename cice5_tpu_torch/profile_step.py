@@ -46,8 +46,9 @@ PHASES = {"_column_physics": "column_physics",
 # inside _column_physics: reported apart, not added to phase_ms
 COLUMN_PHASES = {"_step_radiation": "radiation",
                  "thermo_vertical": "vertical_thermo"}
-OWN_KERNELS = {"evp_stress": "evp_sweep", "evp_stepu": "evp_sweep",
-               "evp_fused_chunk": "evp_fused",
+# device kernel name -> wrapper; the EVP engine (csrc/evp_resident.cu)
+# runs evp_sweep, or evp_fused on the fused path
+OWN_KERNELS = {"evp_resident": "evp_sweep",
                "remap_recon": "remap_flux_both",
                "remap_flux": "remap_flux_both",
                "shortwave_dedd": "shortwave_dedd"}
@@ -152,6 +153,8 @@ def main(argv=None):
         if e.device_type == torch.autograd.DeviceType.CUDA:
             key = next((v for k, v in OWN_KERNELS.items() if k in e.name),
                        "pytorch")
+            if key == "evp_sweep" and args.evp_algorithm == "pallas":
+                key = "evp_fused"
             dev[key][0] += e.time_range.elapsed_us() / 1e3   # us -> ms
             dev[key][1] += 1
     busy = sum(v[0] for v in dev.values())

@@ -27,6 +27,7 @@ from cice5_tpu_torch.models.dynamics import evp as tevp
 from cice5_tpu_torch.models.radiation import dedd
 from cice5_tpu_torch.models.transport import remap as trm
 from cice5_tpu_torch.ops import check, evp_fused, kernels
+from cice5_tpu_torch.ops.evp_resident import tile_plan
 from torch_port_util import (PARITY_ISTEP, cuda_device,  # noqa: F401
                              parity_grid_arrays)
 
@@ -333,3 +334,54 @@ def test_fused_path_launches_evp_fused_per_chunk(cuda_device):
         "evp_sweep": 0, "remap_flux_both": 3, "shortwave_dedd": 0,
         "evp_fused": 6, "remap_flux_edge": 0}
     assert int(d.state_bad) == 0 and bool(torch.isfinite(st.vicen).all())
+
+
+def _plan(kw, branch):
+    """A tile plan of the EVP kernels for the captured inputs: the card's
+    own ("auto"), the shared branch with the read-only planes in L1/L2,
+    or the device branch (chip_smoke.py runs it at 384x320, where each
+    block walks several tiles)."""
+    if branch == "auto":
+        return None
+    (ny, nx), dtype = kw["uvel"].shape, kw["uvel"].dtype
+    n_sm, smem = kernels.device_limits(kw["uvel"].device)
+    if branch == "shared":
+        return tile_plan(ny, nx, dtype, n_sm, smem, "shared")
+    return tile_plan(ny, nx, dtype, n_sm, smem, "device")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("branch", ["auto", "shared", "device"])
+@pytest.mark.parametrize("model", ["bl99", "tripole"])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_evp_sweep_kernel_branches_equal_plain(cuda_device, branch, model,
+                                               dtype):
+    """Kernel A in each branch of its tile plan equals subcycle_sweep bit
+    for bit, on the BL99 grid and on the tripole seam with land on it."""
+    got = (_captured if model == "bl99" else _captured_parity)(
+        cuda_device, dtype, ndte=12)
+    p, nd, topo, kw = got["evp"]
+    ref = check.evp_outputs(tevp.subcycle_sweep(p, nd, topo, **kw))
+    out = check.evp_outputs(check.evp_on_plan(p, nd, topo, _plan(kw, branch),
+                                              **kw))
+    assert check.worst(check.field_errors(ref, out))[2] == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("branch", ["auto", "device"])
+@pytest.mark.parametrize("dtype,ndte,kchunk", [("float64", 1, 1),
+                                               ("float64", 20, 10),
+                                               ("float32", 20, 10)])
+def test_evp_fused_kernel_branches_equal_plain_and_a(cuda_device, branch,
+                                                     dtype, ndte, kchunk):
+    """Kernel D in each branch equals its plain version and kernel A bit
+    for bit (the same engine, csrc/evp_resident.cu)."""
+    p, nd, topo, kw = _captured(cuda_device, dtype, ndte=ndte)["evp"]
+    plan = _plan(kw, branch)
+    out = check.evp_outputs(check.evp_on_plan(p, nd, topo, plan,
+                                              kchunk=kchunk, **kw))
+    plain = check.evp_outputs(evp_fused.fused_sweep_plain(
+        p, nd, topo, kchunk=kchunk, nwin=4, **kw))
+    a = check.evp_outputs(check.evp_on_plan(p, nd, topo, plan, **kw))
+    assert check.worst(check.field_errors(plain, out))[2] == 0.0
+    assert check.worst(check.field_errors(a, out))[2] == 0.0

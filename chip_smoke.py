@@ -7,33 +7,37 @@ toolkit. Phases (any failure exits non-zero):
 
 1. Print the card's name and power limit (nvidia-smi) and build every
    hand-written kernel from ``cice5_tpu_torch/csrc`` with nvcc, one
-   process per source, all started together.
+   process per source, all started together; print ptxas's report of
+   kernels B and C (registers, stack, spills of each instantiation) and
+   fail if B spills or uses stack, or C spills.
 2. Hold each kernel against its plain PyTorch version on the same CUDA
    tensors, at the shapes of the main paths (384x320), on inputs captured
    from one step of each model: the EVP sweep (float64 at ndte=1 and 120,
    float32 at 1 and 120) on the open-boundary BL99 grid and on the gx1
-   tripole seam; the remap flux kernel (float64 and float32, with an
+   tripole seam; the remap flux kernel B (float64 and float32, with an
    ice-free band so the skip path runs) with the BL99 tracer table (18
-   tracers) and the gx1-parity one (19, pond chains of type 2 and 3);
-   the delta-Eddington kernel (float64 and float32 on the captured
-   inputs, float64 with seeded ponds under the level, cesm and topo pond
-   setups; 5 categories, nilyr=4, with an unlit band that must be exact
-   zeros), every output field and every layer on its own scale; the
-   fused EVP kernel (float64 and float32 at ndte=1 with kchunk=1 and
-   ndte=120 with kchunk=10, on the BL99 inputs) against its plain version
-   and against the EVP sweep kernel; the single-edge remap kernel (both
-   edges, float64 and float32, both tracer tables, with the ice-free
-   band) against its plain version and the same edge set of the merged
-   remap kernel. Kernel and plain times come from CUDA events. Both EVP
-   kernels are one engine (csrc/evp_resident.cu): its forced
-   device-memory branch must equal the plain sweep bit for bit on the EVP
-   sweep's inputs, and for each model the script prints the EVP tile plan
-   and, from CUDA graph replays of one call as the step makes it (its
-   replay must equal the eager call bit for bit), the per-subcycle cost
-   and one grid barrier's cost. The EVP kernels' times in the kernels
-   line are those replays' device times (one call of 120 subcycles,
-   argument packing included); the eager times, which include the host's
-   launch gaps, are printed beside them.
+   tracers) and the gx1-parity one (19, pond chains of type 2 and 3),
+   with its tile plan; the delta-Eddington kernel C (float64 and float32
+   on the captured inputs at nilyr 4 and 7, float64 with seeded ponds
+   under the level, cesm and topo pond setups; 5 categories, with an
+   unlit band that must be exact zeros), every output field and every
+   layer on its own scale; the fused EVP kernel (float64 and float32 at
+   ndte=1 with kchunk=1 and ndte=120 with kchunk=10, on the BL99 inputs)
+   against its plain version and against the EVP sweep kernel; the
+   single-edge remap kernel E (both edges, float64 and float32, both
+   tracer tables, with the ice-free band) against its plain version and
+   against the same edge set of B, which must equal it bit for bit (E
+   keeps the device code of B's first version, whose arithmetic B
+   repeats in the same order). Kernel and plain times come from CUDA
+   events. Both EVP kernels are one engine (csrc/evp_resident.cu): its
+   forced device-memory branch must equal the plain sweep bit for bit on
+   the EVP sweep's inputs, and for each model the script prints the EVP
+   tile plan and, from CUDA graph replays of one call as the step makes it
+   (its replay must equal the eager call bit for bit), the per-subcycle
+   cost and one grid barrier's cost. The times of A, B, C and D in the
+   kernels line are such replays' device times (one call, argument
+   packing included); the eager times, which include the host's launch
+   gaps, are printed beside them.
 3. Check the whole paths against the plain paths on small inputs: two
    float64 steps on the GPU (kernels) and on the CPU (plain versions)
    from one warmed-up state, for the BL99 model (with the EVP sweep, and
@@ -99,6 +103,31 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_phase():
+    """ptxas's report of kernels B (csrc/remap_tiles.cu) and C
+    (csrc/shortwave_dedd.cu) from the build: registers, stack frame and
+    spills of each instantiation. B must have no spills and no stack, C no
+    spills."""
+    import re
+    from cice5_tpu_torch.ops import kernels
+    for name, no_stack in (("remap_flux_both", True),
+                           ("shortwave_dedd", False)):
+        k = kernels.KERNELS[name]
+        entries = kernels.ptxas_entries(k.build_log)
+        if not entries:
+            fail(f"no ptxas report for {k.source.name}")
+        for e in entries:
+            dt = "f32" if re.search(r"I[f]E|If(Li|E)", e["name"]) else "f64"
+            nl = re.search(r"Li(\d+)ELi1E", e["name"])
+            tag = f"{dt}" + (f" nilyr={nl.group(1)}" if nl else "")
+            print(f"ptxas {k.source.name} {tag}: {e['registers']} registers, "
+                  f"{e['stack']} B stack, {e['spill_stores']} B spill stores, "
+                  f"{e['spill_loads']} B spill loads", flush=True)
+            if e["spill_stores"] or e["spill_loads"] or \
+                    (no_stack and e["stack"]):
+                fail(f"{k.source.name} {tag} spills or uses stack: {e}")
 
 
 def cuda_time_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -328,10 +357,13 @@ def remap_args_with_band(args):
 def remap_phase(args64, args32, grid64, grid32, label):
     """Kernel B (remap_flux_both) against remap_flux_plain on the card:
     the fluxes, and the remapped fields after the divergence update (the
-    quantities tests/test_remap_pallas.py holds at 2e-5 in float32)."""
+    quantities tests/test_remap_pallas.py holds at 2e-5 in float32). Prints
+    B's plan and times one call eagerly and as a CUDA graph replay (the
+    device time without the host's launch gaps; it must equal the eager
+    call bit for bit)."""
     import torch
     from cice5_tpu_torch.models.transport import remap as trm
-    from cice5_tpu_torch.ops import check
+    from cice5_tpu_torch.ops import check, remap_tiles
     errs, bad = {}, False
     for tag, args, grid, tol, tol_upd in (
             ("f64", args64, grid64, 1e-12, 1e-12),
@@ -367,35 +399,49 @@ def remap_phase(args64, args32, grid64, grid32, label):
     if bad:
         fail(f"remap_flux_both disagrees with remap_flux_plain ({label})")
     args = args32
-    ms = cuda_time_ms(lambda: trm.remap_flux_both(*args), reps=10)
+    geomN, geomE, mmE2, tmE2, hmE2, tt, par, ny, nx = args
+    ncat, ntrace = tmE2.shape[:2]
+    for dt, a in (("f32", args32), ("f64", args64)):
+        plan = remap_tiles.plan(ny, nx, ncat, tt, par, a[2].dtype.itemsize)
+        print(f"remap_flux_both plan {label} {dt} {ny}x{nx}: "
+              f"{plan.describe()}; 1 launch per call", flush=True)
+    eager = trm.remap_flux_both(*args)
+    ms = cuda_time_ms(lambda: trm.remap_flux_both(*args), reps=20)
+    g_ms, out = graph_ms(lambda: trm.remap_flux_both(*args), reps=50)
+    if not all(torch.equal(x, y) for x, y in zip(eager, out)):
+        fail(f"remap_flux_both's CUDA graph replay differs from the eager "
+             f"call ({label})")
     plain_ms = cuda_time_ms(lambda: trm.remap_flux_plain(*args), reps=3)
-    ny, nx = args[-2:]
-    ncat, ntrace = args[3].shape[:2]
     bound_ms, bound_by, what = remap_bound(args, ("north", "east"))
     print(f"remap_flux_both {label} f32 at {ny}x{nx}, ncat={ncat}, "
-          f"ntrace={ntrace}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-          f"bound {bound_ms:.4f} ms ({what})")
-    return dict(err=errs["f32"], ms=ms, plain_ms=plain_ms,
+          f"ntrace={ntrace}: kernel {g_ms:.4f} ms in a CUDA graph (eager "
+          f"{ms:.4f} ms), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+          f"({what})", flush=True)
+    return dict(err=errs["f32"], ms=g_ms, eager_ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
 def remap_bound(args, edges):
     """(bound ms, "bytes"/"operations", text) of the float32 remap flux
-    kernel on these inputs for the given edge sets: the raw fields read
-    once, each edge set's geometry read and fluxes written once, and the
-    hand-counted flops where the data needs them (cells and edges with ice
-    within reach)."""
+    kernel on these inputs for the given edge sets: the fluxes written
+    once, the raw mass field read once, and where ice is within reach (a
+    cell whose 5x5 raw neighbourhood, the W=2 window every flux through it
+    reads, holds ice in the category) the raw tracers, and in any category
+    the ocean mask and each edge set's geometry, read once; the
+    hand-counted flops counted the same way. A cell out of reach of ice
+    only gives exact zeros, whatever implements the function."""
     import torch
     geomN, geomE, mmE2, tmE2, hmE2, tt, par, ny, nx = args
     ncat, ntrace = tmE2.shape[:2]
     nedge = sum((ny + 1) * nx if e == "north" else ny * (nx + 1)
                 for e in edges)
-    nbytes = 4 * (mmE2.numel() + tmE2.numel() + hmE2.numel()
-                  + 48 * nedge                               # geometry
-                  + ncat * (1 + ntrace) * nedge)             # fluxes
     lit = torch.nn.functional.max_pool2d(
         (mmE2 != 0).float()[:, None], 5, stride=1)[:, 0]     # (ncat,ny,nx)
     nlit = float(lit.sum())
+    nlit_any = float(lit.amax(0).sum())
+    nbytes = 4 * (mmE2.numel() + ntrace * nlit + nlit_any    # raw fields
+                  + 48 * len(edges) * nlit_any               # geometry
+                  + ncat * (1 + ntrace) * nedge)             # fluxes
     nparent = len({q for q, t in zip(par, tt) if t == 2})
     flops = nlit * (RM_FLOP_CELL + RM_FLOP_CELL_TRACER * ntrace) \
         + len(edges) * nlit * (RM_FLOP_EDGE + RM_FLOP_EDGE_TRACER * ntrace
@@ -410,8 +456,10 @@ def remap_edge_phase(args64, args32, label):
     """Kernel E (remap_flux_edge: the reconstruction and ONE edge set's
     integrals) against its plain version remap_flux_edge_plain and against
     the same edge set of kernel B, for both edges, with the ice-free band,
-    each flux against its own scale. E shares B's device code, so it should
-    equal B's half bit for bit."""
+    each flux against its own scale. E keeps the device code of B's first
+    version, whose arithmetic B's tile-resident redesign
+    (csrc/remap_tiles.cu) repeats in the same order, so B's half must equal
+    E bit for bit."""
     import torch
     from cice5_tpu_torch.models.transport import remap as trm
     from cice5_tpu_torch.ops import check
@@ -436,10 +484,11 @@ def remap_edge_phase(args64, args32, label):
                   f"scale); vs remap_flux_both's {edge} half max abs diff "
                   f"{eb:.3e} (worst {fb}: rel {rb:.3e})")
             errs[(tag, edge)] = ep
-            if not (rp <= tol and rb <= tol):
+            if not (rp <= tol and eb == 0.0):
                 bad.append(f"{tag} {edge}")
     if bad:
-        fail(f"remap_flux_edge disagrees ({label}): {bad}")
+        fail(f"remap_flux_edge disagrees with its plain version or B's half "
+             f"is not bit-equal to it ({label}): {bad}")
     geomN, _, mm, tm, hm, tt, par, ny, nx = args32
     call = ("north", geomN, mm, tm, hm, tt, par, ny, nx)
     ms = cuda_time_ms(lambda: trm.remap_flux_edge(*call), reps=10)
@@ -515,20 +564,32 @@ def with_ponds(kw, seed=5):
     return dict(kw, apnd=u(0.05, 0.6), hpnd=u(0.0, 0.4))
 
 
+def dedd_lit(kw):
+    """The lit (category, cell) columns: aicen, net SW and coszen above
+    puny (dedd.py:shortwave_dEdd)."""
+    from cice5_tpu_torch import constants as ct
+    netsw = kw["swvdr"] + kw["swvdf"] + kw["swidr"] + kw["swidf"]
+    return ((kw["aicen"] > ct.puny) & (netsw > ct.puny)[None]
+            & (kw["coszen"] > ct.puny)[None])
+
+
 def dedd_phase(kw64, kw32):
     """Kernel C (shortwave_dedd) against shortwave_dEdd_plain on the card:
     each of the 14 output planes, and each layer of Sswabsn/Iswabsn/
     fswpenln, against its own scale; every unlit column (aicen, net SW or
-    coszen at or below puny) exactly zero."""
+    coszen at or below puny) exactly zero; at nilyr 4 (the model's) and 7.
+    Times one call eagerly and as a CUDA graph replay (which must equal
+    the eager call bit for bit)."""
     import torch
-    from cice5_tpu_torch import constants as ct
     from cice5_tpu_torch.models.radiation import dedd
     from cice5_tpu_torch.ops import check
     errs, bad = {}, []
-    # the captured inputs, then each pond setup (the model sends level
-    # ponds) in float64 with ponds on every ice column
+    # the captured inputs at nilyr 4 and 7, then each pond setup (the
+    # model sends level ponds) in float64 with ponds on every ice column
     for tag, kw, tol in (
             ("f64", kw64, 1e-12), ("f32", kw32, DEDD_F32_TOL),
+            ("f64 nilyr=7", dict(kw64, nilyr=7), 1e-12),
+            ("f32 nilyr=7", dict(kw32, nilyr=7), DEDD_F32_TOL),
             *((f"f64 {s} ponds", with_ponds(dict(kw64, pond_scheme=s)),
                1e-12) for s in ("lvl", "cesm", "topo"))):
         kw = dedd_args_with_band(kw)
@@ -539,9 +600,7 @@ def dedd_phase(kw64, kw32):
             fail(f"shortwave_dedd {tag}: no pond albedo, ponds not exercised")
         field, rel, err = check.worst(check.field_errors(
             ref._asdict(), got._asdict()))
-        netsw = kw["swvdr"] + kw["swvdf"] + kw["swidr"] + kw["swidf"]
-        lit = ((kw["aicen"] > ct.puny) & (netsw > ct.puny)[None]
-               & (kw["coszen"] > ct.puny)[None])
+        lit = dedd_lit(kw)
         dark = bool(all(((x if x.dim() == 3 else x.movedim(1, 0))[
             ..., ~lit] == 0).all() for x in got))
         print(f"shortwave_dedd {tag}: max abs diff {err:.3e}; worst field "
@@ -554,13 +613,15 @@ def dedd_phase(kw64, kw32):
     if bad:
         fail(f"shortwave_dedd disagrees with shortwave_dEdd_plain: {bad}")
     kw = kw32
-    ms = cuda_time_ms(lambda: dedd.shortwave_dEdd_ncat(**kw), reps=10)
+    eager = dedd.shortwave_dEdd_ncat(**kw)
+    ms = cuda_time_ms(lambda: dedd.shortwave_dEdd_ncat(**kw), reps=20)
+    g_ms, out = graph_ms(lambda: dedd.shortwave_dEdd_ncat(**kw), reps=50)
+    if not all(torch.equal(x, y) for x, y in zip(eager, out)):
+        fail("shortwave_dedd's CUDA graph replay differs from the eager call")
     plain_ms = cuda_time_ms(lambda: dedd.shortwave_dEdd_plain(**kw), reps=2)
     ncat, ny, nx = kw["aicen"].shape
     nout = 11 + kw["nslyr"] + 2 * kw["nilyr"] + 1
-    netsw = kw["swvdr"] + kw["swvdf"] + kw["swidr"] + kw["swidf"]
-    lit = ((kw["aicen"] > ct.puny) & (netsw > ct.puny)[None]
-           & (kw["coszen"] > ct.puny)[None])
+    lit = dedd_lit(kw)
     nlit, nlit_cells = int(lit.sum()), int(lit.any(0).sum())
     # every column reads aicen and writes all its planes, every cell reads
     # coszen and the four shortwave planes; only a lit column reads the
@@ -570,10 +631,12 @@ def dedd_phase(kw64, kw32):
     ops = DEDD_OPS_LIT_COLUMN * nlit
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
     print(f"shortwave_dedd f32 at {ny}x{nx}, ncat={ncat}, nilyr="
-          f"{kw['nilyr']}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-          f"bound {1e3 * max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB, "
-          f"{nlit} lit columns, {ops / 1e9:.3f} G operations)")
-    return dict(err=errs["f32"], ms=ms, plain_ms=plain_ms,
+          f"{kw['nilyr']}: kernel {g_ms:.4f} ms in a CUDA graph (eager "
+          f"{ms:.4f} ms), plain {plain_ms:.3f} ms, bound "
+          f"{1e3 * max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB, "
+          f"{nlit} lit columns in groups of 10, {ops / 1e9:.3f} G "
+          f"operations)", flush=True)
+    return dict(err=errs["f32"], ms=g_ms, eager_ms=ms, plain_ms=plain_ms,
                 bound_ms=1e3 * max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -765,7 +828,9 @@ def main():
     print(f"card: {card}", flush=True)
     t_build = kernels.build_all()
     print(f"kernel build: {t_build:.2f} s for "
-          f"{len(kernels.KERNELS)} sources", flush=True)
+          f"{len({k.source for k in kernels.KERNELS.values()})} sources",
+          flush=True)
+    ptxas_phase()
 
     # slice 1: the BL99 model's kernel inputs (open boundaries, 18 tracers)
     def bl99_model(dt):
@@ -820,7 +885,7 @@ def main():
              ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
              bound_by=a["bound_by"], library_ms=None),
         dict(name="remap_flux_both", route="cuda",
-             source="cice5_tpu_torch/csrc/remap_flux_both.cu",
+             source="cice5_tpu_torch/csrc/remap_tiles.cu",
              replaces="cice5_tpu/ops/pallas/remap_flux.py:163",
              launches=launches["remap_flux_both"], max_abs_err=b["err"],
              ms=b["ms"], plain_ms=b["plain_ms"], bound_ms=b["bound_ms"],
@@ -839,7 +904,7 @@ def main():
              bound_by=d["bound_by"], library_ms=None),
         # no main path calls the single-edge kernel (0 launches on each)
         dict(name="remap_flux_edge", route="cuda",
-             source="cice5_tpu_torch/csrc/remap_flux_both.cu",
+             source="cice5_tpu_torch/csrc/remap_flux_edge.cu",
              replaces="cice5_tpu/ops/pallas/remap_flux.py:75",
              launches=launches["remap_flux_edge"], max_abs_err=e["err"],
              ms=e["ms"], plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],

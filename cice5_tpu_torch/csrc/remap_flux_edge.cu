@@ -1,21 +1,22 @@
-// Incremental-remap reconstruction + transport integrals of both edge sets
-// for NVIDIA Hopper (sm_90a), and of one edge set.
+// Incremental-remap reconstruction + transport integrals of ONE edge set
+// for NVIDIA Hopper (sm_90a).
 //
-// Replaces: the Pallas kernel integrals_tiled_both of the JAX package
-// (cice5_tpu/ops/pallas/remap_flux.py:163), exported as
-// remap_flux_both_<type>, and its single-edge predecessor integrals_tiled
-// (remap_flux.py:75), exported as remap_flux_edge_<type>: the same
-// reconstruction, then the integrals of the north or the east edges only
-// (the same device code, so each edge set's fluxes equal those of
-// remap_flux_both bit for bit). From the RAW mass field mm
-// (aicen), the class-sorted tracer stack tm and the ocean mask hm, each
-// with a W=2 ghost ring, it computes
+// Replaces: the Pallas kernel integrals_tiled of the JAX package
+// (cice5_tpu/ops/pallas/remap_flux.py:75), exported as
+// remap_flux_edge_<type>: the reconstruction, then the integrals of the
+// north or the east edges only. This is the device code of the first
+// version of the merged kernel remap_flux_both (kernel B, now
+// csrc/remap_tiles.cu, which computes with the same arithmetic in the same
+// order), so each edge set's fluxes here equal B's bit for bit, and the
+// checks hold B against it. From the RAW mass field mm (aicen), the
+// class-sorted tracer stack tm and the ocean mask hm, each with a W=2
+// ghost ring, it computes
 //   1. the van-Leer limited linear reconstruction (centre value and x/y
 //      gradients) of the mass field and of every tracer
 //      (models/transport/remap.py:_reconstruct_ext; construct_fields,
 //      ice_transport_remap.F90:1024-1316), on the one-ring domain, and
 //   2. the quadratic transport integrals over the NGROUPS=6 departure
-//      triangles of every north and east edge
+//      triangles of every edge of the set
 //      (remap.py:_integrals; transport_integrals :3199-3512), with the
 //      per-view weight maps of the JAX code: every tracer flux is
 //      sum over the 6 donor views of Wc*tc + Wx*tx + Wy*ty.
@@ -38,12 +39,10 @@
 //
 // Bound on the H100: memory. At 384x320, ncat=5, ntrace=18, float32 the
 // call must read the raw tracer window (45 MB) and the triangle geometry
-// of both edge sets (about 47 MB) and write the fluxes (about 93 MB):
-// some 185 MB, 55 us at 3.35 TB/s; the arithmetic (a few thousand flops
-// per edge and category, ~5 GFLOP) is a few tens of microseconds in
-// float32. This first version also writes and re-reads the 141 MB
-// reconstruction scratch, roughly doubling the traffic; keeping the
-// reconstruction of a tile in shared memory is later work.
+// of one edge set (about 24 MB) and write its fluxes (about 47 MB); this
+// version also writes and re-reads the 141 MB reconstruction scratch.
+// No model path calls it; moving it onto remap_tiles.cu's device code is
+// later work.
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -383,35 +382,6 @@ bool make_table(int ntrace, const int* ttype, const int* parent,
   return true;
 }
 
-template <typename T>
-int run(int ncat, int ntrace, int ny, int nx, const int* ttype,
-        const int* parent, const T* mmE2, const T* tmE2, const T* hmE2,
-        const int* dnN, const T* taN, const T* qxN, const T* qyN,
-        const int* dnE, const T* taE, const T* qxE, const T* qyE, T* recon,
-        T* fn_mflx, T* fn_mtflx, T* fe_mflx, T* fe_mtflx, void* stream) {
-  TracerTable tab;
-  if (!make_table(ntrace, ttype, parent, tab))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const dim3 block(32, 8);
-  const dim3 grid_c((nx + 2 + 31) / 32, (ny + 2 + 7) / 8, ncat);
-  remap_recon<T><<<grid_c, block, 0, s>>>(ntrace, ny, nx, tab, mmE2, tmE2,
-                                          hmE2, recon);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid_n((nx + 31) / 32, (ny + 1 + 7) / 8, ncat);
-  remap_flux<T, 0><<<grid_n, block, 0, s>>>(ntrace, ny, nx, tab, mmE2, recon,
-                                            dnN, taN, qxN, qyN, fn_mflx,
-                                            fn_mtflx);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid_e((nx + 1 + 31) / 32, (ny + 7) / 8, ncat);
-  remap_flux<T, 1><<<grid_e, block, 0, s>>>(ntrace, ny, nx, tab, mmE2, recon,
-                                            dnE, taE, qxE, qyE, fe_mflx,
-                                            fe_mtflx);
-  return (int)cudaGetLastError();
-}
-
 // the reconstruction, then one edge set's integrals (east: 0 north, 1 east)
 template <typename T>
 int run_edge(int east, int ncat, int ntrace, int ny, int nx,
@@ -446,37 +416,6 @@ int run_edge(int east, int ncat, int ntrace, int ny, int nx,
 }  // namespace
 
 extern "C" {
-
-int remap_flux_both_f32(int ncat, int ntrace, int ny, int nx,
-                        const int* ttype, const int* parent,
-                        const float* mmE2, const float* tmE2,
-                        const float* hmE2, const int* dnN, const float* taN,
-                        const float* qxN, const float* qyN, const int* dnE,
-                        const float* taE, const float* qxE, const float* qyE,
-                        float* recon, float* fn_mflx, float* fn_mtflx,
-                        float* fe_mflx, float* fe_mtflx, void* stream) {
-  return run<float>(ncat, ntrace, ny, nx, ttype, parent, mmE2, tmE2, hmE2,
-                    dnN, taN, qxN, qyN, dnE, taE, qxE, qyE, recon, fn_mflx,
-                    fn_mtflx, fe_mflx, fe_mtflx, stream);
-}
-
-int remap_flux_both_f64(int ncat, int ntrace, int ny, int nx,
-                        const int* ttype, const int* parent,
-                        const double* mmE2, const double* tmE2,
-                        const double* hmE2, const int* dnN,
-                        const double* taN, const double* qxN,
-                        const double* qyN, const int* dnE, const double* taE,
-                        const double* qxE, const double* qyE, double* recon,
-                        double* fn_mflx, double* fn_mtflx, double* fe_mflx,
-                        double* fe_mtflx, void* stream) {
-  return run<double>(ncat, ntrace, ny, nx, ttype, parent, mmE2, tmE2, hmE2,
-                     dnN, taN, qxN, qyN, dnE, taE, qxE, qyE, recon, fn_mflx,
-                     fn_mtflx, fe_mflx, fe_mtflx, stream);
-}
-
-const char* remap_flux_both_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
-}
 
 int remap_flux_edge_f32(int east, int ncat, int ntrace, int ny, int nx,
                         const int* ttype, const int* parent,

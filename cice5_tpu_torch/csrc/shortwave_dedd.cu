@@ -10,15 +10,43 @@
 // TRMIN dark gate, the flux partition and the area-fraction mix
 // (ice_shortwave.F90:1607-3680).
 //
-// Design: one thread per (category, cell), templated on the layer counts
-// (NILYR 4 or 7, NSLYR 1), so every layer array is a fixed-size local
-// array. A cell that is not lit (aicen, the net shortwave and coszen all
-// above puny, dedd.py:742) writes exact zeros at once: the TPU kernel's
-// block-level "no lit ice" skip, here per column. The snow tables and the
-// tuned ice/pond optical constants come from dedd.kernel_tables (one
-// float64 array built from the plain version's numbers), and every
-// expression keeps the plain version's operation order; the build turns off
-// FMA contraction (ops/kernels.py NVCC_FLAGS).
+// Design: compacted lit columns, split over the spectral bands; one
+// cooperative launch of as many 4-warp blocks as the card holds at once.
+//   - Phase 1, the scan: each warp takes 4 chunks of 32 (category, cell)
+//     columns at a time from an integer work counter (atomicAdd, no host
+//     sync), their loads in flight together. Its lanes test one column of a
+//     chunk each: a column that is not lit (aicen, the net
+//     shortwave and coszen all above puny, dedd.py:696) gets its exact
+//     zeros at once, in coalesced stores (the byte floor of the call); the
+//     lit ones are balloted and appended to one list of lit columns in the
+//     work array the wrapper allocates (one atomicAdd per grab).
+//     This is the reference's compressed list of lit cells
+//     (ice_shortwave.F90:1607+), built at warp granularity.
+//   - One grid barrier, then phase 2: each warp takes the next 10 columns
+//     of the list from a second counter and solves them, until the list is
+//     done. Lit cells cluster along the ice edge, so a warp that solved the
+//     columns it found itself would carry whole chunks of them (3.2 groups
+//     each) while others idle; taking groups from the common list leaves
+//     at most one group's imbalance.
+//   - A group is solved three lanes per column, one per spectral band:
+//     each lane builds its band's layer properties (10 sets) and runs its
+//     band's three adding sweeps (bare, snow, pond). After each sweep the
+//     band-0 lane of the column takes the other two bands' interface
+//     fluxes and albedos by warp shuffles and forms the flux partition in
+//     the plain version's band order, adding the surface's share to the
+//     mixed outputs. layer_props is one function, not inlined ten times:
+//     the smaller code runs faster.
+//   - Per-lane arrays (the downward adding state, the interface fluxes and
+//     the mixed outputs) live in shared memory, one slot per thread, so the
+//     registers hold the scalars and the layer properties.
+//   - Constant work is out of the column: the snow tables' segment steps
+//     and inverse widths come from dedd.kernel_tables (float64, as
+//     dedd.py:_interp_table computes them), the 31 clamp weights of a lane's
+//     grain radius are computed once for its three lookups, and the
+//     Gaussian points, weights and their sum are compile-time constants.
+// Every expression keeps the plain version's operation order (the build
+// turns off FMA contraction, ops/kernels.py NVCC_FLAGS), and each column
+// writes only its own outputs, so no result depends on the schedule.
 //
 // Bound on the H100: bytes on the gx1-parity data, operations where most
 // columns are lit. Every column reads aicen and writes 11+nslyr+2*nilyr+1
@@ -29,9 +57,7 @@
 // re-integration, nine adding sweeps, the table lookups). At 384x320x5
 // with 9% of the columns lit (the 70N/60S ice edge in daylight) that is
 // ~58 MB (~17 us at 3.35 TB/s) against ~1.1 G operations (~16 us at
-// 67 TFLOP/s). This first version keeps everything
-// in registers and local memory with no attempt to share work between
-// threads; PERF.md has the measured times.
+// 67 TFLOP/s).
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -53,12 +79,25 @@ constexpr double CP063 = 0.063, CP455 = 0.455;
 constexpr double AWTVDR = 0.00318, AWTIDR = 0.00182;
 constexpr double AWTVDF = 0.63282, AWTIDF = 0.36218;
 
-__constant__ double kGausPt[8] = {0.9894009, 0.9445750, 0.8656312,
-                                  0.7554044, 0.6178762, 0.4580168,
-                                  0.2816036, 0.0950125};
-__constant__ double kGausWt[8] = {0.0271525, 0.0622535, 0.0951585,
-                                  0.1246290, 0.1495960, 0.1691565,
-                                  0.1826034, 0.1894506};
+// the 8-point Gaussian quadrature of the diffuse re-integration
+// (dedd.py GAUSPT, GAUSWT) and the sum of its weights mu*w, taken in the
+// plain version's order
+__host__ __device__ constexpr double gaus_pt(int q) {
+  return q == 0 ? 0.9894009 : q == 1 ? 0.9445750 : q == 2 ? 0.8656312
+       : q == 3 ? 0.7554044 : q == 4 ? 0.6178762 : q == 5 ? 0.4580168
+       : q == 6 ? 0.2816036 : 0.0950125;
+}
+__host__ __device__ constexpr double gaus_wt(int q) {
+  return q == 0 ? 0.0271525 : q == 1 ? 0.0622535 : q == 2 ? 0.0951585
+       : q == 3 ? 0.1246290 : q == 4 ? 0.1495960 : q == 5 ? 0.1691565
+       : q == 6 ? 0.1826034 : 0.1894506;
+}
+__host__ __device__ constexpr double gaus_swt() {
+  double s = 0.0;
+  for (int q = 0; q < 8; ++q) s = s + gaus_pt(q) * gaus_wt(q);
+  return s;
+}
+constexpr double GAUS_SWT = gaus_swt();
 
 // layout of dedd.kernel_tables
 constexpr int NTAB = 32;
@@ -66,6 +105,22 @@ constexpr int T_RSNW = 0, T_QS = 32, T_WS = 32 + 96, T_GS = 32 + 192;
 constexpr int T_IOP = 32 + 288;
 enum { K_SSL, W_SSL, G_SSL, K_DL, W_DL, G_DL, K_INT, W_INT, G_INT, K_PSSL,
        W_PSSL, G_PSSL, K_PINT, W_PINT, G_PINT, KWAT, NIOP };
+constexpr int T_DQS = T_IOP + 3 * NIOP;            // steps, (NTAB-1) x 3
+constexpr int T_DWS = T_DQS + 3 * (NTAB - 1);
+constexpr int T_DGS = T_DWS + 3 * (NTAB - 1);
+constexpr int T_INV = T_DGS + 3 * (NTAB - 1);      // inverse widths
+constexpr int NTABV = T_INV + NTAB - 1;            // 678 values
+
+constexpr int WARPS = 4;                  // warps per block
+constexpr int NT = 32 * WARPS;            // threads per block
+constexpr int NGRP = 10;                  // lit columns per warp solve
+constexpr int CPG = 4;                    // chunks of 32 columns per grab
+constexpr unsigned FULL = 0xffffffffu;
+
+// the kernel's work array (ops/kernels.py shortwave_dedd allocates it):
+// four counters, zeroed on the stream before each launch, then the list of
+// lit columns
+enum { W_CHUNK, W_NLIT, W_BARRIER, W_TAKEN, W_LIST };
 
 template <typename T>
 __device__ __forceinline__ T tmax(T a, T b) { return a > b ? a : b; }
@@ -99,17 +154,23 @@ __device__ __forceinline__ LP<T> zero_layer() {
   return p;
 }
 
-// clipped-ramp table lookup (dedd.py:_interp_table)
+// the three snow-table lookups of band ns at x (dedd.py:_interp_table:
+// y = fp[0] + sum_k (fp[k+1]-fp[k]) * clip((x-xp[k]) / dx_k, 0, 1)), each
+// clamp weight computed once for the three
 template <typename T>
-__device__ T interp_table(T x, const double* __restrict__ xp,
-                          const double* __restrict__ fp, int stride) {
-  T y = T(fp[0]);
+__device__ __forceinline__ void snow_tables(T x, int ns,
+                                            const double* __restrict__ tab,
+                                            T& Qs, T& ws, T& gs) {
+  Qs = T(tab[T_QS + ns]);
+  ws = T(tab[T_WS + ns]);
+  gs = T(tab[T_GS + ns]);
+#pragma unroll 4
   for (int k = 0; k < NTAB - 1; ++k) {
-    const T dfk = T(fp[(k + 1) * stride] - fp[k * stride]);
-    const T inv = T(1.0 / (xp[k + 1] - xp[k]));
-    y = y + dfk * clip01((x - T(xp[k])) * inv);
+    const T w = clip01((x - T(tab[T_RSNW + k])) * T(tab[T_INV + k]));
+    Qs = Qs + T(tab[T_DQS + 3 * k + ns]) * w;
+    ws = ws + T(tab[T_DWS + 3 * k + ns]) * w;
+    gs = gs + T(tab[T_DGS + 3 * k + ns]) * w;
   }
-  return y;
 }
 
 template <typename T>
@@ -127,7 +188,7 @@ __device__ __forceinline__ T agamm_f(T w, T uu, T gg, T e) {
 // delta-scaled single-layer R/T with the Gaussian re-integration
 // (dedd.py:_layer_props)
 template <typename T>
-__device__ LP<T> layer_props(T tau, T w0, T g, T mu0n) {
+__device__ __noinline__ LP<T> layer_props(T tau, T w0, T g, T mu0n) {
   const T ftot = g * g;
   const T ts = (T(1) - w0 * ftot) * tau;
   T ws = (T(1) - ftot) * w0 / tmax(T(1) - w0 * ftot, T(PUNY));
@@ -154,10 +215,10 @@ __device__ LP<T> layer_props(T tau, T w0, T g, T mu0n) {
   p.trnlay = trnlay;
 
   const T R1 = rdif_a, T1 = tdif_a;
-  double swt = 0.0;
   T smr = T(0), smt = T(0);
+#pragma unroll
   for (int q = 0; q < 8; ++q) {
-    const T mu_s = safe_mu(T(kGausPt[q]));
+    const T mu_s = safe_mu(T(gaus_pt(q)));
     const T trn = tmax(T(exp(-ts / mu_s)), T(EXP_MIN));
     alp = alpha_f(ws, mu_s, gs, lm);
     gam = agamm_f(ws, mu_s, gs, lm);
@@ -165,13 +226,12 @@ __device__ LP<T> layer_props(T tau, T w0, T g, T mu0n) {
     amg = alp - gam;
     const T rdr = apg * R1 + amg * T1 * trn - amg;
     const T tdr = apg * T1 + amg * R1 * trn - apg * trn + trn;
-    const double mw = kGausPt[q] * kGausWt[q];
-    swt = swt + mw;
-    smr = (q == 0) ? T(mw) * rdr : smr + T(mw) * rdr;
-    smt = (q == 0) ? T(mw) * tdr : smt + T(mw) * tdr;
+    const T mw = T(gaus_pt(q) * gaus_wt(q));
+    smr = (q == 0) ? mw * rdr : smr + mw * rdr;
+    smt = (q == 0) ? mw * tdr : smt + mw * tdr;
   }
-  rdif_a = smr / T(swt);
-  tdif_a = smt / T(swt);
+  rdif_a = smr / T(GAUS_SWT);
+  tdif_a = smt / T(GAUS_SWT);
   p.rdif_a = p.rdif_b = rdif_a;
   p.tdif_a = p.tdif_b = tdif_a;
   return p;
@@ -200,93 +260,107 @@ __device__ LP<T> fresnel(const LP<T>& p, T mu0, T mu0n) {
   return o;
 }
 
-// adding method over the layer stack with the TRMIN gate (dedd.py:_adding)
-// and the net downward flux factors of every interface (dedd.py:_net_k).
-// KL = klev + 1 layers, KL + 1 interfaces.
-template <typename T, int KL>
-__device__ void adding(const LP<T>* props, T albo, T* dfdir, T* dfdif,
-                       T& rup0dir, T& rup0dif) {
-  T trndir[KL + 1], trntdr[KL + 1], trndif[KL + 1], rdndif[KL + 1];
-  T rupdir[KL + 1], rupdif[KL + 1];
-  LP<T> m[KL];
-  trndir[0] = trntdr[0] = trndif[0] = T(1);
-  rdndif[0] = T(0);
-#pragma unroll
-  for (int k = 0; k < KL; ++k) {
-    const LP<T> p = trntdr[k] > T(TRMIN) ? props[k] : zero_layer<T>();
-    m[k] = p;
-    trndir[k + 1] = trndir[k] * p.trnlay;
-    const T refkm1 = T(1) / (T(1) - rdndif[k] * p.rdif_a);
-    const T tdrrdir = trndir[k] * p.rdir;
-    const T tdndif = trntdr[k] - trndir[k];
-    trntdr[k + 1] = trndir[k] * p.tdir
-                    + (tdndif + tdrrdir * rdndif[k]) * refkm1 * p.tdif_a;
-    rdndif[k + 1] = p.rdif_b + p.tdif_b * rdndif[k] * refkm1 * p.tdif_a;
-    trndif[k + 1] = trndif[k] * refkm1 * p.tdif_a;
-  }
-  rupdir[KL] = albo;
-  rupdif[KL] = albo;
-#pragma unroll
-  for (int k = KL - 1; k >= 0; --k) {
-    const LP<T>& p = m[k];
-    const T refkp1 = T(1) / (T(1) - p.rdif_b * rupdif[k + 1]);
-    rupdir[k] = p.rdir + (p.trnlay * rupdir[k + 1]
-                          + (p.tdir - p.trnlay) * rupdif[k + 1])
-                             * refkp1 * p.tdif_b;
-    rupdif[k] = p.rdif_a + p.tdif_a * rupdif[k + 1] * refkp1 * p.tdif_b;
-  }
-  rup0dir = rupdir[0];
-  rup0dif = rupdif[0];
-#pragma unroll
-  for (int k = 0; k <= KL; ++k) {
-    const T refk = T(1) / (T(1) - rdndif[k] * rupdif[k]);
-    T d = trndir[k] + (trntdr[k] - trndir[k]) * (T(1) - rupdif[k]) * refk
-          - trndir[k] * rupdir[k] * (T(1) - rdndif[k]) * refk;
-    dfdir[k] = d < T(PUNY) ? T(0) : d;
-    const T f = trndif[k] * (T(1) - rupdif[k]) * refk;
-    dfdif[k] = f < T(PUNY) ? T(0) : f;
-  }
-}
-
-// flux partition of one surface type (dedd.py:_partition_sol)
-template <typename T, int NI, int NS>
-struct Part {
-  T avdr, avdf, aidr, aidf, fsfc, fint, fthru;
-  T Sabs[NS], Iabs[NI], fthrul[NI + 1];
+// a lane's arrays in shared memory: entry e of this thread at s[e * NT]
+template <typename T>
+struct Lane {
+  T* s;
+  __device__ __forceinline__ T& operator[](int e) const { return s[e * NT]; }
 };
 
-template <typename T, int NI, int NS>
-__device__ void partition(int srftyp, const T (*dfdir)[NS + NI + 3],
-                          const T (*dfdif)[NS + NI + 3], const T* rdir0,
-                          const T* rdif0, T wghtns2, T wghtns3, T swvdr,
-                          T swvdf, T swidr, T swidf, Part<T, NI, NS>& r) {
-  constexpr int KLEV = NS + NI + 1;
-  const int ksrf = srftyp == 1 ? 1 : NS + 2;
-  r.avdr = rdir0[0];
-  r.avdf = rdif0[0];
-  r.aidr = rdir0[1] * wghtns2 + rdir0[2] * wghtns3;
-  r.aidf = rdif0[1] * wghtns2 + rdif0[2] * wghtns3;
-  T net_tot[KLEV + 2], net_vs[KLEV + 2];
-#pragma unroll
-  for (int k = 0; k < KLEV + 2; ++k) {
-    net_vs[k] = dfdir[0][k] * swvdr + dfdif[0][k] * swvdf;
-    const T nir = (wghtns2 * dfdir[1][k] + wghtns3 * dfdir[2][k]) * swidr
-                  + (wghtns2 * dfdif[1][k] + wghtns3 * dfdif[2][k]) * swidf;
-    net_tot[k] = net_vs[k] + nir;
+// layer k of the three surfaces' stacks from their distinct property sets
+// (KL = klev + 1 layers: NS+1 above the ice, then SSL, DL, interior, bottom)
+template <typename T, int NS, int NI>
+struct IceStack {
+  static constexpr int KII = NS + 1, KLEV = NS + NI + 1;
+  LP<T> ssl, dl, inr, bot;
+  __device__ __forceinline__ LP<T> ice(int k) const {
+    return k == KII ? ssl : k == KII + 1 ? dl : k == KLEV ? bot : inr;
   }
-  r.fsfc = net_tot[0] - net_tot[ksrf];
-  r.fint = net_tot[ksrf] - net_tot[KLEV + 1];
-  r.fthru = net_tot[KLEV + 1];
-#pragma unroll
-  for (int k = 1; k <= NS; ++k)
-    r.Sabs[k - 1] = srftyp == 1 ? net_tot[k] - net_tot[k + 1] : T(0);
-#pragma unroll
-  for (int k = NS + 2; k < NS + 2 + NI; ++k) {
-    const int km = (srftyp == 1 && k == NS + 2) ? k - 1 : k;
-    r.Iabs[k - NS - 2] = net_tot[km] - net_tot[k + 1];
+};
+
+template <typename T, int NS, int NI>
+struct BareStack {
+  IceStack<T, NS, NI> ice;
+  __device__ __forceinline__ LP<T> operator()(int k) const {
+    return k <= NS ? clear_layer<T>() : ice.ice(k);
   }
+};
+
+template <typename T, int NS, int NI>
+struct SnowStack {
+  IceStack<T, NS, NI> ice;
+  LP<T> s0, s1, sr;
+  __device__ __forceinline__ LP<T> operator()(int k) const {
+    return k == 0 ? s0 : k == 1 ? s1 : k <= NS ? sr : ice.ice(k);
+  }
+};
+
+template <typename T, int NS, int NI>
+struct PondStack {
+  static constexpr int KII = NS + 1;
+  LP<T> top, water, ssl, dl, inr;
+  __device__ __forceinline__ LP<T> operator()(int k) const {
+    return k == 0 ? top : k <= NS ? water : k == KII ? ssl
+         : k == KII + 1 ? dl : inr;
+  }
+};
+
+// adding method over the layer stack with the TRMIN gate (dedd.py:_adding)
+// and the net downward flux factors of every interface (dedd.py:_net_k),
+// KL layers and KL + 1 interfaces. The downward state of each interface
+// goes to the lane's arrays (trndir, trntdr, trndif, rdndif at entries
+// a*(KL+1) + k, a = 0..3), the flux factors to dfdir (a = 4) and dfdif
+// (a = 5); the upward pass forms each interface's factors as it reaches
+// it. Returns the top interface's albedos.
+template <typename T, int KL, typename Stack>
+__device__ __forceinline__ void adding(const Stack& prop, T albo,
+                                       const Lane<T>& L, T& rup0dir,
+                                       T& rup0dif) {
+  constexpr int N1 = KL + 1;
+  T tdir = T(1), ttdr = T(1), tdif = T(1), rdn = T(0);
+  L[0] = tdir; L[N1] = ttdr; L[2 * N1] = tdif; L[3 * N1] = rdn;
 #pragma unroll
-  for (int k = NS + 2; k < KLEV + 2; ++k) r.fthrul[k - NS - 2] = net_vs[k];
+  for (int k = 0; k < KL; ++k) {
+    const LP<T> p = ttdr > T(TRMIN) ? prop(k) : zero_layer<T>();
+    const T ndir = tdir * p.trnlay;
+    const T refkm1 = T(1) / (T(1) - rdn * p.rdif_a);
+    const T tdrrdir = tdir * p.rdir;
+    const T tdndif = ttdr - tdir;
+    const T nttdr = tdir * p.tdir
+                    + (tdndif + tdrrdir * rdn) * refkm1 * p.tdif_a;
+    const T nrdn = p.rdif_b + p.tdif_b * rdn * refkm1 * p.tdif_a;
+    tdif = tdif * refkm1 * p.tdif_a;
+    tdir = ndir;
+    ttdr = nttdr;
+    rdn = nrdn;
+    L[k + 1] = tdir; L[N1 + k + 1] = ttdr; L[2 * N1 + k + 1] = tdif;
+    L[3 * N1 + k + 1] = rdn;
+  }
+  auto flux = [&](int k, T rupdir, T rupdif) {
+    const T trndir = L[k], trntdr = L[N1 + k], trndif = L[2 * N1 + k];
+    const T rdndif = L[3 * N1 + k];
+    const T refk = T(1) / (T(1) - rdndif * rupdif);
+    const T d = trndir + (trntdr - trndir) * (T(1) - rupdif) * refk
+                - trndir * rupdir * (T(1) - rdndif) * refk;
+    L[4 * N1 + k] = d < T(PUNY) ? T(0) : d;
+    const T f = trndif * (T(1) - rupdif) * refk;
+    L[5 * N1 + k] = f < T(PUNY) ? T(0) : f;
+  };
+  T rupdir = albo, rupdif = albo;
+  flux(KL, rupdir, rupdif);
+#pragma unroll
+  for (int k = KL - 1; k >= 0; --k) {
+    const LP<T> p = L[N1 + k] > T(TRMIN) ? prop(k) : zero_layer<T>();
+    const T refkp1 = T(1) / (T(1) - p.rdif_b * rupdif);
+    const T ndir = p.rdir + (p.trnlay * rupdir
+                             + (p.tdir - p.trnlay) * rupdif)
+                                * refkp1 * p.tdif_b;
+    rupdif = p.rdif_a + p.tdif_a * rupdif * refkp1 * p.tdif_b;
+    rupdir = ndir;
+    flux(k, rupdir, rupdif);
+  }
+  rup0dir = rupdir;
+  rup0dif = rupdif;
 }
 
 struct Params {
@@ -294,54 +368,124 @@ struct Params {
   int pond_scheme;   // 0 cesm, 1 lvl, 2 topo
 };
 
+template <typename T>
+struct Inputs {
+  const T *aicen, *vicen, *vsnon, *Tsfcn, *apnd, *hpnd;   // (ncat, ny, nx)
+  const T *coszen, *fnidr, *swvdr, *swvdf, *swidr, *swidf;   // (ny, nx)
+};
+
+// the flux partition of surface SRF (dedd.py:_partition_sol) from the
+// lane's interface fluxes and top albedos, the bands gathered by the
+// column's band-0 lane from the next two lanes in band order, and its share
+// of the mixed outputs (mix(b, s, p) = b*fi + s*fs + p*fp, surface by
+// surface): every lane of the warp shuffles, the band-0 lanes write their
+// lane's output entries (entry NMIX... of its arrays, see solve)
+template <typename T, int NI, int NS, int SRF>
+__device__ __forceinline__ void partition_mix(const Lane<T>& L, bool leader,
+                                              T rup0dir, T rup0dif,
+                                              T wghtns2, T wghtns3, T swvdr,
+                                              T swvdf, T swidr, T swidf,
+                                              T frac) {
+  constexpr int KLEV = NS + NI + 1, N1 = KLEV + 2;
+  constexpr int ACC = 6 * N1;                 // the lane's output entries
+  constexpr int NOUT = 11 + NS + NI + NI + 1;
+  constexpr int ksrf = SRF == 1 ? 1 : NS + 2;
+  const T r1 = __shfl_down_sync(FULL, rup0dir, 1);
+  const T r2 = __shfl_down_sync(FULL, rup0dir, 2);
+  const T f1 = __shfl_down_sync(FULL, rup0dif, 1);
+  const T f2 = __shfl_down_sync(FULL, rup0dif, 2);
+  // net_tot (into dfdir's entries) and net_vs (into dfdif's) per interface
+#pragma unroll
+  for (int k = 0; k < N1; ++k) {
+    const T d0 = L[4 * N1 + k], e0 = L[5 * N1 + k];
+    const T d1 = __shfl_down_sync(FULL, d0, 1);
+    const T d2 = __shfl_down_sync(FULL, d0, 2);
+    const T e1 = __shfl_down_sync(FULL, e0, 1);
+    const T e2 = __shfl_down_sync(FULL, e0, 2);
+    const T net_vs = d0 * swvdr + e0 * swvdf;
+    const T nir = (wghtns2 * d1 + wghtns3 * d2) * swidr
+                  + (wghtns2 * e1 + wghtns3 * e2) * swidf;
+    L[4 * N1 + k] = net_vs + nir;
+    L[5 * N1 + k] = net_vs;
+  }
+  if (!leader) return;
+  auto net_tot = [&](int k) { return L[4 * N1 + k]; };
+  auto mix = [&](int q, T x) {
+    L[ACC + q] = SRF == 0 ? x * frac : L[ACC + q] + x * frac;
+  };
+  const T avdr = rup0dir, avdf = rup0dif;
+  const T aidr = r1 * wghtns2 + r2 * wghtns3;
+  const T aidf = f1 * wghtns2 + f2 * wghtns3;
+  mix(0, avdr);
+  mix(1, avdf);
+  mix(2, aidr);
+  mix(3, aidf);
+  mix(4, net_tot(0) - net_tot(ksrf));
+  mix(5, net_tot(ksrf) - net_tot(KLEV + 1));
+  mix(6, net_tot(KLEV + 1));
+  if (SRF == 1) {
+#pragma unroll
+    for (int k = 1; k <= NS; ++k)
+      L[ACC + 7 + k - 1] = (net_tot(k) - net_tot(k + 1)) * frac;
+  }
+#pragma unroll
+  for (int k = NS + 2; k < NS + 2 + NI; ++k) {
+    const int km = (SRF == 1 && k == NS + 2) ? k - 1 : k;
+    mix(7 + NS + k - NS - 2, net_tot(km) - net_tot(k + 1));
+  }
+#pragma unroll
+  for (int k = NS + 2; k < KLEV + 2; ++k)
+    mix(7 + NS + NI + k - NS - 2, L[5 * N1 + k]);
+  L[ACC + NOUT - 4 + SRF] = T(AWTVDR) * avdr + T(AWTIDR) * aidr
+                            + T(AWTVDF) * avdf + T(AWTIDF) * aidf;
+}
+
+// lanes per shared-memory slot of a thread: the adding arrays (6 x
+// (klev+2)) and the outputs (11 + nslyr + 2 nilyr + 1)
+template <int NI, int NS>
+__host__ __device__ constexpr int lane_values() {
+  return 6 * (NS + NI + 3) + 11 + NS + 2 * NI + 1;
+}
+
+// solve n <= NGRP lit columns cols[0..n) of the warp: lanes 3g, 3g+1, 3g+2
+// take column g's bands 0, 1, 2; the other lanes repeat column 0 unseen
 template <typename T, int NI, int NS>
-__global__ void shortwave_dedd_kernel(
-    int ncat, int ny, int nx, const T* __restrict__ aicen,
-    const T* __restrict__ vicen, const T* __restrict__ vsnon,
-    const T* __restrict__ Tsfcn, const T* __restrict__ apnd,
-    const T* __restrict__ hpnd, const T* __restrict__ coszen,
-    const T* __restrict__ fnidr, const T* __restrict__ swvdr_p,
-    const T* __restrict__ swvdf_p, const T* __restrict__ swidr_p,
-    const T* __restrict__ swidf_p, const double* __restrict__ tab,
-    Params prm, T* __restrict__ out) {
+__device__ __forceinline__ void solve(const unsigned* cols, int n, size_t np,
+                                      Inputs<T> in,
+                                      const double* __restrict__ tab,
+                                      Params prm, Lane<T> L,
+                                      T* __restrict__ out) {
   constexpr int KLEV = NS + NI + 1;
   constexpr int KL = KLEV + 1;                  // layers
   constexpr int KII = NS + 1;
   constexpr int NOUT = 11 + NS + NI + NI + 1;
-  const size_t np = (size_t)ny * nx;
-  const size_t k = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int c = blockIdx.y;
-  if (k >= np) return;
-  const size_t kc = (size_t)c * np + k;
-  T* o = out + (size_t)c * NOUT * np + k;
+  constexpr int ACC = 6 * (KL + 1);
+  const int lane = threadIdx.x & 31;
+  const int g = lane / 3, ns = lane - 3 * g;
+  const bool active = lane < 3 * n;
+  const size_t kc = (size_t)cols[active ? g : 0];
+  const size_t c = kc / np, k = kc - c * np;
 
-  const T a = aicen[kc];
-  const T swvdr = swvdr_p[k], swvdf = swvdf_p[k];
-  const T swidr = swidr_p[k], swidf = swidf_p[k];
-  const T netsw = swvdr + swvdf + swidr + swidf;
-  const bool mask = a > T(PUNY);
-  if (!(mask && netsw > T(PUNY) && coszen[k] > T(PUNY))) {
-#pragma unroll
-    for (int q = 0; q < NOUT; ++q) o[q * np] = T(0);
-    return;
-  }
-  const T cz = tmax(coszen[k], T(PUNY));
-  const T fni = fnidr[k];
+  const T a = in.aicen[kc];
+  const T swvdr = in.swvdr[k], swvdf = in.swvdf[k];
+  const T swidr = in.swidr[k], swidf = in.swidf[k];
+  const T cz = tmax(in.coszen[k], T(PUNY));
+  const T fni = in.fnidr[k];
   const T asafe = tmax(a, T(PUNY));
-  const T hi = vicen[kc] / asafe;
+  const T hi = in.vicen[kc] / asafe;
 
   // snow fraction and grain radius (dedd.py:set_snow)
-  const T hs = vsnon[kc] / asafe;
+  const T hs = in.vsnon[kc] / asafe;
   const T fs = hs >= T(HS_MIN)
                    ? (prm.hs0 > PUNY ? tmin(hs / T(prm.hs0), T(1)) : T(1))
                    : T(0);
-  const T dTs = T(TIMELT) - Tsfcn[kc];
+  const T dTs = T(TIMELT) - in.Tsfcn[kc];
   const T fT = -tmin(dTs / T(prm.dT_mlt) - T(1), T(0));
   const T rsnw = tmin(tmax(T(prm.rsnw_nm) + T(prm.rsnw_mlt - prm.rsnw_nm) * fT,
                            T(100)), T(prm.rsnw_mlt));
 
   // radiative pond fraction/depth (dedd.py:pond_setup)
-  T fp = apnd[kc], hp = hpnd[kc];
+  T fp = in.apnd[kc], hp = in.hpnd[kc];
   if (prm.pond_scheme == 1) {
     if (prm.hs1 > PUNY) {
       const T asnow = tmin(hs / T(prm.hs1), T(1));
@@ -388,22 +532,24 @@ __global__ void shortwave_dedd_kernel(
   const T fr_adj = T(1) * fni + T(0.8) * (T(1) - fni);
   const T frsnw = fr_adj * rsnw;
   const T fs_dl = T(0.25 * NI);
+  const T wghtns2 = T(0.67) + T(0.78 - 0.67) * (T(1) - fni);
+  const T wghtns3 = T(1) - wghtns2;
 
-  // net flux factors per surface (bare, snow, pond), band and interface
-  T dfdir[3][3][KLEV + 2], dfdif[3][3][KLEV + 2];
-  T rdir0[3][3], rdif0[3][3];
-  LP<T> props[KL];
-  for (int ns = 0; ns < 3; ++ns) {
-    const double* io = tab + T_IOP + ns * NIOP;
-    const T albo = ns == 0 ? T(0.01) : T(0);
-    // ice layers shared by the bare and snow surfaces
-    const LP<T> pSSL = layer_props(T(io[K_SSL]) * dz_ssl, T(io[W_SSL]),
-                                   T(io[G_SSL]), mu0);
-    const LP<T> pDL = fresnel(
-        layer_props(T(io[K_DL]) * dz_dl * fs_dl, T(io[W_DL]), T(io[G_DL]),
-                    mu0n), mu0, mu0n);
-    const LP<T> pInt = layer_props(T(io[K_INT]) * dz_i, T(io[W_INT]),
-                                   T(io[G_INT]), mu0n);
+  // this lane's band
+  const double* io = tab + T_IOP + ns * NIOP;
+  const T albo = ns == 0 ? T(0.01) : T(0);
+  const bool leader = active && ns == 0;
+  T rup0dir, rup0dif;
+
+  // ice layers shared by the bare and snow surfaces
+  IceStack<T, NS, NI> ice;
+  ice.ssl = layer_props(T(io[K_SSL]) * dz_ssl, T(io[W_SSL]), T(io[G_SSL]),
+                        mu0);
+  ice.dl = fresnel(layer_props(T(io[K_DL]) * dz_dl * fs_dl, T(io[W_DL]),
+                               T(io[G_DL]), mu0n), mu0, mu0n);
+  ice.inr = layer_props(T(io[K_INT]) * dz_i, T(io[W_INT]), T(io[G_INT]),
+                        mu0n);
+  {
     const double sig_b = io[K_INT] * io[W_INT];
     T tau_b, w_b;
     if (ns == 0) {
@@ -416,104 +562,188 @@ __global__ void shortwave_dedd_kernel(
       w_b = T(sig_b / (sig_b + kabs));
       tau_b = T(kabs + sig_b) * dz_i;
     }
-    const LP<T> pBot = layer_props(tau_b, w_b, T(io[G_INT]), mu0n);
-    props[KII] = pSSL;
-    props[KII + 1] = pDL;
-#pragma unroll
-    for (int q = KII + 2; q < KLEV; ++q) props[q] = pInt;
-    props[KLEV] = pBot;
+    ice.bot = layer_props(tau_b, w_b, T(io[G_INT]), mu0n);
+  }
 
-    // bare: clear layers above the ice
-#pragma unroll
-    for (int q = 0; q <= NS; ++q) props[q] = clear_layer<T>();
-    adding<T, KL>(props, albo, dfdir[0][ns], dfdif[0][ns], rdir0[0][ns],
-                  rdif0[0][ns]);
+  // bare: clear layers above the ice
+  adding<T, KL>(BareStack<T, NS, NI>{ice}, albo, L, rup0dir, rup0dif);
+  partition_mix<T, NI, NS, 0>(L, leader, rup0dir, rup0dif, wghtns2, wghtns3,
+                              swvdr, swvdf, swidr, swidf, fi);
 
-    // snow: the table optics on the surface scattering layer and the rest
-    const T Qs = interp_table(frsnw, tab + T_RSNW, tab + T_QS + ns, 3);
-    const T ws_t = interp_table(frsnw, tab + T_RSNW, tab + T_WS + ns, 3);
-    const T gs_t = interp_table(frsnw, tab + T_RSNW, tab + T_GS + ns, 3);
-    const T ks_coef = Qs * (T((RHOS / 917.0) * 3.0) / (T(4) * frsnw * T(1e-6)));
-    props[0] = layer_props(ks_coef * dz_s0, ws_t, gs_t, mu0);
-    const LP<T> pS1 = layer_props(ks_coef * dz_s1, ws_t, gs_t, mu0);
-    props[1] = pS1;
-    if (NS > 1) {
-      const LP<T> pSr = layer_props(ks_coef * dz_s, ws_t, gs_t, mu0);
-#pragma unroll
-      for (int q = 2; q <= NS; ++q) props[q] = pSr;
-    }
-    adding<T, KL>(props, albo, dfdir[1][ns], dfdif[1][ns], rdir0[1][ns],
-                  rdif0[1][ns]);
+  // snow: the table optics on the surface scattering layer and the rest
+  {
+    T Qs, ws_t, gs_t;
+    snow_tables(frsnw, ns, tab, Qs, ws_t, gs_t);
+    const T ks_coef = Qs * (T((RHOS / 917.0) * 3.0)
+                            / (T(4) * frsnw * T(1e-6)));
+    SnowStack<T, NS, NI> snow{ice};
+    snow.s0 = layer_props(ks_coef * dz_s0, ws_t, gs_t, mu0);
+    snow.s1 = layer_props(ks_coef * dz_s1, ws_t, gs_t, mu0);
+    if (NS > 1) snow.sr = layer_props(ks_coef * dz_s, ws_t, gs_t, mu0);
+    adding<T, KL>(snow, albo, L, rup0dir, rup0dif);
+  }
+  partition_mix<T, NI, NS, 1>(L, leader, rup0dir, rup0dif, wghtns2, wghtns3,
+                              swvdr, swvdf, swidr, swidf, fs);
 
-    // pond: Fresnel on the top water layer, then the ponded ice
-    const LP<T> pPw = layer_props(T(io[KWAT]) * dz_p, T(0), T(0), mu0n);
-    props[0] = fresnel(pPw, mu0, mu0n);
-#pragma unroll
-    for (int q = 1; q <= NS; ++q) props[q] = pPw;
+  // pond: Fresnel on the top water layer, then the ponded ice
+  {
+    PondStack<T, NS, NI> pond;
+    pond.water = layer_props(T(io[KWAT]) * dz_p, T(0), T(0), mu0n);
+    pond.top = fresnel(pond.water, mu0, mu0n);
     {
       const double si = io[K_SSL] * io[W_SSL];
       const double sp = io[K_PSSL] * io[W_PSSL];
       const T sig = T(si) + T(sp - si) * blend;
       const T kext = sig + T(io[K_PSSL] * (1.0 - io[W_PSSL]));
-      props[KII] = layer_props(kext * dz_ssl, sig / kext, T(io[G_PINT]), mu0n);
+      pond.ssl = layer_props(kext * dz_ssl, sig / kext, T(io[G_PINT]), mu0n);
     }
     {
       const double si = io[K_DL] * io[W_DL] * (0.25 * NI);
       const double sp = io[K_PINT] * io[W_PINT];
       const T sig = T(si) + T(sp - si) * blend;
       const T kext = sig + T(io[K_PINT] * (1.0 - io[W_PINT]));
-      props[KII + 1] = layer_props(kext * dz_dl, sig / kext, T(io[G_PINT]),
-                                   mu0n);
+      pond.dl = layer_props(kext * dz_dl, sig / kext, T(io[G_PINT]), mu0n);
     }
     {
       const double si = io[K_INT] * io[W_INT];
       const double sp = io[K_PINT] * io[W_PINT];
       const T sig = T(si) + T(sp - si) * blend;
       const T kext = sig + T(io[K_PINT] * (1.0 - io[W_PINT]));
-      const LP<T> pPi = layer_props(kext * dz_i, sig / kext, T(io[G_PINT]),
-                                    mu0n);
-#pragma unroll
-      for (int q = KII + 2; q <= KLEV; ++q) props[q] = pPi;
+      pond.inr = layer_props(kext * dz_i, sig / kext, T(io[G_PINT]), mu0n);
     }
-    adding<T, KL>(props, albo, dfdir[2][ns], dfdif[2][ns], rdir0[2][ns],
-                  rdif0[2][ns]);
+    adding<T, KL>(pond, albo, L, rup0dir, rup0dif);
+  }
+  partition_mix<T, NI, NS, 2>(L, leader, rup0dir, rup0dif, wghtns2, wghtns3,
+                              swvdr, swvdf, swidr, swidf, fp);
+
+  if (leader) {
+    L[ACC + NOUT - 1] = fs;
+    T* o = out + c * NOUT * np + k;
+#pragma unroll
+    for (int q = 0; q < NOUT; ++q) o[q * np] = L[ACC + q];
+  }
+}
+
+template <typename T, int NI, int NS>
+__global__ void __launch_bounds__(NT, 1)
+shortwave_dedd_kernel(int ncat, int ny, int nx, Inputs<T> in,
+                      const double* __restrict__ tab_g, Params prm,
+                      T* __restrict__ out, unsigned* __restrict__ work) {
+  constexpr int NOUT = 11 + NS + NI + NI + 1;
+  extern __shared__ unsigned char smem_bytes[];
+  double* tab = reinterpret_cast<double*>(smem_bytes);
+  T* lanes = reinterpret_cast<T*>(tab + NTABV);
+  for (int q = threadIdx.x; q < NTABV; q += NT) tab[q] = tab_g[q];
+
+  const Lane<T> L{lanes + threadIdx.x};
+  const int lane = threadIdx.x & 31;
+  const size_t np = (size_t)ny * nx;
+  const size_t ncol = (size_t)ncat * np;
+  const unsigned nchunk = (unsigned)((ncol + 31) / 32);
+  unsigned* list = work + W_LIST;
+
+  // phase 1: the scan, CPG chunks at a time from the counter, their loads
+  // in flight together
+  for (;;) {
+    unsigned chunk = 0;
+    if (lane == 0) chunk = atomicAdd(work + W_CHUNK, (unsigned)CPG);
+    chunk = __shfl_sync(FULL, chunk, 0);
+    if (chunk >= nchunk) break;
+    bool lit[CPG];
+#pragma unroll
+    for (int h = 0; h < CPG; ++h) {
+      const size_t kc = (size_t)(chunk + h) * 32 + lane;
+      lit[h] = false;
+      if (kc < ncol) {
+        const size_t k = kc % np;
+        const T netsw = in.swvdr[k] + in.swvdf[k] + in.swidr[k]
+                        + in.swidf[k];
+        lit[h] = in.aicen[kc] > T(PUNY) && netsw > T(PUNY)
+                 && in.coszen[k] > T(PUNY);
+      }
+    }
+    unsigned ballot[CPG];
+    int nl = 0;
+#pragma unroll
+    for (int h = 0; h < CPG; ++h) {
+      const size_t kc = (size_t)(chunk + h) * 32 + lane;
+      if (kc < ncol && !lit[h]) {
+        const size_t c = kc / np, k = kc - c * np;
+        T* o = out + c * NOUT * np + k;
+#pragma unroll
+        for (int q = 0; q < NOUT; ++q) o[q * np] = T(0);
+      }
+      ballot[h] = __ballot_sync(FULL, lit[h]);
+      nl += __popc(ballot[h]);
+    }
+    unsigned base = 0;
+    if (lane == 0) base = atomicAdd(work + W_NLIT, (unsigned)nl);
+    base = __shfl_sync(FULL, base, 0);
+#pragma unroll
+    for (int h = 0; h < CPG; ++h) {
+      if (lit[h])
+        list[base + __popc(ballot[h] & ((1u << lane) - 1u))] =
+            (unsigned)((size_t)(chunk + h) * 32 + lane);
+      base += __popc(ballot[h]);
+    }
   }
 
-  const T wghtns2 = T(0.67) + T(0.78 - 0.67) * (T(1) - fni);
-  const T wghtns3 = T(1) - wghtns2;
-  Part<T, NI, NS> rb, rs, rp;
-  partition<T, NI, NS>(0, dfdir[0], dfdif[0], rdir0[0], rdif0[0], wghtns2,
-                       wghtns3, swvdr, swvdf, swidr, swidf, rb);
-  partition<T, NI, NS>(1, dfdir[1], dfdif[1], rdir0[1], rdif0[1], wghtns2,
-                       wghtns3, swvdr, swvdf, swidr, swidf, rs);
-  partition<T, NI, NS>(2, dfdir[2], dfdif[2], rdir0[2], rdif0[2], wghtns2,
-                       wghtns3, swvdr, swvdf, swidr, swidf, rp);
+  // the grid barrier: every block is resident (cooperative launch)
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(work + W_BARRIER, 1u);
+    while (atomicAdd(work + W_BARRIER, 0u) < gridDim.x) __nanosleep(100);
+    __threadfence();
+  }
+  __syncthreads();
 
-  auto mix = [&](T b, T s, T p) { return b * fi + s * fs + p * fp; };
-  int q = 0;
-  o[(q++) * np] = mix(rb.avdr, rs.avdr, rp.avdr);
-  o[(q++) * np] = mix(rb.avdf, rs.avdf, rp.avdf);
-  o[(q++) * np] = mix(rb.aidr, rs.aidr, rp.aidr);
-  o[(q++) * np] = mix(rb.aidf, rs.aidf, rp.aidf);
-  o[(q++) * np] = mix(rb.fsfc, rs.fsfc, rp.fsfc);
-  o[(q++) * np] = mix(rb.fint, rs.fint, rp.fint);
-  o[(q++) * np] = mix(rb.fthru, rs.fthru, rp.fthru);
-#pragma unroll
-  for (int l = 0; l < NS; ++l) o[(q++) * np] = rs.Sabs[l] * fs;
-#pragma unroll
-  for (int l = 0; l < NI; ++l)
-    o[(q++) * np] = mix(rb.Iabs[l], rs.Iabs[l], rp.Iabs[l]);
-#pragma unroll
-  for (int l = 0; l <= NI; ++l)
-    o[(q++) * np] = mix(rb.fthrul[l], rs.fthrul[l], rp.fthrul[l]);
-  auto broadband = [&](const Part<T, NI, NS>& r) {
-    return T(AWTVDR) * r.avdr + T(AWTIDR) * r.aidr + T(AWTVDF) * r.avdf
-           + T(AWTIDF) * r.aidf;
-  };
-  o[(q++) * np] = broadband(rb);
-  o[(q++) * np] = broadband(rs);
-  o[(q++) * np] = broadband(rp);
-  o[(q++) * np] = fs;
+  // phase 2: groups of 10 lit columns from the list, in turn
+  const unsigned nlit = atomicAdd(work + W_NLIT, 0u);
+  for (;;) {
+    unsigned g0 = 0;
+    if (lane == 0) g0 = atomicAdd(work + W_TAKEN, (unsigned)NGRP);
+    g0 = __shfl_sync(FULL, g0, 0);
+    if (g0 >= nlit) break;
+    solve<T, NI, NS>(list + g0, nlit - g0 < NGRP ? (int)(nlit - g0) : NGRP,
+                     np, in, tab, prm, L, out);
+  }
+}
+
+template <typename T, int NI, int NS>
+cudaError_t launch(int ncat, int ny, int nx, const Inputs<T>& in,
+                   const double* tab, const Params& prm, T* out,
+                   unsigned* work, cudaStream_t stream) {
+  auto fn = shortwave_dedd_kernel<T, NI, NS>;
+  const size_t smem = NTABV * sizeof(double)
+                      + (size_t)lane_values<NI, NS>() * NT * sizeof(T);
+  // the attribute and the resident grid once per instantiation, so a later
+  // call (or its CUDA graph capture) issues the counters' reset and the
+  // launch alone
+  static int resident = 0;
+  cudaError_t err;
+  if (resident == 0) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    int dev = 0, nsm = 0, occ = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, fn, NT, smem);
+    if (err != cudaSuccess) return err;
+    if (occ < 1) return cudaErrorInvalidConfiguration;
+    resident = occ * nsm;
+  }
+  if ((err = cudaMemsetAsync(work, 0, W_LIST * sizeof(unsigned), stream))
+      != cudaSuccess)
+    return err;
+  void* args[] = {(void*)&ncat, (void*)&ny, (void*)&nx, (void*)&in,
+                  (void*)&tab, (void*)&prm, (void*)&out, (void*)&work};
+  err = cudaLaunchCooperativeKernel((const void*)fn, dim3(resident), dim3(NT),
+                                    args, smem, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -523,24 +753,19 @@ int run(int ncat, int ny, int nx, int nilyr, int nslyr, const T* aicen,
         const T* swvdf, const T* swidr, const T* swidf, const double* tab,
         double rsnw_nm, double rsnw_mlt, double dT_mlt, double kalg,
         double hs0, double hs1, double pndaspect, int pond_scheme, T* out,
-        void* stream) {
-  Params prm{rsnw_nm, rsnw_mlt, dT_mlt, kalg, hs0, hs1, pndaspect,
-             pond_scheme};
-  cudaStream_t s = (cudaStream_t)stream;
-  const int block = 128;
-  const dim3 grid((unsigned)(((size_t)ny * nx + block - 1) / block), ncat);
-  if (nslyr == 1 && nilyr == 4) {
-    shortwave_dedd_kernel<T, 4, 1><<<grid, block, 0, s>>>(
-        ncat, ny, nx, aicen, vicen, vsnon, Tsfcn, apnd, hpnd, coszen, fnidr,
-        swvdr, swvdf, swidr, swidf, tab, prm, out);
-  } else if (nslyr == 1 && nilyr == 7) {
-    shortwave_dedd_kernel<T, 7, 1><<<grid, block, 0, s>>>(
-        ncat, ny, nx, aicen, vicen, vsnon, Tsfcn, apnd, hpnd, coszen, fnidr,
-        swvdr, swvdf, swidr, swidf, tab, prm, out);
-  } else {
+        unsigned* work, void* stream) {
+  const Params prm{rsnw_nm, rsnw_mlt, dT_mlt, kalg, hs0, hs1, pndaspect,
+                   pond_scheme};
+  const Inputs<T> in{aicen, vicen, vsnon, Tsfcn, apnd, hpnd,
+                     coszen, fnidr, swvdr, swvdf, swidr, swidf};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if ((size_t)ncat * ny * nx >= ((size_t)1 << 31))
     return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (nslyr == 1 && nilyr == 4)
+    return (int)launch<T, 4, 1>(ncat, ny, nx, in, tab, prm, out, work, s);
+  if (nslyr == 1 && nilyr == 7)
+    return (int)launch<T, 7, 1>(ncat, ny, nx, in, tab, prm, out, work, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -557,11 +782,11 @@ int shortwave_dedd_f32(int ncat, int ny, int nx, int nilyr, int nslyr,
                        const double* tab, double rsnw_nm, double rsnw_mlt,
                        double dT_mlt, double kalg, double hs0, double hs1,
                        double pndaspect, int pond_scheme, float* out,
-                       void* stream) {
+                       unsigned* work, void* stream) {
   return run<float>(ncat, ny, nx, nilyr, nslyr, aicen, vicen, vsnon, Tsfcn,
                     apnd, hpnd, coszen, fnidr, swvdr, swvdf, swidr, swidf,
                     tab, rsnw_nm, rsnw_mlt, dT_mlt, kalg, hs0, hs1,
-                    pndaspect, pond_scheme, out, stream);
+                    pndaspect, pond_scheme, out, work, stream);
 }
 
 int shortwave_dedd_f64(int ncat, int ny, int nx, int nilyr, int nslyr,
@@ -574,11 +799,11 @@ int shortwave_dedd_f64(int ncat, int ny, int nx, int nilyr, int nslyr,
                        const double* tab, double rsnw_nm, double rsnw_mlt,
                        double dT_mlt, double kalg, double hs0, double hs1,
                        double pndaspect, int pond_scheme, double* out,
-                       void* stream) {
+                       unsigned* work, void* stream) {
   return run<double>(ncat, ny, nx, nilyr, nslyr, aicen, vicen, vsnon, Tsfcn,
                      apnd, hpnd, coszen, fnidr, swvdr, swvdf, swidr, swidf,
                      tab, rsnw_nm, rsnw_mlt, dT_mlt, kalg, hs0, hs1,
-                     pndaspect, pond_scheme, out, stream);
+                     pndaspect, pond_scheme, out, work, stream);
 }
 
 const char* shortwave_dedd_error_string(int err) {

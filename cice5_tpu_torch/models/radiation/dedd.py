@@ -164,13 +164,19 @@ def band_iops(R_ice, R_pnd):
 @functools.lru_cache(maxsize=8)
 def kernel_tables(R_ice, R_pnd, device) -> torch.Tensor:
     """The float64 constants the CUDA kernel reads: RSNW_TAB (32), QS_TAB,
-    WS_TAB, GS_TAB (each 32x3, row-major), then per band the 16 values of
-    IOP_KEYS. Built from this module's tables, so the kernel and the plain
-    version share one source of numbers; built once per device (a copy to
-    the GPU waits for the device)."""
+    WS_TAB, GS_TAB (each 32x3, row-major), per band the 16 values of
+    IOP_KEYS, then the segment constants of ``_interp_table`` as it
+    computes them in float64: the value steps fp[k+1] - fp[k] of QS_TAB,
+    WS_TAB, GS_TAB (each 31x3, row-major) and the inverse widths
+    1 / (xp[k+1] - xp[k]) of RSNW_TAB (31). Built from this module's
+    tables, so the kernel and the plain version share one source of
+    numbers; built once per device (a copy to the GPU waits for the
+    device)."""
     iops = band_iops(R_ice, R_pnd)
     parts = [RSNW_TAB, QS_TAB.ravel(), WS_TAB.ravel(), GS_TAB.ravel(),
-             np.array([[io[k] for k in IOP_KEYS] for io in iops]).ravel()]
+             np.array([[io[k] for k in IOP_KEYS] for io in iops]).ravel(),
+             *(np.diff(t, axis=0).ravel() for t in (QS_TAB, WS_TAB, GS_TAB)),
+             1.0 / np.diff(RSNW_TAB)]
     return torch.as_tensor(np.concatenate(parts), dtype=torch.float64,
                            device=device)
 

@@ -13,7 +13,7 @@ The reconstruction + transport integrals of all categories and both edge
 sets are one function with two implementations of one signature:
 ``remap_flux_plain`` (plain PyTorch: the CPU path and the reference for
 the kernel) and ``remap_flux_both``, which launches the hand-written CUDA
-kernel ``csrc/remap_flux_both.cu`` for tensors on the GPU. Categories
+kernel ``csrc/remap_tiles.cu`` for tensors on the GPU. Categories
 are an explicit leading batch axis.
 """
 from __future__ import annotations
@@ -564,7 +564,7 @@ def remap_flux_both(geomN, geomE, mmE2, tmE2, hmE2, tracer_type, parent,
                     ny: int, nx: int):
     """``remap_flux_plain`` with the same signature and results: the plain
     version for CPU tensors, the ``remap_flux_both`` CUDA kernel
-    (csrc/remap_flux_both.cu) for CUDA tensors."""
+    (csrc/remap_tiles.cu) for CUDA tensors."""
     if mmE2.device.type == "cpu":
         return remap_flux_plain(geomN, geomE, mmE2, tmE2, hmE2,
                                 tracer_type, parent, ny, nx)
@@ -596,8 +596,8 @@ def remap_flux_edge_plain(edge: str, geom, mmE2, tmE2, hmE2, tracer_type,
 def remap_flux_edge(edge: str, geom, mmE2, tmE2, hmE2, tracer_type, parent,
                     ny: int, nx: int):
     """``remap_flux_edge_plain`` with the same signature and results: the
-    plain version for CPU tensors, the ``remap_flux_edge`` entry of
-    csrc/remap_flux_both.cu for CUDA tensors. Nothing on the model's path
+    plain version for CPU tensors, the ``remap_flux_edge`` CUDA kernel
+    (csrc/remap_flux_edge.cu) for CUDA tensors. Nothing on the model's path
     calls it (the step takes both edge sets in one ``remap_flux_both``)."""
     if mmE2.device.type == "cpu":
         return remap_flux_edge_plain(edge, geom, mmE2, tmE2, hmE2,

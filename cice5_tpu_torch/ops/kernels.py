@@ -7,10 +7,11 @@ of the checkout, or ``$CICE5_TORCH_BUILD_DIR``) and loaded with ctypes.
 Nothing here runs when the module is imported, so the CPU tests import it
 on machines without CUDA.
 
-A source may export more than one kernel (``remap_flux_both.cu`` also
-holds the single-edge ``remap_flux_edge``, ``evp_resident.cu`` both EVP
-kernels); a kernel is rebuilt when its source, or a ``csrc/*.cuh`` header
-the source includes, is newer than its library.
+A source may export more than one kernel (``evp_resident.cu`` holds both
+EVP kernels), and a kernel's source may have another name than the kernel
+(``remap_flux_both`` is ``remap_tiles.cu``); a kernel is rebuilt when its
+source, or a ``csrc/*.cuh`` header the source includes, is newer than its
+library.
 
 The launch functions take CUDA tensors only: they check device, dtype,
 shape and contiguity, allocate their outputs with ``torch.empty``, launch
@@ -70,8 +71,8 @@ _IP = ctypes.POINTER(ctypes.c_int)
 _ARGTYPES = {
     "evp_sweep": [_I] * 6 + [_VP] * 7 + [_I] + [_D] * 8 + [_VP] * 2
     + [_IP, _VP, _VP, _VP],
-    "remap_flux_both": [_I, _I, _I, _I, _IP, _IP] + [_VP] * 17,
-    "shortwave_dedd": [_I] * 5 + [_VP] * 13 + [_D] * 7 + [_I, _VP, _VP],
+    "remap_flux_both": [_I, _I, _I, _I, _IP, _IP] + [_VP] * 16,
+    "shortwave_dedd": [_I] * 5 + [_VP] * 13 + [_D] * 7 + [_I] + [_VP] * 3,
     "evp_fused": [_I] * 4 + [_VP] * 7 + [_I] + [_D] * 8 + [_VP] * 5
     + [_IP, _VP, _VP, _VP],
     "remap_flux_edge": [_I] * 5 + [_IP, _IP] + [_VP] * 11,
@@ -87,6 +88,7 @@ class CudaKernel:
         self.name = name
         self.source = _SRC_DIR / f"{source or name}.cu"
         self.launches = 0
+        self.build_log = ""      # ptxas's report of the last build
         self._lib = None
 
     @property
@@ -94,8 +96,8 @@ class CudaKernel:
         return build_dir() / f"lib{self.source.stem}.so"
 
     def build_command(self) -> list[str]:
-        return [_nvcc(), *NVCC_FLAGS, "-o", str(self.library),
-                str(self.source)]
+        return [_nvcc(), *NVCC_FLAGS, "--resource-usage", "-o",
+                str(self.library), str(self.source)]
 
     def headers(self) -> list[Path]:
         """The ``csrc`` headers the source includes."""
@@ -141,9 +143,10 @@ class CudaKernel:
 
 KERNELS = {k.name: k for k in (
     CudaKernel("evp_sweep", source="evp_resident"),
-    CudaKernel("remap_flux_both"), CudaKernel("shortwave_dedd"),
+    CudaKernel("remap_flux_both", source="remap_tiles"),
+    CudaKernel("shortwave_dedd"),
     CudaKernel("evp_fused", source="evp_resident"),
-    CudaKernel("remap_flux_edge", source="remap_flux_both"))}
+    CudaKernel("remap_flux_edge"))}
 
 
 def build_all(kernels=None) -> float:
@@ -161,6 +164,9 @@ def build_all(kernels=None) -> float:
         out, _ = p.communicate()
         if p.returncode != 0:
             failed.append(f"{k.source.name}:\n{out}")
+        for other in KERNELS.values():
+            if other.source == k.source:
+                other.build_log = out
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return time.perf_counter() - t0
@@ -181,6 +187,24 @@ def resource_usage(sources) -> str:
         out.append(f"== {src}\n{p.stdout}{p.stderr}")
     scratch.unlink(missing_ok=True)
     return "".join(out)
+
+
+def ptxas_entries(log: str) -> list[dict]:
+    """The entry functions of a ptxas report (``--resource-usage``): each
+    one's mangled name, registers, and the largest stack frame and spill
+    bytes of it and the functions it calls (reported with it)."""
+    out = []
+    for part in log.split("Compiling entry function '")[1:]:
+        frames = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                            r"stores, (\d+) bytes spill loads", part)
+        regs = re.search(r"Used (\d+) registers", part)
+        out.append(dict(
+            name=part.split("'", 1)[0],
+            registers=int(regs.group(1)) if regs else -1,
+            stack=max((int(f[0]) for f in frames), default=0),
+            spill_stores=max((int(f[1]) for f in frames), default=0),
+            spill_loads=max((int(f[2]) for f in frames), default=0)))
+    return out
 
 
 def launch_counts() -> dict[str, int]:
@@ -383,8 +407,9 @@ def _tracer_table(name, tracer_type, parent):
 
 def remap_flux_both(*, mmE2, tmE2, hmE2, geomN, geomE, tracer_type, parent,
                     ny: int, nx: int):
-    """Launch csrc/remap_flux_both.cu: reconstruction + transport
-    integrals of both edge sets, all categories.
+    """Launch csrc/remap_tiles.cu: reconstruction + transport integrals of
+    both edge sets, all categories, in one launch (the grid and shared
+    memory of ``remap_tiles.plan``; no reconstruction scratch).
 
     mmE2: (ncat, ny+4, nx+4); tmE2: (ncat, ntrace, ny+4, nx+4); hmE2:
     (ny+4, nx+4); geomN/geomE: (donor int32 (6, nyr, nxr), triarea
@@ -399,8 +424,11 @@ def remap_flux_both(*, mmE2, tmE2, hmE2, geomN, geomE, tracer_type, parent,
     _check_geom("north", geomN, ny + 1, nx, dtype, device)
     _check_geom("east", geomE, ny, nx + 1, dtype, device)
     ttype, par = _tracer_table("remap_flux_both", tracer_type, parent)
-    recon = torch.empty((ncat, 3 + 3 * ntrace, ny + 2, nx + 2), dtype=dtype,
-                        device=device)
+    keys = [(t, q if t >= 2 else -1) for t, q in zip(tracer_type, parent)]
+    if keys != sorted(keys) or any(t >= 2 and not 0 <= q < nt
+                                   for nt, (t, q) in enumerate(keys)):
+        raise ValueError("remap_flux_both takes a class-sorted stack, "
+                         "parents first (remap.tracer_table)")
     out = (torch.empty((ncat, ny + 1, nx), dtype=dtype, device=device),
            torch.empty((ncat, ntrace, ny + 1, nx), dtype=dtype,
                        device=device),
@@ -410,15 +438,15 @@ def remap_flux_both(*, mmE2, tmE2, hmE2, geomN, geomE, tracer_type, parent,
     KERNELS["remap_flux_both"].call(
         dtype, ncat, ntrace, ny, nx, ttype, par, _ptr(mmE2), _ptr(tmE2),
         _ptr(hmE2), *[_ptr(t) for t in geomN], *[_ptr(t) for t in geomE],
-        _ptr(recon), *[_ptr(t) for t in out])
+        *[_ptr(t) for t in out])
     return out
 
 
 def remap_flux_edge(*, edge: str, mmE2, tmE2, hmE2, geom, tracer_type,
                     parent, ny: int, nx: int):
-    """Launch the ``remap_flux_edge`` entry of csrc/remap_flux_both.cu:
-    reconstruction + transport integrals of ONE edge set (``edge`` "north":
-    (ny+1, nx) edges; "east": (ny, nx+1)), all categories. Takes what
+    """Launch csrc/remap_flux_edge.cu: reconstruction + transport
+    integrals of ONE edge set (``edge`` "north": (ny+1, nx) edges; "east":
+    (ny, nx+1)), all categories. Takes what
     ``remap_flux_both`` takes with one geometry set. Returns (mflx
     (ncat, nyr, nxr), mtflx (ncat, ntrace, nyr, nxr))."""
     device, dtype = _cuda_device(mmE2)
@@ -448,7 +476,9 @@ def shortwave_dedd(*, nilyr: int, nslyr: int, aicen, vicen, vsnon, Tsfcn,
                    rsnw_mlt=1500.0, kalg=0.6, hs0=0.03, hs1=0.03,
                    pndaspect=0.8, pond_scheme="cesm"):
     """Launch csrc/shortwave_dedd.cu: the delta-Eddington column of every
-    (category, cell). aicen..hpnd: (ncat, ny, nx); the forcing planes
+    (category, cell), one cooperative launch (a scan that zero-fills the
+    unlit columns and lists the lit ones, then the lit columns in groups of
+    ten from the list). aicen..hpnd: (ncat, ny, nx); the forcing planes
     (ny, nx). Returns the 14 planes of dedd.DEddResult, category axis
     first (Sswabsn (ncat, nslyr, ny, nx), Iswabsn (ncat, nilyr, ...),
     fswpenln (ncat, nilyr+1, ...)): views of one output tensor."""
@@ -471,12 +501,15 @@ def shortwave_dedd(*, nilyr: int, nslyr: int, aicen, vicen, vsnon, Tsfcn,
     rsnw_nm = float(np.clip(500.0 - R_snw * 250.0, 100.0, rsnw_mlt))
     nout = 11 + nslyr + 2 * nilyr + 1
     out = torch.empty((ncat, nout, ny, nx), dtype=dtype, device=device)
+    # the kernel's four counters (zeroed by the kernel's entry on the
+    # stream) and its list of lit columns
+    work = torch.empty(4 + ncat * ny * nx, dtype=torch.int32, device=device)
     KERNELS["shortwave_dedd"].call(
         dtype, ncat, ny, nx, nilyr, nslyr,
         *[_ptr(t) for t in cat.values()], *[_ptr(t) for t in frc.values()],
         _ptr(tab), rsnw_nm, float(rsnw_mlt), float(dT_mlt), float(kalg),
         float(hs0), float(hs1), float(pndaspect),
-        dedd.POND_SCHEMES.index(pond_scheme), _ptr(out))
+        dedd.POND_SCHEMES.index(pond_scheme), _ptr(out), _ptr(work))
     o = 7
     planes = [out[:, k] for k in range(o)]
     planes.append(out[:, o:o + nslyr])

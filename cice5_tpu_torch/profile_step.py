@@ -47,10 +47,12 @@ PHASES = {"_column_physics": "column_physics",
 COLUMN_PHASES = {"_step_radiation": "radiation",
                  "thermo_vertical": "vertical_thermo"}
 # device kernel name -> wrapper; the EVP engine (csrc/evp_resident.cu)
-# runs evp_sweep, or evp_fused on the fused path
+# runs evp_sweep, or evp_fused on the fused path; remap_recon and
+# remap_flux are the single-edge kernel's (csrc/remap_flux_edge.cu)
 OWN_KERNELS = {"evp_resident": "evp_sweep",
-               "remap_recon": "remap_flux_both",
-               "remap_flux": "remap_flux_both",
+               "remap_tiles": "remap_flux_both",
+               "remap_recon": "remap_flux_edge",
+               "remap_flux": "remap_flux_edge",
                "shortwave_dedd": "shortwave_dedd"}
 
 

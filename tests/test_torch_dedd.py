@@ -106,11 +106,26 @@ def test_shortwave_dEdd_cesm_ponds_match_jax():
 
 
 def test_kernel_tables_hold_the_plain_versions_numbers():
+    """The kernel's tables: the snow tables, each band's optical constants,
+    and the segment constants of the snow-table lookups, the very doubles
+    dedd._interp_table computes (fp[k+1] - fp[k] and 1 / (xp[k+1] -
+    xp[k]))."""
     tab = tdedd.kernel_tables(0.0, 0.0, torch.device("cpu")).numpy()
-    assert tab.shape == (32 + 3 * 96 + 3 * len(tdedd.IOP_KEYS),)
+    niop = 3 * len(tdedd.IOP_KEYS)
+    assert tab.shape == (32 + 3 * 96 + niop + 3 * 93 + 31,)
     np.testing.assert_array_equal(tab[:32], jdedd.RSNW_TAB)
     np.testing.assert_array_equal(tab[32:128].reshape(32, 3), jdedd.QS_TAB)
-    iops = tab[320:].reshape(3, -1)
+    seg = tab[320 + niop:]
+    xp = np.asarray(jdedd.RSNW_TAB, np.float64)
+    for n, fp in enumerate((jdedd.QS_TAB, jdedd.WS_TAB, jdedd.GS_TAB)):
+        fp = np.asarray(fp, np.float64)
+        steps = seg[93 * n:93 * (n + 1)].reshape(31, 3)
+        for k in range(31):
+            for ns in range(3):
+                assert steps[k, ns] == float(fp[k + 1, ns] - fp[k, ns])
+    for k in range(31):
+        assert seg[279 + k] == 1.0 / float(xp[k + 1] - xp[k])
+    iops = tab[320:320 + niop].reshape(3, -1)
     for ns in range(3):
         k, w = jdedd._tune(jdedd.KI_DL_MN[ns], jdedd.WI_DL_MN[ns], 0.0, 0.15,
                            0.15)

@@ -28,6 +28,8 @@ from cice5_tpu_torch.models.radiation import dedd
 from cice5_tpu_torch.models.transport import remap as trm
 from cice5_tpu_torch.ops import check, evp_fused, kernels
 from cice5_tpu_torch.ops.evp_resident import tile_plan
+from test_torch_dedd_lanes import dedd_case
+from test_torch_remap_tiles import POND_TABLE, remap_case
 from torch_port_util import (PARITY_ISTEP, cuda_device,  # noqa: F401
                              parity_grid_arrays)
 
@@ -385,3 +387,87 @@ def test_evp_fused_kernel_branches_equal_plain_and_a(cuda_device, branch,
     a = check.evp_outputs(check.evp_on_plan(p, nd, topo, plan, **kw))
     assert check.worst(check.field_errors(plain, out))[2] == 0.0
     assert check.worst(check.field_errors(a, out))[2] == 0.0
+
+
+def _to(args, device):
+    """remap_flux_both's arguments on a device."""
+    mv = lambda t: t.to(device) if torch.is_tensor(t) else t
+    return tuple(tuple(mv(t) for t in a) if isinstance(a, tuple)
+                 and a and torch.is_tensor(a[0]) else mv(a) for a in args)
+
+
+def _edge_halves(args):
+    geomN, geomE, mm, tm, hm, tt, par, ny, nx = args
+    return (trm.remap_flux_edge("north", geomN, mm, tm, hm, tt, par, ny, nx)
+            + trm.remap_flux_edge("east", geomE, mm, tm, hm, tt, par, ny,
+                                  nx))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["bl99", "tripole"])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_remap_tiles_equal_edge_kernel_halves(cuda_device, model, dtype):
+    """Kernel B (csrc/remap_tiles.cu) repeats the arithmetic of kernel E
+    (the first version's device code) in the same order: its north and
+    east fluxes equal E's bit for bit, on captured model inputs with an
+    ice-free band."""
+    args = list((_captured if model == "bl99" else _captured_parity)(
+        cuda_device, dtype)["remap"])
+    args[2] = args[2].clone()
+    args[2][:, :10] = 0.0
+    got = trm.remap_flux_both(*args)
+    for b, e in zip(got, _edge_halves(args)):
+        assert torch.equal(b, e)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid_kind", ["open", "tripole"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_remap_tiles_pond_chain_matches_plain(cuda_device, grid_kind, dtype,
+                                              tol):
+    """Kernel B on the CPU schedule test's inputs (a pond chain of types
+    1, 2 and 3, an ice-free band and an ice-free category) within the
+    plain version's bounds, each flux on its own scale; the tiles out of
+    reach of ice exact zeros."""
+    args = _to(remap_case(grid_kind, dtype), cuda_device)
+    assert args[5] == POND_TABLE[0]
+    ref = check.remap_outputs(trm.remap_flux_plain(*args))
+    out = trm.remap_flux_both(*args)
+    assert check.worst(check.field_errors(
+        ref, check.remap_outputs(out)))[1] <= tol
+    assert all(bool((x[-1] == 0).all()) for x in out)   # no ice there
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_remap_tiles_skip_writes_exact_zeros(cuda_device, dtype):
+    """With no ice anywhere every block skips: all fluxes exact zeros,
+    whatever the tracers hold."""
+    args = list(_to(remap_case("open", dtype), cuda_device))
+    args[2] = torch.zeros_like(args[2])
+    for x in trm.remap_flux_both(*args):
+        assert bool((x == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nilyr", [4, 7])
+@pytest.mark.parametrize("scheme", ["lvl", "cesm", "topo"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 5e-5)])
+def test_dedd_lanes_match_plain(cuda_device, nilyr, scheme, dtype, tol):
+    """Kernel C (compacted lit columns, three lanes per column) within the
+    plain version's bounds for nilyr 4 and 7 and each pond setup, every
+    field and layer on its own scale, with exact zeros off the lit
+    columns."""
+    kw = {k: v.to(cuda_device) for k, v in dedd_case(dtype=dtype).items()}
+    kw.update(nilyr=nilyr, nslyr=1, pond_scheme=scheme)
+    assert _dedd_rel(kw) <= tol
+    out = dedd.shortwave_dEdd_ncat(**kw)
+    netsw = kw["swvdr"] + kw["swvdf"] + kw["swidr"] + kw["swidf"]
+    lit = (kw["aicen"] > ct.puny) & (netsw > ct.puny) & (kw["coszen"]
+                                                         > ct.puny)
+    assert 0 < int(lit.sum()) < lit.numel()
+    for x in out:
+        assert bool(((x if x.dim() == 3 else x.movedim(1, 0))[..., ~lit]
+                     == 0).all())

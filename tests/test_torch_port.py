@@ -235,15 +235,19 @@ def test_kernel_build_targets_hopper():
 def test_kernel_rebuilds_when_its_source_or_a_header_is_newer(tmp_path,
                                                                monkeypatch):
     """A library older than its .cu or than a csrc header the .cu includes
-    is rebuilt; the two EVP kernels share evp_point.cuh, and the
-    single-edge remap kernel is built from the merged remap source."""
+    is rebuilt; the two EVP kernels share one source and evp_point.cuh,
+    and the merged remap kernel is built from remap_tiles.cu, apart from
+    the single-edge one."""
     import os
     monkeypatch.setenv("CICE5_TORCH_BUILD_DIR", str(tmp_path))
     d, a = kernels.KERNELS["evp_fused"], kernels.KERNELS["evp_sweep"]
     assert [h.name for h in d.headers()] == ["evp_point.cuh"] == \
         [h.name for h in a.headers()]
-    e = kernels.KERNELS["remap_flux_edge"]
-    assert e.library == kernels.KERNELS["remap_flux_both"].library
+    assert d.library == a.library
+    assert kernels.KERNELS["remap_flux_both"].library.name == \
+        "libremap_tiles.so"
+    assert kernels.KERNELS["remap_flux_edge"].library.name == \
+        "libremap_flux_edge.so"
     assert d.needs_build()                       # no library yet
     header = d.headers()[0].stat().st_mtime
     newest = max(header, d.source.stat().st_mtime)

@@ -42,15 +42,24 @@ toolkit. Phases (any failure exits non-zero):
    float64 steps on the GPU (kernels) and on the CPU (plain versions)
    from one warmed-up state, for the BL99 model (with the EVP sweep, and
    with the fused EVP at ndte=10) and for the gx1-parity model on a small
-   tripole grid whose land touches the seam.
-4. Drive the main paths through ``Model.init_state`` and ``rollout`` with
-   the health guards of ``bench.py`` and a per-step timing cross-check:
+   tripole grid whose land touches the seam; and on the GPU, each model's
+   graph rollout (``Model.rollout`` replaying its CUDA graphs) against
+   its eager step (``driver.step.step``) at 0.0 in every State and
+   StepDiag field.
+4. Drive the main paths through ``Model.init_state`` and ``rollout`` (CUDA
+   graph replays after the first call's eager step and capture) with the
+   health guards of ``bench.py`` and a per-step timing cross-check:
    the gx1-parity model (``gx1_parity_config()`` on ``synth_gx1_grid``,
    320x384, float32, ndte=120; 10 timed steps), the BL99 + CCSM3 model of
    slice 1 (5 timed steps), and the same model with
    ``evp_algorithm="pallas"`` (the fused EVP kernel, 12 launches per
    step; 5 timed steps). For each, the launch counters are set to 0 just
-   before its timed rollout and read just after.
+   before its timed rollout and read just after (each replay adds the
+   launches its graphs' capture recorded). Then its ``graph`` phase: from
+   the warmed-up state, 3 eager steps against a 3-step graph rollout, at
+   0.0 in every State and StepDiag field (pass counts included), with
+   both ms/step, the host syncs per step of each, and the graph replays
+   and loop flag reads per step on one line.
 5. Print one JSON line with every kernel (launches from the gx1-parity
    main path, the fused kernel's from the fused path; times on the
    gx1-parity inputs, the fused kernel's on the BL99 ones), then the card
@@ -526,6 +535,8 @@ def small_reference_check(evp_algorithm="auto", ndte=8):
     ref, got = (mc.rollout(st, f, 2)[0],
                 mg.rollout(st.to("cuda"), f.to("cuda"), 2)[0])
     torch.cuda.synchronize()
+    graph_against_eager(mg, st.to("cuda"), f.to("cuda"),
+                        f"small float64 run ({evp_algorithm})")
     field, rel, err = check.worst(check.field_errors(
         {k: getattr(ref, k) for k in names},
         {k: getattr(got, k).cpu() for k in names}, axes={"trcrn": 1}))
@@ -536,6 +547,25 @@ def small_reference_check(evp_algorithm="auto", ndte=8):
     if not rel <= 3e-8:
         fail(f"small float64 run ({evp_algorithm}): {field} on the GPU "
              f"differs from the CPU by {rel:.3e} of its scale (> 3e-8)")
+
+
+def graph_against_eager(m, st, f, label, nsteps=2):
+    """``nsteps`` of ``m.rollout`` (graph replays: ``m`` has captured its
+    step) against as many eager steps on the GPU: every State and StepDiag
+    field at 0.0, pass counts included."""
+    import torch
+    from cice5_tpu_torch.driver.step import step as step_fn
+    ref = (st, None)
+    for _ in range(nsteps):
+        ref = step_fn(ref[0], f, *m.step_args)
+    got = m.rollout(st, f, nsteps)
+    torch.cuda.synchronize()
+    diff = state_and_diag_differences(ref, got)
+    print(f"{label}: graph rollout vs eager steps on the GPU ({nsteps} "
+          f"steps): fields that differ {diff or 'none'}")
+    if diff:
+        fail(f"{label}: the graph rollout differs from the eager step: "
+             f"{diff}")
 
 
 def dedd_args_with_band(kw):
@@ -620,25 +650,40 @@ def dedd_phase(kw64, kw32):
         fail("shortwave_dedd's CUDA graph replay differs from the eager call")
     plain_ms = cuda_time_ms(lambda: dedd.shortwave_dEdd_plain(**kw), reps=2)
     ncat, ny, nx = kw["aicen"].shape
+    bounds = {n: dedd_bound(dict(kw, nilyr=n)) for n in (4, 7)}
+    g7_ms, _ = graph_ms(lambda: dedd.shortwave_dEdd_ncat(**dict(kw, nilyr=7)),
+                        reps=50)
+    bound_ms, bound_by, what = bounds[kw["nilyr"]]
+    print(f"shortwave_dedd f32 at {ny}x{nx}, ncat={ncat}, nilyr="
+          f"{kw['nilyr']}: kernel {g_ms:.4f} ms in a CUDA graph (eager "
+          f"{ms:.4f} ms), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+          f"({what}); the same inputs at nilyr=7: kernel {g7_ms:.4f} ms in "
+          f"a CUDA graph, bound {bounds[7][0]:.4f} ms ({bounds[7][2]})",
+          flush=True)
+    return dict(err=errs["f32"], ms=g_ms, eager_ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def dedd_bound(kw):
+    """(bound ms, "bytes"/"operations", text) of the float32 dEdd kernel
+    on these inputs at their nilyr: every column reads aicen and writes
+    all its planes, every cell reads coszen and the four shortwave planes;
+    only a lit column reads the other five category inputs, and only a
+    cell with one reads fnidr. Operations: DEDD_OPS_LIT_COLUMN per lit
+    column at nilyr=4, and per further ice layer its three bands' layer
+    property sets (~480 operations each)."""
+    ncat, ny, nx = kw["aicen"].shape
     nout = 11 + kw["nslyr"] + 2 * kw["nilyr"] + 1
     lit = dedd_lit(kw)
     nlit, nlit_cells = int(lit.sum()), int(lit.any(0).sum())
-    # every column reads aicen and writes all its planes, every cell reads
-    # coszen and the four shortwave planes; only a lit column reads the
-    # other five category inputs, and only a cell with one reads fnidr
     nbytes = 4 * (ncat * ny * nx * (1 + nout) + 5 * ny * nx + 5 * nlit
                   + nlit_cells)
-    ops = DEDD_OPS_LIT_COLUMN * nlit
+    ops = (DEDD_OPS_LIT_COLUMN + 3 * 480 * (kw["nilyr"] - 4)) * nlit
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
-    print(f"shortwave_dedd f32 at {ny}x{nx}, ncat={ncat}, nilyr="
-          f"{kw['nilyr']}: kernel {g_ms:.4f} ms in a CUDA graph (eager "
-          f"{ms:.4f} ms), plain {plain_ms:.3f} ms, bound "
-          f"{1e3 * max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB, "
-          f"{nlit} lit columns in groups of 10, {ops / 1e9:.3f} G "
-          f"operations)", flush=True)
-    return dict(err=errs["f32"], ms=g_ms, eager_ms=ms, plain_ms=plain_ms,
-                bound_ms=1e3 * max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations",
+            f"{nbytes / 1e6:.1f} MB, {nlit} lit columns in groups of 10, "
+            f"{ops / 1e9:.3f} G operations")
 
 
 def small_parity_grid(cfg, device):
@@ -680,6 +725,8 @@ def parity_reference_check():
     ref, got = (mc.rollout(st, f, 2)[0],
                 mg.rollout(st.to("cuda"), f.to("cuda"), 2)[0].to("cpu"))
     torch.cuda.synchronize()
+    graph_against_eager(mg, st.to("cuda"), f.to("cuda"),
+                        "small float64 gx1-parity run")
     names = ("aicen", "vicen", "vsnon", "uvel", "vvel", "sst")
     amount = lambda s: tracer_weights(mc.tr, s.aicen, s.vicen, s.vsnon,
                                       s.trcrn) * s.trcrn
@@ -762,10 +809,81 @@ def main_path(label, build, nsteps, expect):
           f"{cfg.dtype} ndte={cfg.dyn.ndte}, {nsteps} timed steps: rollout "
           f"{dt_roll * 1e3:.3f} ms/step, per-step {dt_single * 1e3:.3f} "
           f"ms/step, {cells / dt_roll:.4e} cell-steps/s; ice fraction "
-          f"{frac:.4f}; {solver} passes {diag.niter_thermo}, ridging passes "
-          f"{diag.niter_ridge} in the last step; launches {launches}",
-          flush=True)
+          f"{frac:.4f}; {solver} passes {int(diag.niter_thermo)}, ridging "
+          f"passes {int(diag.niter_ridge)} in the last step; launches "
+          f"{launches}", flush=True)
+    graph_phase(label, m, st, forcing, 3)
     return launches
+
+
+def state_and_diag_differences(ref, got):
+    """{field: max abs difference} of every State and StepDiag field of
+    two (state, diag) pairs, pass counts included, that differs at all."""
+    import dataclasses
+    import torch
+    (sr, dr), (sg, dg) = ref, got
+    pairs = [(f.name, getattr(sr, f.name), getattr(sg, f.name))
+             for f in dataclasses.fields(sr)]
+    pairs += list(zip(dr._fields, dr, dg))
+    return {n: float((x.double() - y.double()).abs().max())
+            for n, x, y in pairs
+            if torch.is_tensor(x) and not torch.equal(x, y)}
+
+
+def graph_phase(label, m, st, forcing, nsteps):
+    """From one warmed-up state, ``nsteps`` steps through the eager step
+    (``driver.step.step``, one PyTorch launch per op, one host read per
+    loop pass) and through ``Model.rollout`` (CUDA graph replays): every
+    State and StepDiag field must agree at 0.0, pass counts included.
+    Prints both ms/step (host clock around work that ends in a
+    synchronize), the host syncs per step of each (``graph.HostSyncs``
+    over one more step of each, untimed), the graph replays and flag reads
+    per step, and the kernel launches of each run."""
+    import torch
+    from cice5_tpu_torch.driver import graph
+    from cice5_tpu_torch.driver.step import step as step_fn
+    from cice5_tpu_torch.ops import kernels
+    (g,) = m.graphs.values()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    ref = (st, None)
+    for _ in range(nsteps):
+        ref = step_fn(ref[0], forcing, *m.step_args)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) / nsteps * 1e3
+    eager_launches = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    replays, reads = g.replays, g.flag_reads
+    t0 = time.perf_counter()
+    got = m.rollout(st, forcing, nsteps)
+    torch.cuda.synchronize()
+    graph_ms = (time.perf_counter() - t0) / nsteps * 1e3
+    graph_launches = kernels.launch_counts()
+    replays = (g.replays - replays) / nsteps
+    reads = (g.flag_reads - reads) / nsteps
+    diff = state_and_diag_differences(ref, got)
+    with graph.HostSyncs() as eager_syncs:
+        step_fn(st, forcing, *m.step_args)
+        torch.cuda.synchronize()
+    with graph.HostSyncs() as graph_syncs:
+        m.rollout(st, forcing, 1)
+        torch.cuda.synchronize()
+    print(f"graph {label}: {nsteps} steps from one warmed-up state: eager "
+          f"{eager_ms:.3f} ms/step, graph {graph_ms:.3f} ms/step; host "
+          f"syncs per step eager {eager_syncs.syncs}, graph "
+          f"{graph_syncs.syncs}; graph replays per step {replays:.2f}, "
+          f"loop flag reads per step {reads:.2f} ({len(g.program)} graphs "
+          f"captured); launches eager {eager_launches}, graph "
+          f"{graph_launches}; passes of the last step "
+          f"{int(got[1].niter_thermo)} thermo, {int(got[1].niter_ridge)} "
+          f"ridging; fields that differ {diff or 'none'}", flush=True)
+    if diff:
+        fail(f"{label}: the graph rollout differs from the eager step: "
+             f"{diff}")
+    if eager_launches != graph_launches:
+        fail(f"{label}: the graph rollout counted launches "
+             f"{graph_launches}, the eager steps {eager_launches}")
 
 
 def build_parity():
@@ -802,8 +920,9 @@ def capture(build_model, dtype):
     """Kernel arguments of one step at the main path's shapes, after a
     warm-up step (velocities and stresses non-zero)."""
     from cice5_tpu_torch.ops import check
+    from cice5_tpu_torch.driver.step import step as step_fn
     m, st, f = build_model(dtype)
-    st, _ = m.step(st, f)
+    st, _ = step_fn(st, f, *m.step_args)
     return m.grid, check.capture_kernel_args(m, st, f)[1]
 
 

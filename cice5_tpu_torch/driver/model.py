@@ -4,8 +4,8 @@
 CICE_InitMod.F90:52 cice_init, CICE_RunMod.F90:37 CICE_Run and the default
 initial conditions of ice_init.F90:1475 set_state_var (ice at cold high
 latitudes with a parabolic ITD centred on hbar=3 m). ``Model`` runs on the
-GPU; the plain PyTorch path on the CPU is taken only when the caller asks
-for it with ``device="cpu"``.
+GPU, where its steps replay CUDA graphs; the plain PyTorch path on the
+CPU is taken only when the caller asks for it with ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ import torch
 from cice5_tpu_torch import constants as ct
 from cice5_tpu_torch.calendar import Calendar
 from cice5_tpu_torch.config import ModelConfig
+from cice5_tpu_torch.driver import graph
 from cice5_tpu_torch.driver.step import step as step_fn
 from cice5_tpu_torch.forcing import Forcing, idealized_polar_forcing
 from cice5_tpu_torch.grid import Grid, make_grid
@@ -176,7 +177,16 @@ class Model:
     ``device="cpu"`` to run the plain PyTorch path on the CPU.
     grid: optional pre-built Grid (moved to the device); defaults to
     ``make_grid(cfg)``. A POP/tripole configuration takes its grid from
-    the caller (``grid.synth_gx1_grid(cfg, device=...)`` for gx1)."""
+    the caller (``grid.synth_gx1_grid(cfg, device=...)`` for gx1).
+
+    On a CUDA device ``step`` and ``rollout`` replay the step captured as
+    CUDA graphs (``driver/graph.py``), once for each set of input shapes
+    and dtypes, at its first call: that call runs its first step eagerly,
+    captures, and replays the steps after it. A capture that fails
+    raises; nothing falls back to eager launches. On
+    the CPU they run the step eagerly. The eager step on any device is the
+    module function ``driver.step.step`` (``step(state, forcing,
+    *model.step_args)``)."""
 
     def __init__(self, cfg: ModelConfig, grid: Grid | None = None,
                  device=None):
@@ -188,14 +198,19 @@ class Model:
                     " pass device='cpu' to run the plain PyTorch path on "
                     "the CPU")
             device = "cuda"
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = device
         self.grid = make_grid(cfg, device=self.device) if grid is None \
             else grid.to(self.device)
         self.tr = build_tracer_registry(cfg)
         self.hin_max = itd.category_bounds(cfg.ncat, cfg.kitd, cfg.kcatbound)
-        self.salinz = thshared.salinity_profile(
-            cfg.nilyr, cfg.thermo.saltmax, cfg.thermo.nsal, cfg.thermo.msal)
+        # float64 on the device, so the step reads it in place
+        self.salinz = torch.as_tensor(thshared.salinity_profile(
+            cfg.nilyr, cfg.thermo.saltmax, cfg.thermo.nsal, cfg.thermo.msal),
+            dtype=torch.float64, device=self.device)
         self.topo = Topology(ew=cfg.grid.ew_boundary,
                              ns=cfg.grid.ns_boundary)
         self.calendar = Calendar(cfg.time.year_init, cfg.time.days_per_year,
@@ -203,6 +218,13 @@ class Model:
         sw = cfg.shortwave
         self.orb = shr_orb_params(sw.iyear_orb, eccen=sw.orb_eccen,
                                   obliq=sw.orb_obliq, mvelp=sw.orb_mvelp)
+        self.graphs: dict[tuple, graph.StepGraph] = {}
+
+    @property
+    def step_args(self) -> tuple:
+        """The arguments of ``driver.step.step`` after (state, forcing)."""
+        return (self.grid, self.cfg, self.tr, self.topo, self.hin_max,
+                self.salinz)
 
     def init_state(self, **kw) -> State:
         # slab-ocean runs start SST from the forcing's open-water SST
@@ -218,18 +240,61 @@ class Model:
             tlat=self.grid.TLAT, tlon=self.grid.TLON, orb=self.orb,
             device=self.device)
 
+    def _eager(self, state: State, forcing: Forcing):
+        return step_fn(state, forcing, *self.step_args)
+
+    def _graph(self, state: State, forcing: Forcing):
+        """(the StepGraph for these inputs, and (state, diag) of the eager
+        step run to capture it, or None when it was captured before)."""
+        key = graph.signature(state, forcing)
+        g = self.graphs.get(key)
+        if g is not None:
+            return g, None
+        bad = {d for *_, d in key if d != self.device}
+        if bad:
+            raise ValueError(f"inputs on {sorted(map(str, bad))} for a "
+                             f"model on {self.device}")
+        out = self._eager(state, forcing)
+        g = self.graphs[key] = graph.StepGraph(self._eager, state, forcing)
+        return g, out
+
     def step(self, state: State, forcing: Forcing):
-        return step_fn(state, forcing, self.grid, self.cfg, self.tr,
-                       self.topo, self.hin_max, self.salinz)
+        """One step. Returns (state, diag); on CUDA both are clones that
+        no later replay overwrites."""
+        if self.device.type != "cuda":
+            return self._eager(state, forcing)
+        g, out = self._graph(state, forcing)
+        if out is not None:
+            return out
+        g.load(state, forcing)
+        g.replay()
+        return g.result()
 
     def rollout(self, state: State, forcing, nsteps: int):
         """Advance nsteps. ``forcing`` is one Forcing held fixed, or a
         sequence of nsteps Forcings. Returns (state, diag of the last
-        step)."""
+        step). On CUDA the steps are graph replays that chain on the
+        device; a sequence's forcings are copied into the graph's buffers
+        one per step."""
         seq = forcing if isinstance(forcing, (list, tuple)) else None
         if seq is not None and len(seq) != nsteps:
             raise ValueError(f"{len(seq)} forcings for {nsteps} steps")
         diag = None
-        for k in range(nsteps):
-            state, diag = self.step(state, seq[k] if seq else forcing)
+        if self.device.type != "cuda":
+            for k in range(nsteps):
+                state, diag = self._eager(state, seq[k] if seq else forcing)
+            return state, diag
+        if nsteps == 0:
+            return state, diag
+        g, out = self._graph(state, seq[0] if seq else forcing)
+        start = 0
+        if out is not None:
+            (state, diag), start = out, 1
+        if start < nsteps:
+            g.load(state, None if seq else forcing)
+            for k in range(start, nsteps):
+                if seq:
+                    g.load(forcing=seq[k])
+                g.replay()
+            state, diag = g.result()
         return state, diag

@@ -16,6 +16,7 @@ JAX package's vmap written out. Radiation runs at the start of the step
 """
 from __future__ import annotations
 
+import weakref
 from typing import NamedTuple
 
 import torch
@@ -113,10 +114,24 @@ class StepDiag(NamedTuple):
     dagedtt: torch.Tensor       # age tendency from thermo (s/s)
     dagedtd: torch.Tensor       # age tendency from dynamics (s/s)
     opening: torch.Tensor
-    niter_thermo: int           # BL99 or mushy Picard passes (one host sync
-    #                             each)
-    niter_ridge: int            # ridging passes (one host sync after each
-    #                             beyond the first)
+    niter_thermo: torch.Tensor  # BL99 or mushy Picard passes (0-d int64)
+    niter_ridge: torch.Tensor   # ridging passes (0-d int64)
+
+
+# the smallest ocean-cell spacing of each grid, read from the device once
+# per grid: a captured step may read nothing from the device
+_MIN_SPACING: dict[int, tuple[weakref.ref, float]] = {}
+
+
+def _min_spacing(grid: Grid, topo: Topology) -> float:
+    """min(dxt, dyt) over the ocean (the revised EVP's xmin)."""
+    hit = _MIN_SPACING.get(id(grid.dxt))
+    if hit is None or hit[0]() is not grid.dxt:
+        xmin = float(global_min(torch.where(
+            grid.tmask, torch.minimum(grid.dxt, grid.dyt), float("inf")),
+            topo))
+        hit = _MIN_SPACING[id(grid.dxt)] = (weakref.ref(grid.dxt), xmin)
+    return hit[1]
 
 
 def _layers(trcrn, i0, n):
@@ -390,7 +405,7 @@ def step(state: State, forcing: Forcing, grid: Grid, cfg: ModelConfig,
     strength_d, prs_sig_d = z2(), z2()
     strintx_d, strinty_d, strtltx_d, strtlty_d = z2(), z2(), z2(), z2()
     strcorx_d, strcory_d = z2(), z2()
-    niter_ridge = 0
+    niter_ridge = torch.zeros((), dtype=torch.int64, device=kw["device"])
 
     def _mean_age(an, tc):
         if not cfg.tracers.tr_iage:
@@ -408,9 +423,7 @@ def step(state: State, forcing: Forcing, grid: Grid, cfg: ModelConfig,
     if cfg.dyn.kdyn >= 1:
         dt_dyn = dt / cfg.time.ndtd
         if cfg.dyn.revised_evp:
-            xmin = float(global_min(torch.where(
-                tmask, torch.minimum(grid.dxt, grid.dyt), float("inf")),
-                topo))
+            xmin = _min_spacing(grid, topo)
             p = dyn.EVPParams.revised(dt_dyn, cfg.dyn.ndte, xmin,
                                       cosw=cfg.dyn.cosw, sinw=cfg.dyn.sinw,
                                       e_ratio=cfg.dyn.e_ratio)

@@ -286,12 +286,6 @@ def _region_metrics(grid, topo, names):
     return out
 
 
-# the tripole fold swaps the stress corner partners NE<->SW, NW<->SE of
-# each of (stressp, stressm, stress12) (ice_dyn_evp.F90:416-481
-# ice_HaloUpdate_stress pairs)
-_TRIPOLE_STRESS_PERM = (2, 3, 0, 1, 6, 7, 4, 5, 10, 11, 8, 9)
-
-
 def _extend_stress(stress0, topo):
     """Seed the (12, ny+1, nx+1)-region ghost ring of the stress state; on
     a tripole seam the north ghost row holds the folded partner-corner
@@ -299,7 +293,11 @@ def _extend_stress(stress0, topo):
     E1 = extend(stress0, topo)
     if topo.ns != "tripole":
         return E1[:, 1:, 1:]
-    E2 = extend(stress0[list(_TRIPOLE_STRESS_PERM)], topo)
+    # the fold swaps the corner partners NE<->SW, NW<->SE of each of
+    # (stressp, stressm, stress12) (ice_dyn_evp.F90:416-481
+    # ice_HaloUpdate_stress pairs): components (2, 3, 0, 1) of each four
+    swapped = stress0.unflatten(0, (3, 2, 2)).flip(1).flatten(0, 2)
+    E2 = extend(swapped, topo)
     return torch.cat([E1[:, :-1, :], E2[:, -1:, :]], dim=1)[:, 1:, 1:]
 
 

@@ -5,8 +5,8 @@ ice_mechred.F90: ridge_ice (:101, iterate until the area is conserved),
 asum_ridging (:758), ridge_prep (:820), ridge_itd (:936, participation +
 ridge-ITD functions), ridge_shift (:1303), ridge_check (:2040). The donor
 (n) x receiver (nr) loops are a static ncat x ncat double loop of
-vectorized ops; the outer iteration is a Python loop whose exit test
-(any cell not yet conserved) costs one host sync per extra pass. The
+vectorized ops; the outer iteration (``ops/loop.py``) ends when every
+cell's area is conserved or after NITERMAX passes. The
 aerosol, topo-pond, BGC and per-category diagnostic bookkeeping belongs
 to options of later slices.
 """
@@ -19,6 +19,7 @@ import torch
 
 from cice5_tpu_torch import constants as ct
 from cice5_tpu_torch.models.thermo.itd import compute_tracers, tracer_weights
+from cice5_tpu_torch.ops.loop import while_loop
 from cice5_tpu_torch.state import (DEP_AICE, DEP_TRCR, DEP_VICE,
                                    TracerRegistry)
 
@@ -102,7 +103,7 @@ class RidgeResult(NamedTuple):
     fresh: torch.Tensor      # snow mass melted into the ocean (kg/m^2/s)
     fhocn: torch.Tensor      # heat flux to melt that snow (W/m^2)
     asum_err: torch.Tensor   # |asum - 1| after the final iteration
-    niter: int               # iterations taken (normally 1-2)
+    niter: torch.Tensor      # iterations taken (0-d int64; normally 1-2)
 
 
 def _chain_root_and_parents(tr: TracerRegistry, it):
@@ -125,25 +126,17 @@ def ridge_ice(dt, tr: TracerRegistry, hin_max, nilyr, nslyr, *, aicen,
     B = tuple(aicen.shape[1:])
     kw = dict(dtype=aicen.dtype, device=aicen.device)
 
-    # receiver dependency class of every slot; level-ice and pond tracers
-    # are lost in ridging (ice_mechred.F90 ridge_shift)
-    mA = [0.0] * tr.ntrcr
-    mV = [0.0] * tr.ntrcr
-    mS = [0.0] * tr.ntrcr
+    # receiver dependency class of every slot (its amount follows the
+    # ridged area "A", volume "V" or snow "S"); level-ice and pond tracers
+    # are lost in ridging (ice_mechred.F90 ridge_shift): None
+    share = []
     for it in range(tr.ntrcr):
         root, parents = _chain_root_and_parents(tr, it)
         if (tr.nt_alvl in parents or tr.nt_apnd in parents
                 or it == tr.nt_alvl or it == tr.nt_vlvl):
-            continue
-        if root == DEP_AICE:
-            mA[it] = 1.0
-        elif root == DEP_VICE:
-            mV[it] = 1.0
+            share.append(None)
         else:
-            mS[it] = 1.0
-    maskA = torch.tensor(mA, **kw).reshape(-1, *([1] * len(B)))
-    maskV = torch.tensor(mV, **kw).reshape(-1, *([1] * len(B)))
-    maskS = torch.tensor(mS, **kw).reshape(-1, *([1] * len(B)))
+            share.append({DEP_AICE: "A", DEP_VICE: "V"}.get(root, "S"))
     hmax = [float(h) for h in hin_max]
     hmax[ncat] = 1.0e8          # ridge_prep: all ridged ice thinner than top
 
@@ -156,7 +149,8 @@ def ridge_ice(dt, tr: TracerRegistry, hin_max, nilyr, nslyr, *, aicen,
     opning = closing_net + divu_adv
 
     z = torch.zeros(B, **kw)
-    c = dict(niter=0, aicen=aicen, vicen=vicen, vsnon=vsnon,
+    c = dict(niter=torch.zeros((), dtype=torch.int64, device=aicen.device),
+             aicen=aicen, vicen=vicen, vsnon=vsnon,
              atrcrn=tracer_weights(tr, aicen, vicen, vsnon, trcrn) * trcrn,
              aice0=aice0, closing_net=closing_net, opning=opning,
              done=torch.zeros(B, dtype=torch.bool, device=aicen.device),
@@ -164,8 +158,13 @@ def ridge_ice(dt, tr: TracerRegistry, hin_max, nilyr, nslyr, *, aicen,
     qs0, qs1 = tr.nt_qsno, tr.nt_qsno + nslyr
     eps_sum = 8.0 * torch.finfo(aicen.dtype).eps
 
-    def body(c):
-        active = ~c["done"]
+    def pending(c):
+        return (c["niter"] < NITERMAX) & (~c["done"]).any()
+
+    def body(c, go):
+        """One ridging pass (ops/loop.py): the cells whose area is not yet
+        conserved ridge, and none when ``go`` is False."""
+        active = ~c["done"] & go
         aicen, vicen, vsnon, atrcrn = (c["aicen"], c["vicen"], c["vsnon"],
                                        c["atrcrn"])
         aice0 = c["aice0"]
@@ -267,10 +266,11 @@ def ridge_ice(dt, tr: TracerRegistry, hin_max, nilyr, nslyr, *, aicen,
                 acc(d_aicen, nr, farea * ardg2n)
                 acc(d_vicen, nr, fvol * virdgn)
                 acc(d_vsnon, nr, fvol * vsrdgn * FSNOWRDG)
-                cA = farea * ardg2n / torch.clamp(a_init[n], min=ct.puny)
-                cV = fvol * afrac
-                cS = fvol * afrac * FSNOWRDG
-                coeff = maskA * cA[None] + maskV * cV[None] + maskS * cS[None]
+                frac = dict(A=farea * ardg2n / torch.clamp(a_init[n],
+                                                           min=ct.puny),
+                            V=fvol * afrac, S=fvol * afrac * FSNOWRDG)
+                coeff = torch.stack([z if cls is None else frac[cls]
+                                     for cls in share])
                 acc(d_atrcr, nr, coeff * atrcrn[n])
 
         stk = lambda lst, zz: torch.stack([d if d is not None else zz
@@ -286,16 +286,16 @@ def ridge_ice(dt, tr: TracerRegistry, hin_max, nilyr, nslyr, *, aicen,
         ok = torch.abs(asum2 - 1.0) < max(ct.puny, eps_sum)
         divadv = (1.0 - asum2) / dt
         return dict(
-            niter=c["niter"] + 1, aicen=aicen, vicen=vicen, vsnon=vsnon,
+            niter=c["niter"] + go, aicen=aicen, vicen=vicen, vsnon=vsnon,
             atrcrn=atrcrn, aice0=aice0,
             closing_net=torch.where(ok, 0.0, torch.clamp(-divadv, min=0.0)),
             opning=torch.where(ok, 0.0, torch.clamp(divadv, min=0.0)),
             done=c["done"] | ok, ardg1=ardg1_d, ardg2=ardg2_d,
             virdg=virdg_d, aopen=aopen, msnow_mlt=msnow, esnow_mlt=esnow)
 
-    c = body(c)
-    while c["niter"] < NITERMAX and bool((~c["done"]).any()):
-        c = body(c)
+    # the first pass always runs (ridge_ice's loop is a do-while)
+    c = while_loop(body, pending, body(c, torch.ones(
+        (), dtype=torch.bool, device=aicen.device)))
 
     trcrn_f = compute_tracers(tr, c["atrcrn"], c["aicen"], c["vicen"],
                               c["vsnon"])

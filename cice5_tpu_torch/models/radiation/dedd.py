@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from cice5_tpu_torch import constants as ct
+from cice5_tpu_torch.utils import device_values
 
 NSPINT = 3
 HS_SSL = 0.040       # snow surface scattering layer thickness (m)
@@ -259,7 +260,7 @@ def _layer_props(tau_k, w0_k, g_k, mu0n) -> LayerProps:
     R1, T1 = rdif_a, tdif_a
     swt = smr = smt = 0.0
     for mu_g, gwt in zip(GAUSPT, GAUSWT):
-        mu_s = safe_mu(torch.tensor(mu_g, dtype=ts.dtype, device=ts.device))
+        mu_s = safe_mu(torch.full((), mu_g, dtype=ts.dtype, device=ts.device))
         trn = torch.clamp(torch.exp(-ts / mu_s), min=EXP_MIN)
         alp = _alpha(ws, mu_s, gs, lm)
         gam = _agamm(ws, mu_s, gs, lm)
@@ -351,9 +352,10 @@ def _dedd_solution_cases(tau, w0, g, coszen, *, kfrsnl_cases,
     cshape = (C,) + (1,) * (tau.dim() - 2)
     mu0 = torch.broadcast_to(torch.clamp(coszen, min=0.01), tau.shape[1:])
     mu0n_below = torch.sqrt(1.0 - (1.0 - mu0 ** 2) / (REFINDX * REFINDX))
-    kf = torch.tensor(kfrsnl_cases, device=tau.device).reshape(cshape)
-    albodr = torch.tensor(albodr_cases, **kw).reshape(cshape)
-    albodf = torch.tensor(albodf_cases, **kw).reshape(cshape)
+    kf = device_values(kfrsnl_cases, dtype=torch.int64,
+                       device=tau.device).reshape(cshape)
+    albodr = device_values(albodr_cases, **kw).reshape(cshape)
+    albodf = device_values(albodf_cases, **kw).reshape(cshape)
     props = []
     for k in range(klev + 1):
         mu0n = torch.where(k >= kf, mu0n_below, mu0)
@@ -770,7 +772,7 @@ def shortwave_dEdd(*, nilyr, nslyr, aicen, vicen, vsnon, Tsfcn, apnd, hpnd,
 
     # open-ocean albedo under the ice: 0.01 visible, 0 near-IR
     shape_ref = torch.zeros((NSPINT,) + B, **kw)
-    albo = torch.tensor([0.01, 0.0, 0.0], **kw).reshape(
+    albo = device_values((0.01, 0.0, 0.0), **kw).reshape(
         (NSPINT,) + (1,) * len(B))
     part = dict(nilyr=nilyr, nslyr=nslyr, fnidr=fnidr, swvdr=swvdr,
                 swvdf=swvdf, swidr=swidr, swidf=swidf)

@@ -4,9 +4,10 @@ temperature_changes :51, conductivity :940,
 get_matrix_elements_calc_Tsfc :1172).
 
 Every cell of the batch is solved at once; cells that have converged are
-frozen by a mask while the others iterate. The loop ends when every cell
-has converged or after NITERMAX passes; reading that condition costs one
-device-to-host sync per pass in eager PyTorch.
+frozen by a mask while the others iterate. The loop (``ops/loop.py``)
+ends when every cell has converged or after NITERMAX passes: eagerly one
+host read of that condition per pass, in a captured step one per block of
+passes.
 
 Array convention: layer axis first after any leading batch axes of the
 scalars: zTin (nilyr, *B), zTsn (nslyr, *B), kh (nilyr+nslyr+1, *B). Only
@@ -20,6 +21,7 @@ import torch
 
 from cice5_tpu_torch import constants as ct
 from cice5_tpu_torch.models.thermo import shared
+from cice5_tpu_torch.ops.loop import while_loop
 from cice5_tpu_torch.ops.tridiag import tridiag_solve
 
 NITERMAX = 100          # reference uses 500; 100 suffices in practice
@@ -43,7 +45,7 @@ class BL99Result(NamedTuple):
     Sswabs: torch.Tensor
     Iswabs: torch.Tensor
     converged: torch.Tensor
-    niter: int                  # solver passes used (one host sync each)
+    niter: torch.Tensor         # solver passes used (0-d int64)
 
 
 def conductivity(l_snow, hilyr, hslyr, zTin, zSin, *, nilyr, nslyr,
@@ -220,20 +222,15 @@ def temperature_changes(dt, *, nilyr, nslyr, conduct, ksno, l_brine,
                 * torch.clamp(T_old, max=-ct.puny))
         return torch.full_like(T_new, ct.cp_ice)
 
-    # loop carry
-    c_Tsf, c_zTsn, c_zTin = Tsf, zTsn, zTin
-    c_zqsn = shared.snow_enthalpy(zTsn)
-    c_zqin = shared.ice_enthalpy(zTin, Tmlts, l_brine)
-    c_kh = kh
-    dTsf_prev = fzero
-    converged = ~mask
-    flwoutn = fsensn = flatn = fsurfn = fcondtopn = fcondbot = fzero
-    dflwout_dT = dfsens_dT = dflat_dT = einex_c = fzero
+    def pending(c):
+        return (c["niter"] < NITERMAX) & (~c["converged"]).any()
 
-    niter = 0
-    while niter < NITERMAX and bool((~converged).any()):
-        active = ~converged
-        niter += 1
+    def body(c, go):
+        """One solver pass (ops/loop.py): the cells not yet converged
+        move, and none when ``go`` is False."""
+        converged, niter = c["converged"], c["niter"] + go
+        c_Tsf, c_zTsn, c_zTin, c_kh = c["Tsf"], c["zTsn"], c["zTin"], c["kh"]
+        active = ~converged & go
         ci = brine_ci(c_zTin, Tin_init)
         etai = dt_rhoi_hlyr / ci
 
@@ -241,17 +238,17 @@ def temperature_changes(dt, *, nilyr, nslyr, conduct, ksno, l_brine,
             c_Tsf, fswsfc, rhoa, flw, potT, Qa, shcoef, lhcoef)
         dfsurf, dflwo, dfsen, dflat = shared.dsurface_heat_flux_dTsf(
             c_Tsf, rhoa, shcoef, lhcoef)
-        flwoutn = torch.where(active, flwo, flwoutn)
-        fsensn = torch.where(active, fsen, fsensn)
-        flatn = torch.where(active, flat, flatn)
-        fsurfn = torch.where(active, fsur, fsurfn)
-        dflwout_dT = torch.where(active, dflwo, dflwout_dT)
-        dfsens_dT = torch.where(active, dfsen, dfsens_dT)
-        dflat_dT = torch.where(active, dflat, dflat_dT)
+        flwoutn = torch.where(active, flwo, c["flwoutn"])
+        fsensn = torch.where(active, fsen, c["fsensn"])
+        flatn = torch.where(active, flat, c["flatn"])
+        fsurfn = torch.where(active, fsur, c["fsurfn"])
+        dflwout_dT = torch.where(active, dflwo, c["dflwout_dT"])
+        dfsens_dT = torch.where(active, dfsen, c["dfsens_dT"])
+        dflat_dT = torch.where(active, dflat, c["dflat_dT"])
 
         fct = torch.where(l_snow, c_kh[0] * (c_Tsf - c_zTsn[0]),
                           c_kh[nslyr] * (c_Tsf - c_zTin[0]))
-        fcondtopn = torch.where(active, fct, fcondtopn)
+        fcondtopn = torch.where(active, fct, c["fcondtopn"])
         Tsf_start = torch.where(
             active & (c_Tsf >= 0.0) & (fsurfn < fcondtopn), -ct.puny, c_Tsf)
         l_cold = Tsf_start < 0.0
@@ -268,6 +265,7 @@ def temperature_changes(dt, *, nilyr, nslyr, conduct, ksno, l_brine,
                               torch.where(l_snow, Tmat[0], Tmat[nslyr]),
                               0.0)
         dTsf = Tsf_new - Tsf_start
+        dTsf_prev = c["dTsf_prev"]
         cond1 = Tsf_new > ct.puny
         cond2 = ((niter > 1) & (Tsf_start <= -ct.puny)
                  & (torch.abs(dTsf) > ct.puny)
@@ -347,39 +345,48 @@ def temperature_changes(dt, *, nilyr, nslyr, conduct, ksno, l_brine,
         # frozen cells keep their previous values
         upd = lambda new, old: torch.where(active, new, old)
         updk = lambda new, old: torch.where(active[None], new, old)
-        c_Tsf = upd(Tsf_new, c_Tsf)
-        c_zTsn = updk(zTsn_new, c_zTsn)
-        c_zTin = updk(zTin_new, c_zTin)
-        c_zqsn = updk(zqsn_new, c_zqsn)
-        c_zqin = updk(zqin_new, c_zqin)
-        c_kh = updk(kh_new, c_kh)
-        dTsf_prev = upd(dTsf, dTsf_prev)
-        converged = converged | (conv & active)
-        fcondbot = upd(fcb, fcondbot)
-        einex_c = upd(einex, einex_c)
+        return dict(
+            Tsf=upd(Tsf_new, c_Tsf), zTsn=updk(zTsn_new, c_zTsn),
+            zTin=updk(zTin_new, c_zTin), zqsn=updk(zqsn_new, c["zqsn"]),
+            zqin=updk(zqin_new, c["zqin"]), kh=updk(kh_new, c_kh),
+            dTsf_prev=upd(dTsf, dTsf_prev),
+            converged=converged | (conv & active),
+            fcondbot=upd(fcb, c["fcondbot"]),
+            flwoutn=flwoutn, fsensn=fsensn, flatn=flatn, fsurfn=fsurfn,
+            fcondtopn=fcondtopn, dflwout_dT=dflwout_dT, dfsens_dT=dfsens_dT,
+            dflat_dT=dflat_dT, niter=niter)
+
+    c = while_loop(body, pending, dict(
+        Tsf=Tsf, zTsn=zTsn, zTin=zTin, zqsn=shared.snow_enthalpy(zTsn),
+        zqin=shared.ice_enthalpy(zTin, Tmlts, l_brine), kh=kh,
+        dTsf_prev=fzero, converged=~mask, fcondbot=fzero,
+        flwoutn=fzero, fsensn=fzero, flatn=fzero, fsurfn=fzero,
+        fcondtopn=fzero, dflwout_dT=fzero, dfsens_dT=fzero, dflat_dT=fzero,
+        niter=torch.zeros((), dtype=torch.int64, device=Tsf.device)))
 
     # post-loop flux correction (ice_therm_bl99.F90:905-918)
-    flwoutn = flwoutn + dTsf_prev * dflwout_dT
-    fsensn = fsensn + dTsf_prev * dfsens_dT
-    flatn = flatn + dTsf_prev * dflat_dT
+    dTsf_prev = c["dTsf_prev"]
+    flwoutn = c["flwoutn"] + dTsf_prev * c["dflwout_dT"]
+    fsensn = c["fsensn"] + dTsf_prev * c["dfsens_dT"]
+    flatn = c["flatn"] + dTsf_prev * c["dflat_dT"]
 
     m = mask
     return BL99Result(
-        Tsf=torch.where(m, c_Tsf, Tsf),
-        zqsn=torch.where(m[None], c_zqsn, shared.snow_enthalpy(zTsn)),
-        zTsn=torch.where(m[None], c_zTsn, zTsn),
-        zqin=torch.where(m[None], c_zqin,
+        Tsf=torch.where(m, c["Tsf"], Tsf),
+        zqsn=torch.where(m[None], c["zqsn"], shared.snow_enthalpy(zTsn)),
+        zTsn=torch.where(m[None], c["zTsn"], zTsn),
+        zqin=torch.where(m[None], c["zqin"],
                          shared.ice_enthalpy(zTin, Tmlts, l_brine)),
-        zTin=torch.where(m[None], c_zTin, zTin),
+        zTin=torch.where(m[None], c["zTin"], zTin),
         fsensn=torch.where(m, fsensn, 0.0),
         flatn=torch.where(m, flatn, 0.0),
         flwoutn=torch.where(m, flwoutn, 0.0),
-        fsurfn=torch.where(m, fsurfn, 0.0),
-        fcondtopn=torch.where(m, fcondtopn, 0.0),
-        fcondbot=torch.where(m, fcondbot, 0.0),
+        fsurfn=torch.where(m, c["fsurfn"], 0.0),
+        fcondtopn=torch.where(m, c["fcondtopn"], 0.0),
+        fcondbot=torch.where(m, c["fcondbot"], 0.0),
         fswsfc=torch.where(m, fswsfc, 0.0),
         fswint=torch.where(m, fswint, 0.0),
         Sswabs=torch.where(m[None], Sswabs, 0.0),
         Iswabs=torch.where(m[None], Iswabs, 0.0),
-        converged=converged | ~m,
-        niter=niter)
+        converged=c["converged"] | ~m,
+        niter=c["niter"])

@@ -489,8 +489,10 @@ def add_new_ice(dt, tr: TracerRegistry, hin_max, nilyr, *, aicen, vicen,
         salz_hs, salz_c1 = Si0new[None, None], Si0new[None]
         qi0_hs, qi0_c1 = qi0new[None, None], qi0new[None]
     else:
-        salinz = torch.as_tensor(np.array(salinz), dtype=aicen.dtype,
-                                 device=aicen.device)
+        # a tensor (the model's) is cast in place; host data is copied
+        salinz = torch.as_tensor(
+            salinz if torch.is_tensor(salinz) else np.array(salinz),
+            dtype=aicen.dtype, device=aicen.device)
         qi0new = -ct.rhoi * ct.Lfresh
         salz_hs = salinz.reshape((1, nilyr) + nb)
         salz_c1 = salinz.reshape((nilyr,) + nb)

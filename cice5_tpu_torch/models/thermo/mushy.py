@@ -11,9 +11,9 @@ Assur-liquidus constitutive relations (:3580-3924).
 Dense over any batch shape *B (here all categories at once), layer axis
 first. The four matrix layouts of the reference (snow x cold) are one
 padded (1+nslyr+nilyr) tridiagonal system per cell with masked dummy
-rows. The Picard iteration is a Python loop over the whole batch with
-per-cell convergence freezing; it ends when every cell has converged (one
-host sync per pass) or after ``nit_max`` passes, and reports its passes.
+rows. The Picard iteration runs over the whole batch with per-cell
+convergence freezing (``ops/loop.py``); it ends when every cell has
+converged or after ``nit_max`` passes, and reports its passes.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ import torch
 
 from cice5_tpu_torch import constants as ct
 from cice5_tpu_torch.models.thermo import shared as thsh
+from cice5_tpu_torch.ops.loop import while_loop
 from cice5_tpu_torch.ops.tridiag import tridiag_solve
 
 # Assur (1958) liquidus constants (ice_therm_mushy.F90:38-130)
@@ -313,7 +314,7 @@ class PicardResult(NamedTuple):
     flatn: torch.Tensor
     fsurfn: torch.Tensor
     converged: torch.Tensor
-    niter: int
+    niter: torch.Tensor         # Picard passes (0-d int64)
 
 
 def _drainage_heat(zTin, q, w, qocn, qpond, nilyr):
@@ -446,15 +447,14 @@ def picard_solver(dt, *, nilyr, nslyr, mask, lsnow, lcold,
         return (torch.stack(sb), torch.stack(dg), torch.stack(sp),
                 torch.stack(rh))
 
-    # the loop carries only the unknowns; every flux of the result is a
-    # function of the frozen Tsf/zTsn/zTin and is computed after the loop
-    c_Tsf = torch.where(lcold, Tsf, 0.0)
-    c_zTsn, c_zTin = zTsn, zTin
-    converged = ~mask
-    nit = 0
-    while nit < nit_max and bool((~converged).any()):
-        nit += 1
-        active = ~converged
+    def pending(c):
+        return (c["niter"] < nit_max) & (~c["converged"]).any()
+
+    def body(c, go):
+        """One Picard pass (ops/loop.py): the cells not yet converged
+        move, and none when ``go`` is False."""
+        c_Tsf, c_zTsn, c_zTin = c["Tsf"], c["zTsn"], c["zTin"]
+        active = ~c["converged"] & go
         T = tridiag_solve(*assemble(c_Tsf))
         Tsf_new = torch.where(lcold, torch.where(lsnow, T[0], T[nslyr]), 0.0)
         zTsn_new = torch.where(lsnow[None], T[1:1 + nslyr], 0.0)
@@ -477,11 +477,19 @@ def picard_solver(dt, *, nilyr, nslyr, mask, lsnow, lcold,
         conv = ((dTsf < dtemp_errmax_eff) & (dzTsn < dtemp_errmax_eff)
                 & (dzTin < dtemp_errmax_eff)
                 & (torch.abs(ferr) < 0.9 * ferrmax_eff))
+        return dict(Tsf=torch.where(active, Tsf_new, c_Tsf),
+                    zTsn=torch.where(active[None], zTsn_new, c_zTsn),
+                    zTin=torch.where(active[None], zTin_new, c_zTin),
+                    converged=c["converged"] | (conv & active),
+                    niter=c["niter"] + go)
 
-        c_Tsf = torch.where(active, Tsf_new, c_Tsf)
-        c_zTsn = torch.where(active[None], zTsn_new, c_zTsn)
-        c_zTin = torch.where(active[None], zTin_new, c_zTin)
-        converged = converged | (conv & active)
+    # the loop carries only the unknowns; every flux of the result is a
+    # function of the frozen Tsf/zTsn/zTin and is computed after the loop
+    c = while_loop(body, pending, dict(
+        Tsf=torch.where(lcold, Tsf, 0.0), zTsn=zTsn, zTin=zTin,
+        converged=~mask,
+        niter=torch.zeros((), dtype=torch.int64, device=Tsf.device)))
+    c_Tsf, c_zTsn, c_zTin = c["Tsf"], c["zTsn"], c["zTin"]
 
     zqin = enthalpy_mush_liquid_fraction(c_zTin, phi)
     zqsn = torch.where(lsnow[None], enthalpy_snow(c_zTsn), zqsn0)
@@ -499,7 +507,8 @@ def picard_solver(dt, *, nilyr, nslyr, mask, lsnow, lcold,
         zSin=zSin, fcondtop=torch.where(mask, fct, zero),
         fcondbot=torch.where(mask, fcb, zero),
         fadvheat=torch.where(mask, fadv, zero), flwoutn=flwo, fsensn=fsen,
-        flatn=flat_, fsurfn=fsur, converged=converged, niter=nit)
+        flatn=flat_, fsurfn=fsur, converged=c["converged"],
+        niter=c["niter"])
 
 
 # flood ice (snow-ice formation) + pond flushing
@@ -626,7 +635,7 @@ class MushyResult(NamedTuple):
     fadvocn: torch.Tensor
     snoice: torch.Tensor
     converged: torch.Tensor
-    niter: int                  # Picard passes of both stages
+    niter: torch.Tensor         # Picard passes of both stages (0-d)
 
 
 def temperature_changes_salinity(dt, *, nilyr, nslyr, mask,

@@ -153,9 +153,7 @@ def _edge_geometry(edge: str, dx, dy, afl, afr):
         vy = torch.stack([full(v[1]) for v in verts])
         xp[ng] = torch.where(mask[None], vx, xp[ng])
         yp[ng] = torch.where(mask[None], vy, yp[ng])
-        donor[ng] = torch.where(mask, torch.tensor(dn, dtype=torch.int32,
-                                                   device=dxl.device),
-                                donor[ng])
+        donor[ng] = torch.where(mask, dn, donor[ng])
         afact[ng] = torch.where(mask, af, afact[ng])
 
     CL = (xcl, ycl)

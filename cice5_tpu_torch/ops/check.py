@@ -23,10 +23,12 @@ _COMPONENT_AXIS = {"stress": 0, "fn_mtflx": 1, "fe_mtflx": 1,
 
 
 def capture_kernel_args(model, state, forcing):
-    """Run ``model.step(state, forcing)`` and return (new state, {"evp":
+    """Run the eager step (``driver.step.step``) of ``model`` on
+    (state, forcing) and return (new state, {"evp":
     (p, ndte, topo, kw), "remap": args, "dedd": kw}) with the arguments
     that ``evp.evp_sweep``, ``remap.remap_flux_both`` and (with dEdd
     shortwave) ``dedd.shortwave_dEdd_ncat`` received."""
+    from cice5_tpu_torch.driver.step import step
     from cice5_tpu_torch.models.dynamics import evp
     from cice5_tpu_torch.models.radiation import dedd
     from cice5_tpu_torch.models.transport import remap
@@ -48,7 +50,7 @@ def capture_kernel_args(model, state, forcing):
     evp.evp_sweep, remap.remap_flux_both = evp_cap, rm_cap
     dedd.shortwave_dEdd_ncat = sw_cap
     try:
-        state, _ = model.step(state, forcing)
+        state, _ = step(state, forcing, *model.step_args)
     finally:
         evp.evp_sweep, remap.remap_flux_both, dedd.shortwave_dEdd_ncat = orig
     return state, got

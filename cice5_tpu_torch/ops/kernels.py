@@ -211,6 +211,13 @@ def launch_counts() -> dict[str, int]:
     return {name: k.launches for name, k in KERNELS.items()}
 
 
+def add_launches(counts: dict[str, int]) -> None:
+    """Add ``counts`` to the kernels' launch counts: a CUDA graph replay
+    launches the kernels its capture recorded (``driver/graph.py``)."""
+    for name, n in counts.items():
+        KERNELS[name].launches += n
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0

@@ -9,16 +9,21 @@ tripole seam, on ``synth_gx1_grid``), float32, ndte=120, on the GPU;
 ``--evp-algorithm pallas`` takes the fused EVP sweep (kernel evp_fused)
 where the step does (not on the tripole seam). Prints one JSON line with
 
-- ``phase_ms``: wall time per step phase (column physics, strength, EVP,
-  transport, ridging, slab ocean, and the rest), each phase bracketed by
+- ``phase_ms``: wall time per step phase of the eager step
+  (``driver.step.step``; column physics, strength, EVP, transport,
+  ridging, slab ocean, and the rest), each phase bracketed by
   ``torch.cuda.synchronize()`` so that its device work is inside it;
   ``column_ms`` splits the column physics the same way (radiation,
-  vertical thermo; the rest of it is the tracers and the ITD);
-- ``ms_per_step`` without those syncs, for reference;
-- from ``torch.profiler`` over ``--steps`` steps: device kernel time and
-  launches per step for each hand-written kernel and for all other
-  (PyTorch) kernels, the device busy share of the wall time, and the
-  host syncs (``aten::_local_scalar_dense``) per step;
+  vertical thermo; the rest of it is the tracers and the ITD). The phase
+  wrappers patch module functions, so they time the eager step only;
+- ``eager`` and ``graph``: the eager step and ``Model.rollout``, whose
+  steps replay the step's CUDA graphs, each over ``--steps`` steps:
+  ``ms_per_step`` (host clock, no syncs inside), and from
+  ``torch.profiler`` device kernel time and kernels per step for each
+  hand-written kernel and for all other (PyTorch) kernels, the device
+  busy share of the wall time and the host syncs
+  (``aten::_local_scalar_dense``) per step; for ``graph`` also the graph
+  replays and loop flag reads per step;
 - the thermo solver's passes (BL99 or mushy Picard, both stages) and the
   ridging passes of the last step.
 
@@ -116,19 +121,20 @@ def main(argv=None):
         m = Model(cfg)
         st = m.init_state(ice_mask=m.grid.tmask)
     f = m.forcing_at(0)
-    st, _ = m.rollout(st, f, 2)
+    st, _ = m.rollout(st, f, 2)         # the first call captures the graphs
     torch.cuda.synchronize()
+    (g,) = m.graphs.values()
 
-    t0 = time.perf_counter()
-    st, diag = m.rollout(st, f, args.steps)
-    torch.cuda.synchronize()
-    ms_step = 1e3 * (time.perf_counter() - t0) / args.steps
+    def eager(st, n):
+        for _ in range(n):
+            st, diag = step_mod.step(st, f, *m.step_args)
+        return st, diag
 
     totals, column = defaultdict(float), defaultdict(float)
     undo = _timed_phases(totals, column)
     try:
         t0 = time.perf_counter()
-        st, _ = m.rollout(st, f, args.steps)
+        st, _ = eager(st, args.steps)
         torch.cuda.synchronize()
         ms_synced = 1e3 * (time.perf_counter() - t0) / args.steps
     finally:
@@ -140,38 +146,56 @@ def main(argv=None):
     column_ms["tracers_and_itd"] = phase_ms["column_physics"] \
         - sum(column_ms.values())
 
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    def profiled(run):
+        """Unsynced ms/step of ``run(st, steps)``, then one more run of it
+        under torch.profiler."""
         t0 = time.perf_counter()
-        st, _ = m.rollout(st, f, args.steps)
+        run(st, args.steps)
         torch.cuda.synchronize()
-        wall_prof = time.perf_counter() - t0
-    dev = defaultdict(lambda: [0.0, 0])
-    syncs = 0
-    for e in prof.events():
-        if e.name == "aten::_local_scalar_dense":
-            syncs += 1
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            key = next((v for k, v in OWN_KERNELS.items() if k in e.name),
-                       "pytorch")
-            if key == "evp_sweep" and args.evp_algorithm == "pallas":
-                key = "evp_fused"
-            dev[key][0] += e.time_range.elapsed_us() / 1e3   # us -> ms
-            dev[key][1] += 1
-    busy = sum(v[0] for v in dev.values())
+        ms_step = 1e3 * (time.perf_counter() - t0) / args.steps
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            _, diag = run(st, args.steps)
+            torch.cuda.synchronize()
+            wall_prof = time.perf_counter() - t0
+        dev = defaultdict(lambda: [0.0, 0])
+        syncs = 0
+        for e in prof.events():
+            if e.name == "aten::_local_scalar_dense":
+                syncs += 1
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                key = next((v for k, v in OWN_KERNELS.items()
+                            if k in e.name), "pytorch")
+                if key == "evp_sweep" and args.evp_algorithm == "pallas":
+                    key = "evp_fused"
+                dev[key][0] += e.time_range.elapsed_us() / 1e3   # us -> ms
+                dev[key][1] += 1
+        busy = sum(v[0] for v in dev.values())
+        return diag, dict(
+            ms_per_step=ms_step,
+            device_ms_per_step={k: v[0] / args.steps
+                                for k, v in dev.items()},
+            launches_per_step={k: v[1] / args.steps for k, v in dev.items()},
+            device_busy_share=busy / (1e3 * wall_prof),
+            host_syncs_per_step=syncs / args.steps)
+
+    _, eager_out = profiled(eager)
+    replays, reads = g.replays, g.flag_reads
+    diag, graph_out = profiled(lambda s, n: m.rollout(s, f, n))
+    graph_out.update(
+        replays_per_step=(g.replays - replays) / (2 * args.steps),
+        flag_reads_per_step=(g.flag_reads - reads) / (2 * args.steps),
+        graphs_captured=len(g.program))
     out = dict(
         config=args.config, evp_algorithm=args.evp_algorithm,
         grid=[args.ny, args.nx], steps=args.steps,
-        card=torch.cuda.get_device_name(0), ms_per_step=ms_step,
+        card=torch.cuda.get_device_name(0),
         ms_per_step_phase_synced=ms_synced, phase_ms=phase_ms,
-        column_ms=column_ms,
-        device_ms_per_step={k: v[0] / args.steps for k, v in dev.items()},
-        launches_per_step={k: v[1] / args.steps for k, v in dev.items()},
-        device_busy_share=busy / (1e3 * wall_prof),
-        host_syncs_per_step=syncs / args.steps,
-        thermo_passes_last_step=diag.niter_thermo,
-        ridging_passes_last_step=diag.niter_ridge)
+        column_ms=column_ms, eager=eager_out, graph=graph_out,
+        thermo_passes_last_step=int(diag.niter_thermo),
+        ridging_passes_last_step=int(diag.niter_ridge))
     print(json.dumps(out))
 
 

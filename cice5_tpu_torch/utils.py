@@ -41,6 +41,15 @@ def with_index(a: torch.Tensor, k, val) -> torch.Tensor:
     return a
 
 
+def device_values(values, *, dtype, device) -> torch.Tensor:
+    """A 1-D tensor of Python numbers, each written on the device by a fill
+    rather than copied from host memory, so that a CUDA graph capture
+    records it (``torch.tensor(values, device=...)`` is a host copy, which
+    a capture refuses)."""
+    return torch.stack([torch.full((), v, dtype=dtype, device=device)
+                        for v in values])
+
+
 def tensorclass(cls: type[T]) -> type[T]:
     """Decorator: frozen dataclass with ``.replace(**kw)`` and
     ``.to(device, dtype=None)``."""

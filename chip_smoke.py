@@ -60,7 +60,15 @@ toolkit. Phases (any failure exits non-zero):
    0.0 in every State and StepDiag field (pass counts included), with
    both ms/step, the host syncs per step of each, and the graph replays
    and loop flag reads per step on one line.
-5. Print one JSON line with every kernel (launches from the gx1-parity
+5. Drive the gx1-parity main path through the run loop (``Model.run``,
+   ``run_phase``): 8 steps with state checks, diagnostics, a history
+   stream of every available field and restarts, launch counters set to
+   0 just before and read just after; a restored run against the
+   continuous one at 0.0 in every State field; the history files read
+   back; ms/step of run with and without history beside rollout; and a
+   small float64 run on the card against the CPU's history. One ``run:``
+   JSON line.
+6. Print one JSON line with every kernel (launches from the gx1-parity
    main path, the fused kernel's from the fused path; times on the
    gx1-parity inputs, the fused kernel's on the BL99 ones), then the card
    line, then ``{"ok": true, "device": {...}}`` as the last line.
@@ -816,6 +824,247 @@ def main_path(label, build, nsteps, expect):
     return launches
 
 
+# history fields of a run that are rounding noise on cold surfaces (the
+# surface melt, held against a scale of at least 1) and the melt onset
+# date that tests that melt for > 0 (not compared across devices)
+MELT_NOISE = frozenset({"meltt", "melts", "fmeltt_ai", "fmelttn_ai"})
+ONSET = "mlt_onset"
+RUN_EXPECT = dict(evp_sweep=8, remap_flux_both=8, shortwave_dedd=8,
+                  evp_fused=0, remap_flux_edge=0)
+
+
+def _recording_stream():
+    """A HistoryStream class that keeps each step's aice (a clone on the
+    card) and the float64 averages of the last file it wrote."""
+    from cice5_tpu_torch.io import history as hist
+
+    class Recording(hist.HistoryStream):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.aice, self.last = [], {}
+
+        def accum(self, values, time):
+            self.aice.append(values["aice"].clone())
+            super().accum(values, time)
+
+        def averages(self, dims="2D"):
+            self.last[dims] = super().averages(dims)
+            return self.last[dims]
+    return Recording
+
+
+def _dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(path, n))
+               for n in os.listdir(path))
+
+
+def run_phase():
+    """The run loop (``Model.run``) on the gx1-parity main path, 320x384
+    float32, into a temporary directory: 8 steps with the diagnostics
+    every 4, a state check every step, a history stream of every
+    available field written every 4 steps and a restart every 4 steps,
+    with the launch counters set to 0 just before and read just after.
+    Then the exact restart through the graphs: 4 steps with a restart, a
+    fresh Model restored from the pointer file and 4 more steps must
+    equal the 8-step run at 0.0 in every State field. The history files
+    are read back: every variable finite, the second file's aice the mean
+    of the 4 steps' aice to 1 float32 ulp. Then ms/step of ``Model.run``
+    without history, with history accumulated (no file), with history
+    written every 4 steps, and of ``Model.rollout`` over the same 8
+    forcings, twice each in one call, and a small float64 run on the card
+    against the same run on the CPU."""
+    import dataclasses
+    import tempfile
+    import numpy as np
+    import torch
+    from scipy.io import netcdf_file
+    from cice5_tpu_torch.io import history as hist
+    from cice5_tpu_torch.io import restart as restart_mod
+    from cice5_tpu_torch.ops import kernels
+    from cice5_tpu_torch.state import State
+    Recording = _recording_stream()
+    quiet = lambda *a: None
+    m, st0, _ = build_parity()
+    fields = hist.available_fields(m.cfg, m.tr)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_run_") as tmp:
+        logs = []
+        stream = Recording(fields, freq="1", freq_n=4)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        full = m.run(st0, 8, diag_every=4, check_every=1, history=stream,
+                     history_dir=f"{tmp}/history", restart_every=4,
+                     restart_dir=f"{tmp}/full", log=logs.append)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) / 8 * 1e3
+        launches = kernels.launch_counts()
+        if launches != RUN_EXPECT:
+            fail(f"run: launches {launches}, expected {RUN_EXPECT}")
+        check_health(m, full, None, "run")
+        if sum("wrote history" in x for x in logs) != 2 or \
+                sum("istep" in x for x in logs) != 2:
+            fail(f"run: log {logs}")
+        # exact restart through the graphs
+        m.run(st0, 4, restart_every=4, restart_dir=f"{tmp}/half", log=quiet)
+        m2, _, _ = build_parity()
+        st4, meta = restart_mod.restore(pointer_dir=f"{tmp}/half")
+        out = m2.run(st4, 4, start_step=meta["istep"], log=quiet)
+        torch.cuda.synchronize()
+        restart_diff = max((float((getattr(out, f.name).double()
+                                   - getattr(full, f.name).double())
+                                  .abs().max())
+                            for f in dataclasses.fields(State)
+                            if getattr(full, f.name).numel()), default=0.0)
+        differ = [f.name for f in dataclasses.fields(State)
+                  if not torch.equal(getattr(out, f.name),
+                                     getattr(full, f.name))]
+        if differ or meta["istep"] != 4:
+            fail(f"run: the restored run differs from the continuous run "
+                 f"in {differ} (max abs diff {restart_diff:.3e}; restart "
+                 f"at istep {meta['istep']})")
+        # the history files
+        names = sorted(os.listdir(f"{tmp}/history"))
+        if len(names) != 2:
+            fail(f"run: history files {names}")
+        for name in names:
+            with netcdf_file(f"{tmp}/history/{name}", "r", mmap=False) as f:
+                for k, v in f.variables.items():
+                    if not np.isfinite(np.asarray(v[:])).all():
+                        fail(f"run: {name} {k} is not finite")
+                if name == names[1]:
+                    aice = np.asarray(f.variables["aice"][0])
+        acc = stream.aice[4].cpu().numpy()
+        for a in stream.aice[5:8]:
+            acc = acc + a.cpu().numpy()
+        mean = acc / np.float32(4)
+        aice_err = float(np.abs(aice - mean).max())
+        aice_ulp = float(np.spacing(np.float32(np.abs(mean).max())))
+        if not aice_err <= aice_ulp:
+            fail(f"run: the second file's aice differs from the mean of its "
+                 f"4 steps by {aice_err:.3e} (> 1 float32 ulp {aice_ulp:.3e})")
+        history_bytes = _dir_bytes(f"{tmp}/history")
+        restart_bytes = _dir_bytes(f"{tmp}/half") - os.path.getsize(
+            f"{tmp}/half/{restart_mod.POINTER_NAME}")
+
+        # ms/step, from the warmed-up state, graphs captured
+        forcings = [m.forcing_at(8 + k) for k in range(8)]
+        never = dict(freq="1", freq_n=10 ** 9)
+        ways = {
+            "run": lambda: m.run(full, 8, start_step=8, log=quiet),
+            "run_history_accumulated": lambda: m.run(
+                full, 8, start_step=8, log=quiet,
+                history=hist.HistoryStream(fields, **never)),
+            "run_history_written": lambda: m.run(
+                full, 8, start_step=8, log=quiet,
+                history=hist.HistoryStream(fields, freq="1", freq_n=4),
+                history_dir=f"{tmp}/timed"),
+            "rollout": lambda: m.rollout(full, forcings, 8)}
+        ms = {k: [] for k in ways}
+        for k in list(ways) + list(ways)[::-1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ways[k]()
+            torch.cuda.synchronize()
+            ms[k].append((time.perf_counter() - t0) / 8 * 1e3)
+    small = small_run_check()
+    line = dict(
+        path="gx1-parity", shape=[m.cfg.grid.ny, m.cfg.grid.nx],
+        dtype=m.cfg.dtype, ndte=m.cfg.dyn.ndte, steps=8, card=card_line(),
+        launches=launches,
+        ms_per_step_first_run_with_capture_diags_checks_history_restarts=(
+            first_ms),
+        ms_per_step=ms, history_fields=len(fields),
+        history_bytes_per_file=history_bytes // 2,
+        restart_bytes=restart_bytes, restart_max_abs_diff=restart_diff,
+        aice_average_max_abs_err=aice_err,
+        small_float64_gpu_vs_cpu=small)
+    print("run: " + json.dumps(line), flush=True)
+
+
+def small_run_check():
+    """A small float64 ``Model.run`` of the gx1-parity model (24x16
+    tripole grid with land on the seam, ndte=8, rain on the ice) on the
+    card and on the CPU from one warmed-up state (a step on the CPU): 2
+    steps, one history file each. Every float64 average within 3e-8 of
+    its field's scale (the surface-melt noise against a scale of at least
+    1, the melt onset date not compared), every float32 variable of the
+    files within that plus 1 float32 ulp of its scale. Returns the worst
+    average's relative difference."""
+    import dataclasses
+    import tempfile
+    import numpy as np
+    import torch
+    from scipy.io import netcdf_file
+    from cice5_tpu_torch.config import gx1_parity_config
+    from cice5_tpu_torch.driver.model import Model
+    from cice5_tpu_torch.forcing import idealized_polar_forcing
+    from cice5_tpu_torch.io import history as hist
+    Recording = _recording_stream()
+    cfg = gx1_parity_config()
+    cfg = cfg.replace(grid=dataclasses.replace(cfg.grid, ny=24, nx=16),
+                      dyn=dataclasses.replace(cfg.dyn, ndte=8),
+                      dtype="float64", accum_dtype="float64")
+    istep = 172 * 24 + 12
+
+    def rainy(m):
+        def provider(k, info):
+            f = idealized_polar_forcing(
+                m.grid.shape, info.yday, dtype=m.cfg.xp_dtype,
+                tlat=m.grid.TLAT, tlon=m.grid.TLON, orb=m.orb,
+                device=m.device)
+            return f.replace(frain=torch.full_like(f.frain, 2.0e-5))
+        return provider
+    models = {d: Model(cfg, grid=small_parity_grid(cfg, "cpu"), device=d)
+              for d in ("cpu", "cuda")}
+    for m in models.values():
+        m.forcing_provider = rainy(m)
+    st, _ = models["cpu"].step(models["cpu"].init_state(),
+                               models["cpu"].forcing_at(istep))
+    streams, worst = {}, (0.0, "")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_small_") as tmp:
+        for d, m in models.items():
+            streams[d] = Recording(hist.available_fields(cfg, m.tr),
+                                   freq="1", freq_n=2)
+            m.run(st.to(d), 2, start_step=istep + 1, log=lambda *a: None,
+                  history=streams[d], history_dir=f"{tmp}/{d}")
+        for dims, fl in streams["cpu"].groups.items():
+            a, b = streams["cpu"].last[dims], streams["cuda"].last[dims]
+            for i, f in enumerate(fl):
+                if f.name == ONSET:
+                    continue
+                scale = max(float(np.abs(a[i]).max(initial=0.0)),
+                            1.0 if f.name in MELT_NOISE else 1e-300)
+                rel = float(np.abs(a[i] - b[i]).max(initial=0.0)) / scale
+                worst = max(worst, (rel, f.name))
+        (name,) = os.listdir(f"{tmp}/cpu")
+        with netcdf_file(f"{tmp}/cpu/{name}", "r", mmap=False) as fa, \
+                netcdf_file(f"{tmp}/cuda/{name}", "r", mmap=False) as fb:
+            if list(fa.variables) != list(fb.variables):
+                fail("small float64 run: the history files' variables differ")
+            bad = []
+            # a file holds each average times its field's output scale
+            out = {f.name: f.scale for f in streams["cpu"].fields}
+            for k, va in fa.variables.items():
+                if k == ONSET:
+                    continue
+                x = np.asarray(va[:], np.float64)
+                y = np.asarray(fb.variables[k][:], np.float64)
+                scale = max(float(np.abs(x).max(initial=0.0)),
+                            out[k] if k in MELT_NOISE else 1e-300)
+                ulp = float(np.spacing(np.float32(scale)))
+                if not np.abs(x - y).max(initial=0.0) <= 3e-8 * scale + ulp:
+                    bad.append(k)
+    print(f"small float64 run (24x16 tripole, ndte=8, 2 steps after a warm-up "
+          f"step, a history file each): GPU vs CPU worst history average "
+          f"{worst[1]}: rel diff {worst[0]:.3e} (bound 3e-8 x the field's "
+          f"scale); file variables beyond 3e-8 x scale + 1 float32 ulp: "
+          f"{bad or 'none'}", flush=True)
+    if not worst[0] <= 3e-8 or bad:
+        fail(f"small float64 run: GPU history differs from the CPU's: "
+             f"{worst}, {bad}")
+    return dict(worst_field=worst[1], worst_rel_diff=worst[0])
+
+
 def state_and_diag_differences(ref, got):
     """{field: max abs difference} of every State and StepDiag field of
     two (state, diag) pairs, pass counts included, that differs at all."""
@@ -995,6 +1244,7 @@ def main():
     fused = main_path("BL99+CCSM3 fused EVP", build_bl99_fused, 5,
                       dict(evp_sweep=0, remap_flux_both=5, shortwave_dedd=0,
                            evp_fused=60, remap_flux_edge=0))
+    run_phase()
 
     line = {"kernels": [
         dict(name="evp_sweep", route="cuda",

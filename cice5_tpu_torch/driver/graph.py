@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -149,6 +150,12 @@ class StepGraph:
         self._pool = torch.cuda.graph_pool_handle()
         self._open = None
         torch.cuda.synchronize()
+        # destroy the graphs of dead models now: a model in a reference
+        # cycle (e.g. through its forcing_provider) waits for the cycle
+        # collector, and a collection during the capture would destroy
+        # its graphs there, which the capture refuses (torch.cuda.graph
+        # collects first for the same reason)
+        gc.collect()
         stream = torch.cuda.Stream()
         stream.wait_stream(torch.cuda.current_stream())
         try:

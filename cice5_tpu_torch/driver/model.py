@@ -6,8 +6,13 @@ initial conditions of ice_init.F90:1475 set_state_var (ice at cold high
 latitudes with a parabolic ITD centred on hbar=3 m). ``Model`` runs on the
 GPU, where its steps replay CUDA graphs; the plain PyTorch path on the
 CPU is taken only when the caller asks for it with ``device="cpu"``.
+``run_loop`` (``Model.run``) steps the model and, between the steps, reads
+the device for the state checks, the runtime diagnostics and the history
+and restart files (``io/``).
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -19,7 +24,11 @@ from cice5_tpu_torch.driver import graph
 from cice5_tpu_torch.driver.step import step as step_fn
 from cice5_tpu_torch.forcing import Forcing, idealized_polar_forcing
 from cice5_tpu_torch.grid import Grid, make_grid
+from cice5_tpu_torch.io import diagnostics as diag_mod
+from cice5_tpu_torch.io import history as hist_mod
+from cice5_tpu_torch.io import restart as restart_mod
 from cice5_tpu_torch.models.radiation.orbital import shr_orb_params
+from cice5_tpu_torch.models.restoring import edge_mask, restore_ice
 from cice5_tpu_torch.models.thermo import itd, shared as thshared
 from cice5_tpu_torch.parallel import Topology
 from cice5_tpu_torch.state import State, build_tracer_registry, zeros_state
@@ -228,13 +237,18 @@ class Model:
 
     def init_state(self, **kw) -> State:
         # slab-ocean runs start SST from the forcing's open-water SST
-        if "sst" not in kw and self.cfg.forcing.oceanmixed_ice:
+        if "sst" not in kw and self.cfg.forcing.oceanmixed_ice \
+                and self.forcing_provider is None:
             kw["sst"] = self.forcing_at(0).sst
         return init_state(self.cfg, self.grid, self.tr, self.hin_max,
                           self.salinz, **kw)
 
+    forcing_provider = None   # optional: callable(istep, info) -> Forcing
+
     def forcing_at(self, istep: int) -> Forcing:
         info = self.calendar.info(istep, self.cfg.time.dt)
+        if self.forcing_provider is not None:
+            return self.forcing_provider(istep, info)
         return idealized_polar_forcing(
             self.grid.shape, info.yday, dtype=self.cfg.xp_dtype,
             tlat=self.grid.TLAT, tlon=self.grid.TLON, orb=self.orb,
@@ -270,6 +284,11 @@ class Model:
         g.replay()
         return g.result()
 
+    def run(self, state: State, nsteps: int, **kw):
+        """Time loop (CICE_RunMod.F90:37-90 CICE_Run): step + diagnostics +
+        history accumulation/write + restart dumps (``run_loop``)."""
+        return run_loop(self, state, nsteps, **kw)
+
     def rollout(self, state: State, forcing, nsteps: int):
         """Advance nsteps. ``forcing`` is one Forcing held fixed, or a
         sequence of nsteps Forcings. Returns (state, diag of the last
@@ -298,3 +317,88 @@ class Model:
                 g.replay()
             state, diag = g.result()
         return state, diag
+
+
+def run_loop(m, state, nsteps: int, start_step: int = 0,
+             diag_every: int = 0, diag_fn=None, history=None,
+             history_dir: str = "history", restart_every: int = 0,
+             restart_dir: str = "restart", log=print,
+             check_every: int = 0, dump_last: bool = False):
+    """Driver time loop (CICE_RunMod.F90:37-90 CICE_Run): step + boundary
+    restoring + state health checks + runtime diagnostics + history
+    accumulation/write + restart dumps. ``m`` needs
+    .cfg/.grid/.tr/.topo/.calendar/.step/.forcing_at.
+
+    Each step is ``m.step`` (on CUDA a replay of the step's graphs); the
+    loop reads the device only between steps: the step's state_bad count
+    under ``check_every``, the diagnostics every ``diag_every`` steps, and
+    the history and restart files when they are written. History
+    accumulates on the device. Returns the final state."""
+    cfg = m.cfg
+    dtype = cfg.xp_dtype
+    if state.aicen.dtype != dtype:
+        raise ValueError(
+            f"a {state.aicen.dtype} state for a {dtype} model: restore it "
+            f"with restart.restore(..., dtype=model.cfg.xp_dtype)")
+    rest, mask = None, None
+    if cfg.forcing.restore_ice:
+        # the restoring state and the edge mask, made once for the run
+        rest = state
+        mask = edge_mask(state.aicen.shape[-2:], m.topo, dtype,
+                         state.aicen.device)
+    for k in range(nsteps):
+        istep = start_step + k
+        forcing = m.forcing_at(istep)
+        state, diag = m.step(state, forcing)
+        if rest is not None:
+            state = restore_ice(cfg.time.dt, cfg.forcing.trestore,
+                                state, rest, m.topo, mask)
+        info = m.calendar.info(istep + 1, cfg.time.dt)
+
+        if check_every:
+            # the in-step flag is computed inside the step every step
+            # (l_stop analog) — reading it costs one scalar sync
+            if int(diag.state_bad) > 0 or (istep % check_every == 0):
+                if not diag_mod.check_state(state, m.grid, m.tr, cfg.nilyr,
+                                            cfg.nslyr, istep=istep,
+                                            log=log):
+                    raise RuntimeError(
+                        f"check_state failed at istep {istep}: "
+                        f"{int(diag.state_bad)} bad state values "
+                        "(see log for the offending cell dump)")
+
+        if diag_every and (istep % diag_every == 0):
+            gd = diag_mod.compute_diags(state, m.grid, m.tr,
+                                        cfg.nilyr, cfg.nslyr)
+            log(diag_mod.format_diags(istep, gd))
+            if diag_fn is not None:
+                diag_fn(istep, state, diag)
+
+        if history is not None:
+            history.accum(hist_mod.diag_to_values(
+                diag, state, m.grid, tr=m.tr, forcing=forcing,
+                nilyr=cfg.nilyr, nslyr=cfg.nslyr), info.time)
+            if hasattr(history, "write_ready"):   # HistoryStreams
+                for fn in history.write_ready(m.grid, info, history_dir):
+                    log(f"wrote history {fn}")
+            elif history.ready(info):
+                fn = os.path.join(
+                    history_dir,
+                    f"iceh.{info.year:04d}-{info.month:02d}-"
+                    f"{info.mday:02d}-{info.sec:05d}.nc")
+                hist_mod.write_netcdf(history, m.grid, info, fn)
+                log(f"wrote history {fn}")
+
+        write_last = dump_last and k == nsteps - 1
+        if (restart_every and ((istep + 1) % restart_every == 0)) \
+                or write_last:
+            # dump_last: always checkpoint at job end regardless of the
+            # periodic schedule (setup_nml dump_last,
+            # input_templates/gx3/ice_in:21)
+            fn = os.path.join(
+                restart_dir,
+                f"iced.{info.year:04d}-{info.month:02d}-"
+                f"{info.mday:02d}-{info.sec:05d}.npz")
+            restart_mod.dump(state, fn, istep=istep + 1, time=info.time)
+            log(f"wrote restart {fn}")
+    return state

@@ -114,7 +114,8 @@ def idealized_polar_forcing(shape, yday: float, *, Tair_mean=-15.0,
     Qa = 0.0001 + 0.0003 * torch.clamp((TairC + 30.0) / 30.0, min=0.0)
     flw = longwave_parkinson_washington(bc(Tair), cldf)
     sss = f(sss_val)
-    fsnow = torch.where(TairC < 0, 3.0e-6, 0.0).to(dtype)
+    # (a where() of two Python numbers would round 3e-6 through float32)
+    fsnow = (TairC < 0).to(dtype) * 3.0e-6
     return Forcing(
         uatm=f(wind_speed), vatm=f(0.0), wind=f(wind_speed), zlvl=f(10.0),
         potT=bc(Tair), Tair=bc(Tair), Qa=bc(Qa), rhoa=f(1.3), flw=flw,

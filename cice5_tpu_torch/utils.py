@@ -10,6 +10,7 @@ from __future__ import annotations
 import dataclasses
 from typing import TypeVar
 
+import numpy as np
 import torch
 
 T = TypeVar("T")
@@ -31,6 +32,12 @@ def _to(self, device=None, dtype=None):
             v = v.to(device=device, dtype=cast)
         out[f.name] = v
     return dataclasses.replace(self, **out)
+
+
+def to_host(x) -> np.ndarray:
+    """A tensor (or array) as a host NumPy array: one copy from the
+    device."""
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
 
 def with_index(a: torch.Tensor, k, val) -> torch.Tensor:

@@ -190,11 +190,240 @@ def recorded_parity_key() -> str:
         return str(z["key"]) if "key" in z.files else ""
 
 
+# The run-loop reference of tests/test_torch_run.py: the JAX package's
+# run_loop (CICE_RunMod.F90:37-90) on the parity model above, from the
+# warmed-up state of PARITY_REFERENCE, RUN_NSTEPS steps with rain on the
+# ice (a forcing_provider), the runtime diagnostics, a state check every
+# step, a history stream of every available field and restarts, recorded
+# in RUN_REFERENCE under a hash of its inputs.
+RUN_REFERENCE = PARITY_REFERENCE.with_name("test_torch_run.npz")
+RUN_NSTEPS, RUN_START = 4, PARITY_ISTEP + 1
+RUN_KW = dict(diag_every=2, check_every=1, restart_every=2)
+RUN_HISTORY = dict(freq="1", freq_n=2)
+RAIN = 2.0e-5
+# history fields of these runs that are rounding noise: the surface melt of
+# their cold surfaces (1e-28 to 1e-11 of their units), held as
+# test_torch_parity_step.py holds every field, against a scale of at least
+# 1; and the melt onset date, which is set where that melt is above 0.0,
+# so a cell can take its date on one backend and not on another
+MELT_NOISE = frozenset({"meltt", "melts", "fmeltt_ai", "fmelttn_ai"})
+ONSET = "mlt_onset"
+
+
+def recording_stream(base):
+    """A subclass of ``base`` (either package's HistoryStream) that keeps
+    the float64 averages of every file it writes: ``files[k][dims]``."""
+    class Recording(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.files = []
+
+        def averages(self, dims="2D"):
+            a = super().averages(dims)
+            if dims == next(iter(self.groups)):
+                self.files.append({})
+            self.files[-1][dims] = a
+            return a
+    return Recording
+
+
+def run_log_key(line: str) -> str:
+    """A run_loop log line without the directories of the files it
+    names."""
+    import re
+    return re.sub(r"(wrote \w+ ).*/", r"\1", line)
+
+
+def make_run_reference() -> dict:
+    """Run the JAX package's run_loop from the recorded warmed-up parity
+    state. Returns {"out/<field>": final state, "hist<k>/<dims>": the
+    f64 averages of the k-th history file, "gd<istep>/<field>": the
+    GlobalDiags of each diagnostic step, "log": the log lines}."""
+    import dataclasses
+    import tempfile
+    from functools import partial
+    import jax.numpy as jnp
+    from cice5_tpu.driver.model import Model as JModel, run_loop
+    from cice5_tpu.driver.step import step as jstep_fn
+    from cice5_tpu.grid import popgrid_np
+    from cice5_tpu.io import diagnostics as jdiag, history as jhist
+    from cice5_tpu.state import State as JState
+    from cice5_tpu_torch.convert import config_from_dict
+
+    cfg = jax_config(config_from_dict(parity_config_dict()))
+    jm = JModel(cfg, grid=popgrid_np(cfg, *parity_grid_arrays()))
+    jm._jstep = jit_fast(partial(jstep_fn, cfg=jm.cfg, tr=jm.tr,
+                                 topo=jm.topo, hin_max=jm.hin_max,
+                                 salinz=jm.salinz))
+    forcing = jm._jforcing
+    jm.forcing_provider = lambda istep, info: forcing(info.yday).replace(
+        frain=jnp.full(jm.grid.shape, RAIN))
+    ref = load_parity_reference()
+    st = JState(**{f.name: jnp.asarray(ref[f"in/{f.name}"])
+                   for f in dataclasses.fields(JState)})
+    out, lines = {}, []
+
+    def diag_fn(istep, state, diag):
+        gd = jdiag.compute_diags(state, jm.grid, jm.tr, cfg.nilyr, cfg.nslyr)
+        for k, v in gd._asdict().items():
+            out[f"gd{istep}/{k}"] = np.asarray(v)
+
+    stream = recording_stream(jhist.HistoryStream)(
+        jhist.available_fields(cfg, jm.tr), **RUN_HISTORY)
+    with tempfile.TemporaryDirectory() as tmp:
+        final = run_loop(jm, st, RUN_NSTEPS, start_step=RUN_START,
+                         diag_fn=diag_fn, history=stream,
+                         history_dir=f"{tmp}/history",
+                         restart_dir=f"{tmp}/restart",
+                         log=lines.append, **RUN_KW)
+    for f in dataclasses.fields(final):
+        out[f"out/{f.name}"] = np.asarray(getattr(final, f.name))
+    for k, arrays in enumerate(stream.files):
+        for dims, a in arrays.items():
+            out[f"hist{k}/{dims}"] = a
+    out["log"] = np.array("\n".join(run_log_key(x) for x in lines))
+    return out
+
+
+def run_reference_key() -> str:
+    """SHA-256 of what the run reference depends on: the parity
+    reference's inputs (its starting state) and the recipe above."""
+    import hashlib
+    import inspect
+    h = hashlib.sha256(parity_reference_key().encode())
+    for fn in (make_run_reference, run_log_key, recording_stream,
+               jax_config):
+        h.update(inspect.getsource(fn).encode())
+    h.update(repr((RUN_NSTEPS, RUN_START, RUN_KW, RUN_HISTORY,
+                   RAIN)).encode())
+    return h.hexdigest()
+
+
+def load_run_reference() -> dict:
+    with np.load(RUN_REFERENCE) as z:
+        return {k: z[k] for k in z.files if k != "key"}
+
+
+def recorded_run_key() -> str:
+    with np.load(RUN_REFERENCE) as z:
+        return str(z["key"]) if "key" in z.files else ""
+
+
+
+# ---------------------------------------------------------------------
+# the port's parity model, and its objects handed to the JAX package
+# ---------------------------------------------------------------------
+
+def rainy_forcing(m):
+    """A forcing_provider for the port's model ``m``: its idealized
+    forcing with RAIN on the ice (the pond lid's "no fresh water" test
+    then never rests on rounding noise)."""
+    from cice5_tpu_torch.forcing import idealized_polar_forcing
+
+    def provider(istep, info):
+        f = idealized_polar_forcing(
+            m.grid.shape, info.yday, dtype=m.cfg.xp_dtype, tlat=m.grid.TLAT,
+            tlon=m.grid.TLON, orb=m.orb, device=m.device)
+        return f.replace(frain=torch.full_like(f.frain, RAIN))
+    return provider
+
+
+def port_parity_model(dtype="float64", device="cpu"):
+    """The port's Model of the parity test (parity_config_dict on the
+    parity grid) with rainy_forcing."""
+    from cice5_tpu_torch import convert
+    from cice5_tpu_torch.driver.model import Model
+    from cice5_tpu_torch.grid import popgrid_np
+    cfg = convert.config_from_dict(parity_config_dict(dtype))
+    m = Model(cfg, grid=popgrid_np(cfg, *parity_grid_arrays(),
+                                   device="cpu"), device=device)
+    m.forcing_provider = rainy_forcing(m)
+    return m
+
+
+def jax_config(cfg):
+    """The JAX package's ModelConfig with the fields of a port one."""
+    import dataclasses
+    from cice5_tpu import config as jconfig
+    return jconfig.ModelConfig(**{
+        k: (getattr(jconfig, type(getattr(jconfig.ModelConfig(), k))
+                    .__name__)(**v) if isinstance(v, dict) else v)
+        for k, v in dataclasses.asdict(cfg).items()})
+
+
+def jax_obj(cls, obj):
+    """A JAX State, Grid or Forcing (``cls``) with the arrays of a port
+    one."""
+    import dataclasses
+    import jax.numpy as jnp
+    from cice5_tpu_torch import convert
+    arrays = convert.to_numpy(obj)
+    return cls(**{f.name: (None if arrays.get(f.name) is None
+                           else jnp.asarray(arrays[f.name]))
+                  for f in dataclasses.fields(cls)})
+
+
+def jax_diag(diag):
+    """A JAX StepDiag from the port's, with the fields the port's lacks
+    filled as the JAX step fills them under EVP without BGC, aerosols,
+    formdrag or diag_mechred (cice5_tpu/driver/step.py:926-944,
+    1262-1294)."""
+    import jax.numpy as jnp
+    from cice5_tpu.driver.step import StepDiag as JStepDiag
+    from cice5_tpu_torch import convert
+    d = convert.to_numpy(diag)
+    ncat, ny, nx = d["fsurfn_ai"].shape
+    dt = d["aice"].dtype
+    z = np.zeros((ny, nx), dt)
+    fill = dict(e11=z, e12=z, e22=z, yieldstress11=z, yieldstress12=z,
+                yieldstress22=z, PP_net=z, grow_net=z,
+                transport_conserv_err=np.zeros((), dt),
+                transport_mono_bad=np.zeros((), np.int32),
+                faero_ocn=np.zeros((0, ny, nx), dt),
+                flux_bio=np.zeros((0, ny, nx), dt),
+                drag=np.zeros((0, ny, nx), dt),
+                rdgn=np.zeros((0, ncat, ny, nx), dt))
+    return JStepDiag(**{k: jnp.asarray(d[k] if k in d else fill[k])
+                        for k in JStepDiag._fields})
+
+
+def assert_same_history_file(a_path, b_path):
+    """Two history files with the same dimensions, variables, units, long
+    names and attributes, whose values agree within 1 float32 ulp of each
+    variable's scale (its largest magnitude in ``a_path``)."""
+    from scipy.io import netcdf_file
+    with netcdf_file(a_path, "r", mmap=False) as a, \
+            netcdf_file(b_path, "r", mmap=False) as b:
+        assert a.dimensions == b.dimensions
+        assert list(a.variables) == list(b.variables)
+        assert a.history == b.history
+        for name, va in a.variables.items():
+            vb = b.variables[name]
+            assert va.dimensions == vb.dimensions, name
+            assert va.typecode() == vb.typecode(), name
+            for att in ("units", "long_name"):
+                assert getattr(va, att, None) == getattr(vb, att, None), \
+                    (name, att)
+            x = np.asarray(va[:], np.float64)
+            y = np.asarray(vb[:], np.float64)
+            assert np.isfinite(y).all(), name
+            ulp = float(np.spacing(np.float32(np.abs(x).max(initial=0.0))))
+            assert np.abs(x - y).max(initial=0.0) <= ulp, name
+
+
 if __name__ == "__main__":
-    # python tests/torch_port_util.py: rewrite PARITY_REFERENCE from the
-    # JAX package (needs JAX with float64: JAX_ENABLE_X64=1)
+    # python tests/torch_port_util.py [run]: rewrite PARITY_REFERENCE, or
+    # with "run" RUN_REFERENCE (which starts from PARITY_REFERENCE), from
+    # the JAX package in float64
+    import sys
     import jax
     jax.config.update("jax_enable_x64", True)
-    np.savez_compressed(PARITY_REFERENCE, key=np.array(parity_reference_key()),
-                        **make_parity_reference())
-    print(f"wrote {PARITY_REFERENCE}")
+    if sys.argv[1:] == ["run"]:
+        np.savez_compressed(RUN_REFERENCE, key=np.array(run_reference_key()),
+                            **make_run_reference())
+        print(f"wrote {RUN_REFERENCE}")
+    else:
+        np.savez_compressed(PARITY_REFERENCE,
+                            key=np.array(parity_reference_key()),
+                            **make_parity_reference())
+        print(f"wrote {PARITY_REFERENCE}")

@@ -68,7 +68,31 @@ toolkit. Phases (any failure exits non-zero):
    back; ms/step of run with and without history beside rollout; and a
    small float64 run on the card against the CPU's history. One ``run:``
    JSON line.
-6. Print one JSON line with every kernel (launches from the gx1-parity
+6. Drive the coupled model (``driver.coupled.CoupledModel``) on the
+   ACCESS-OM 0.25-degree configuration (``auscom_025_phase``:
+   ``auscom_025_config(coupled_radiation=True)`` on ``synth_gx1_grid``,
+   1080x1440, float32, ndte=120, the default 70N/60S ice edge), its
+   callbacks handing NumPy host arrays in and out as an OASIS coupler
+   does (built beforehand from the port's forcing of each step): 2
+   warm-up coupled steps (the first an eager step and the capture), 4
+   timed ones with the launch counters set to 0 just before and read just
+   after (1 each of A, B and C per coupled step), the bench.py guards,
+   ``Model.rollout`` over the same forcings (ms/step, and its state equal
+   to the coupled run's at 0.0), ms per exchange (host to device of the
+   inbound fields, device to host of the outbound ones), peak device
+   memory beside the gx1-parity path's, the graph capture time; the graph
+   step against the eager step at 0.0 (``graph_phase``, 2 steps); kernels
+   A (device-memory branch), B and C against their plain versions on
+   inputs captured at 1080x1440, with their times and bounds. One
+   ``auscom_025:`` JSON line.
+7. Hold A and D with a form-drag Cw plane (``neutral_drag_coeffs`` of the
+   captured gx1-parity and BL99 states) against their plain versions (in
+   phase 2's order), and run a small float64 coupled model with every
+   coupled-mode option (coupled_radiation, formdrag, highfreq,
+   fbot_xfer_type="Cdn_ocn") on the card and on the CPU within 3e-8 of
+   scale, its graph rollout equal to the eager step at 0.0 and a restart
+   after 2 steps through the graphs equal to the continuous run at 0.0.
+8. Print one JSON line with every kernel (launches from the gx1-parity
    main path, the fused kernel's from the fused path; times on the
    gx1-parity inputs, the fused kernel's on the BL99 ones), then the card
    line, then ``{"ok": true, "device": {...}}`` as the last line.
@@ -1135,6 +1159,453 @@ def graph_phase(label, m, st, forcing, nsteps):
              f"{graph_launches}, the eager steps {eager_launches}")
 
 
+# the fields an atmosphere and an ocean model send the ice
+# (driver/coupled.py ATM_FIELDS and OCN_FIELDS, fsw as its four bands)
+ATM_SENT = ("swvdr", "swvdf", "swidr", "swidf", "flw", "Tair", "potT", "Qa",
+            "rhoa", "uatm", "vatm", "wind", "zlvl", "fsnow", "frain")
+OCN_SENT = ("sst", "sss", "uocn", "vocn", "ss_tltx", "ss_tlty", "frzmlt",
+            "qdp", "hmix")
+
+
+def host_exchanges(forcing_at, steps):
+    """{istep: (atm, ocn)}: the forcing ``forcing_at(istep)`` of each step
+    as the NumPy host arrays a coupler hands over, built before any
+    timing."""
+    out = {}
+    for k in steps:
+        f = forcing_at(k)
+        out[k] = ({n: getattr(f, n).cpu().numpy() for n in ATM_SENT},
+                  {n: getattr(f, n).cpu().numpy() for n in OCN_SENT})
+    return out
+
+
+def coupled_model(m, ex, record=None, timing=None, **kw):
+    """A CoupledModel of ``m`` whose callbacks hand over the NumPy fields
+    of ``ex`` (host_exchanges) and copy the outbound tensors to NumPy, as
+    an OASIS coupler takes host buffers; with ``timing`` the host-to-device
+    merge of the inbound fields and the device-to-host copy of the
+    outbound ones are timed (each after a synchronize)."""
+    import torch
+    from cice5_tpu_torch.driver.coupled import CoupledModel
+    dt = m.cfg.time.dt
+
+    class Timed(CoupledModel):
+        def _merge(self, updates, allowed):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super()._merge(updates, allowed)
+            torch.cuda.synchronize()
+            if timing is not None:
+                timing["h2d"].append(time.perf_counter() - t0)
+
+    def put_ocn(t, out):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = {k: v.cpu().numpy() for k, v in out.items()}
+        if timing is not None:
+            timing["d2h"].append(time.perf_counter() - t0)
+        if record is not None:
+            record[t] = host
+
+    step_of = lambda t: int(round(t / dt))
+    return Timed(model=m, get_atm=lambda t: ex[step_of(t)][0],
+                 get_ocn=lambda t: ex[step_of(t)][1], put_ocn=put_ocn, **kw)
+
+
+def merged_forcings(m, ex, steps):
+    """The forcing a CoupledModel of ``m`` steps with after the exchanges
+    of ``steps`` (host_exchanges), on the device: what ``Model.rollout``
+    gets to run the same steps."""
+    from cice5_tpu_torch.driver.coupled import CoupledModel
+    cm = CoupledModel(model=m)
+    out = []
+    for k in steps:
+        cm.from_atm(ex[k][0])
+        cm.from_ocn(ex[k][1])
+        out.append(cm._forcing)
+    return out
+
+
+def auscom_025_phase(gx1_peak, nwarm=2, nsteps=4):
+    """The coupled model on the ACCESS-OM 0.25-degree configuration
+    (phase 6 of the module docstring). Prints one ``auscom_025:`` JSON
+    line."""
+    import gc
+    import torch
+    from cice5_tpu_torch.config import auscom_025_config
+    from cice5_tpu_torch.driver.model import Model
+    from cice5_tpu_torch.grid import synth_gx1_grid
+    from cice5_tpu_torch.ops import check, kernels
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = auscom_025_config(coupled_radiation=True)  # 1080x1440 f32 ndte=120
+    label = "auscom_025 coupled"
+    t0 = time.perf_counter()
+    m = Model(cfg, grid=synth_gx1_grid(cfg, device="cuda"))
+    kernels.reset_launch_counts()
+    st = m.init_state()               # prefill_radiation: one C launch
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_launches = kernels.launch_counts()
+    steps = range(nwarm + nsteps)
+    ex = host_exchanges(m.forcing_at, steps)
+    inbound = sum(a.nbytes for d in ex[0] for a in d.values())
+    timing = {"h2d": [], "d2h": []}
+    outbound = {}
+    cm = coupled_model(m, ex, record=outbound, timing=timing)
+    t0 = time.perf_counter()
+    st, diag = cm.run(st, 1)          # eager step + capture
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    (g,) = m.graphs.values()
+    st, diag = cm.run(st, nwarm - 1, start_step=1)
+    torch.cuda.synchronize()
+    check_health(m, st, diag, f"{label} post-warmup")
+    st_warm = st
+    timing = {"h2d": [], "d2h": []}
+    cm = coupled_model(m, ex, record=outbound, timing=timing)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    st, diag = cm.run(st, nsteps, start_step=nwarm)
+    torch.cuda.synchronize()
+    coupled_ms = (time.perf_counter() - t0) / nsteps * 1e3
+    launches = kernels.launch_counts()
+    frac = check_health(m, st, diag, f"{label} post-timing")
+    expect = dict(evp_sweep=nsteps, remap_flux_both=nsteps,
+                  shortwave_dedd=nsteps, evp_fused=0, remap_flux_edge=0)
+    if launches != expect:
+        fail(f"{label}: launches {launches}, expected {expect}")
+    if len(outbound) != nwarm + nsteps or not all(
+            np_finite(v) for v in outbound[max(outbound)].values()):
+        fail(f"{label}: outbound exchanges {sorted(outbound)}")
+    out_bytes = sum(v.nbytes for v in outbound[max(outbound)].values())
+    # Model.rollout over the same forcings, from the same state
+    fl = merged_forcings(m, ex, range(nwarm, nwarm + nsteps))
+    roll_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st_r, d_r = m.rollout(st_warm, fl, nsteps)
+        torch.cuda.synchronize()
+        roll_ms.append((time.perf_counter() - t0) / nsteps * 1e3)
+    same = state_and_diag_differences((st, diag), (st_r, d_r))
+    if same:
+        fail(f"{label}: the coupled run differs from Model.rollout over the "
+             f"same forcings: {same}")
+    peak = torch.cuda.max_memory_allocated()
+    h2d_ms = sum(timing["h2d"]) / nsteps * 1e3
+    d2h_ms = sum(timing["d2h"]) / nsteps * 1e3
+    cells = cfg.grid.nx * cfg.grid.ny
+    print(f"main path {label} on {card_line()}: {cfg.grid.ny}x{cfg.grid.nx} "
+          f"{cfg.dtype} ndte={cfg.dyn.ndte}, {nsteps} timed coupled steps: "
+          f"{coupled_ms:.3f} ms/step ({cells / coupled_ms * 1e3:.4e} "
+          f"cell-steps/s), Model.rollout over the same forcings "
+          f"{roll_ms[0]:.3f} / {roll_ms[1]:.3f} ms/step (its state equal to "
+          f"the coupled run's); exchange per step: inbound {inbound / 1e6:.1f}"
+          f" MB host to device {h2d_ms:.3f} ms, outbound {out_bytes / 1e6:.1f}"
+          f" MB device to host {d2h_ms:.3f} ms; ice fraction {frac:.4f}; "
+          f"launches {launches}; peak device memory "
+          f"{peak / 2**30:.2f} GiB (gx1-parity path {gx1_peak / 2**30:.2f} "
+          f"GiB); capture {g.capture_seconds:.2f} s, first step (eager + "
+          f"capture) {first_s:.2f} s", flush=True)
+    graph_phase(label, m, st, fl[-1], 2)
+    ks = auscom_kernels(m, st, fl[-1], launches)
+    line = dict(
+        path="auscom_025 coupled", shape=[cfg.grid.ny, cfg.grid.nx],
+        dtype=cfg.dtype, ndte=cfg.dyn.ndte, card=card_line(),
+        warmup_steps=nwarm, timed_steps=nsteps,
+        ms_per_coupled_step=coupled_ms, cell_steps_per_s=cells / coupled_ms
+        * 1e3, rollout_ms_per_step=roll_ms,
+        exchange_ms_per_step=dict(host_to_device=h2d_ms,
+                                  device_to_host=d2h_ms),
+        exchange_bytes_per_step=dict(inbound=inbound, outbound=out_bytes),
+        launches=launches, launches_at_init=init_launches,
+        ice_fraction=frac, peak_memory_bytes=peak,
+        gx1_parity_peak_memory_bytes=gx1_peak,
+        capture_s=g.capture_seconds, first_step_s=first_s, init_s=init_s,
+        graphs_captured=len(g.program), kernels=ks)
+    print("auscom_025: " + json.dumps(line), flush=True)
+
+
+def np_finite(a) -> bool:
+    import numpy as np
+    return bool(np.isfinite(a).all())
+
+
+def timed_call(fn):
+    """(fn(), its ms between two CUDA events)."""
+    import torch
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def auscom_kernels(m, st, forcing, launches):
+    """Kernels A, B and C at 1080x1440 float32 on the arguments of one
+    coupled step (``check.capture_kernel_args``), against their plain
+    versions with the tolerances of phase 2 (A 1e-5, B 1e-5 and 2e-5 for
+    the remapped fields, each field on its own scale); A must run its
+    device-memory branch. C is held in float64 to 1e-12 and in float32
+    against the float64 result (``dedd_full_size_check``). Each kernel's
+    time is a CUDA graph replay of one call; the plain version's the
+    reference call's own."""
+    import torch
+    from cice5_tpu_torch.models.dynamics import evp as tevp
+    from cice5_tpu_torch.models.radiation import dedd
+    from cice5_tpu_torch.models.transport import remap as trm
+    from cice5_tpu_torch.ops import check, kernels
+    _, cap = check.capture_kernel_args(m, st, forcing)
+    out, bad = {}, []
+    # A: the EVP sweep on the device-memory branch
+    p, ndte, topo, kw = cap["evp"]
+    (ny, nx), dtype = kw["uvel"].shape, kw["uvel"].dtype
+    plan = kernels.evp_plan(ny, nx, dtype, kw["uvel"].device)
+    ref, plain_ms = timed_call(lambda: tevp.subcycle_sweep(p, ndte, topo,
+                                                           **kw))
+    got = tevp.evp_sweep(p, ndte, topo, **kw)
+    field, rel, err = check.worst(check.field_errors(
+        check.evp_outputs(ref), check.evp_outputs(got)))
+    del ref
+    ms, _ = graph_ms(lambda: tevp.evp_sweep(p, ndte, topo, **kw), reps=10)
+    bound = evp_bound(kw, ndte)
+    print(f"evp_sweep auscom_025 f32 ndte={ndte} at {ny}x{nx}: plan "
+          f"{plan.describe()}; vs subcycle_sweep max abs diff {err:.3e}, "
+          f"worst field {field}: rel diff {rel:.3e} (bound 1e-5 x the "
+          f"field's scale); kernel {ms:.4f} ms in a CUDA graph, plain "
+          f"{plain_ms:.1f} ms, bound {bound[0]:.4f} ms ({bound[2]})",
+          flush=True)
+    if plan.branch != "device" or not rel <= 1e-5:
+        bad.append("evp_sweep")
+    out["evp_sweep"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                            bound_by=bound[1], max_abs_err=err,
+                            launches=launches["evp_sweep"],
+                            plan=plan.describe())
+    # B: the remap flux kernel
+    args = cap["remap"]
+    ref, plain_ms = timed_call(lambda: trm.remap_flux_plain(*args))
+    got = trm.remap_flux_both(*args)
+    field, rel, err = check.worst(check.field_errors(
+        check.remap_outputs(ref), check.remap_outputs(got)))
+    mm, tm = args[2][:, 2:-2, 2:-2], args[3][:, :, 2:-2, 2:-2]
+    upd = [trm._update(m.grid, mm=mm, tm=tm, fn_mflx=f[0], fn_mtflx=f[1],
+                       fe_mflx=f[2], fe_mtflx=f[3], tracer_type=args[5],
+                       parent=args[6]) for f in (ref, got)]
+    field_u, rel_u, _ = check.worst(check.field_errors(
+        dict(mm=upd[0][0], tm=upd[0][1]), dict(mm=upd[1][0], tm=upd[1][1]),
+        axes={"tm": 1}))
+    del ref, upd
+    ms, _ = graph_ms(lambda: trm.remap_flux_both(*args), reps=20)
+    bound = remap_bound(args, ("north", "east"))
+    ncat, ntrace = args[3].shape[:2]
+    print(f"remap_flux_both auscom_025 f32 at {ny}x{nx}, ncat={ncat}, "
+          f"ntrace={ntrace}: vs remap_flux_plain max abs diff {err:.3e}, "
+          f"worst flux {field}: rel diff {rel:.3e} (bound 1e-5); worst "
+          f"remapped field {field_u}: rel diff {rel_u:.3e} (bound 2e-5); "
+          f"kernel {ms:.4f} ms in a CUDA graph, plain {plain_ms:.1f} ms, "
+          f"bound {bound[0]:.4f} ms ({bound[2]})", flush=True)
+    if not (rel <= 1e-5 and rel_u <= 2e-5):
+        bad.append("remap_flux_both")
+    out["remap_flux_both"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                                  bound_by=bound[1], max_abs_err=err,
+                                  launches=launches["remap_flux_both"])
+    # C: delta-Eddington on the state after dynamics (coupled ordering)
+    kw = cap["dedd"]
+    c = dedd_full_size_check(kw)
+    ms, _ = graph_ms(lambda: dedd.shortwave_dEdd_ncat(**kw), reps=20)
+    bound = dedd_bound(kw)
+    print(f"shortwave_dedd auscom_025 at {ny}x{nx}: float64 vs "
+          f"shortwave_dEdd_plain worst field {c['f64'][0]}: rel diff "
+          f"{c['f64'][1]:.3e} (bound 1e-12); float32 vs the plain float32 "
+          f"worst field {c['f32'][0]}: rel diff {c['f32'][1]:.3e}; against "
+          f"the float64 result the kernel's float32 worst field "
+          f"{c['acc_kernel'][0]}: rel diff {c['acc_kernel'][1]:.3e}, the "
+          f"plain float32's {c['acc_plain'][0]}: {c['acc_plain'][1]:.3e}; "
+          f"the kernel's worst distance beyond the plain float32's "
+          f"{c['excess'][1]:.3e} of scale ({c['excess'][0]}; bound "
+          f"{DEDD_F32_TOL:.0e}), in one column at most "
+          f"{c['column_excess'][1]:.3e} ({c['column_excess'][0]}); lit "
+          f"columns {c['lit']} of {c['cols']}, "
+          f"unlit exact zeros: {c['dark']}; kernel {ms:.4f} ms in a CUDA "
+          f"graph, plain {c['plain_ms']:.1f} ms, bound {bound[0]:.4f} ms "
+          f"({bound[2]})", flush=True)
+    if not (c["f64"][1] <= 1e-12 and c["excess"][1] <= DEDD_F32_TOL
+            and c["dark"]):
+        bad.append("shortwave_dedd")
+    out["shortwave_dedd"] = dict(ms=ms, plain_ms=c["plain_ms"],
+                                 bound_ms=bound[0], bound_by=bound[1],
+                                 max_abs_err=c["f32_abs"],
+                                 launches=launches["shortwave_dedd"])
+    if bad:
+        fail(f"auscom_025: kernels disagree with their plain versions or "
+             f"A left its device-memory branch: {bad}")
+    return out
+
+
+def dedd_full_size_check(kw):
+    """Kernel C on the 1080x1440 inputs ``kw`` (float32, as captured) and
+    on the same inputs in float64. In float64 the kernel must equal its
+    plain version to 1e-12 of each field's scale: the same function. In
+    float32 the two are two roundings of a function that float32 does not
+    determine well on this many columns: each float32 result parts from
+    the float64 one by up to ~6e-2 of a layer absorption's scale, and the
+    two float32 results from each other by up to ~2.5e-4 of an albedo's,
+    above the DEDD_F32_TOL that phase 2 holds at 384x320 (PERF.md section
+    6). So for each field (and layer) the kernel's float32 result
+    must be no farther from the float64 one than the plain version's
+    float32 result is, beyond DEDD_F32_TOL of the field's scale; the
+    kernel's distance from the plain float32, and the most it is farther
+    than the plain float32 from the float64 result in any one column, are
+    printed beside. Every unlit column exact zeros."""
+    import torch
+    from cice5_tpu_torch.models.radiation import dedd
+    from cice5_tpu_torch.ops import check
+    k64 = {k: (v.double() if torch.is_tensor(v) and v.is_floating_point()
+               else v) for k, v in kw.items()}
+    p64 = dedd.shortwave_dEdd_plain(**k64)._asdict()
+    f64 = check.worst(check.field_errors(
+        p64, dedd.shortwave_dEdd_ncat(**k64)._asdict()))
+    p32, plain_ms = timed_call(lambda: dedd.shortwave_dEdd_plain(**kw))
+    g32 = dedd.shortwave_dEdd_ncat(**kw)
+    lit = dedd_lit(kw)
+    dark = bool(all(((x if x.dim() == 3 else x.movedim(1, 0))[
+        ..., ~lit] == 0).all() for x in g32))
+    p32, g32 = p32._asdict(), g32._asdict()
+    f32 = check.worst(check.field_errors(p32, g32))
+    excess = {}
+    for name, ref in p64.items():
+        ax = 1 if ref.dim() == 4 else None
+        parts = ([(name, ref, p32[name], g32[name])] if ax is None else
+                 [(f"{name}[{k}]", ref.select(ax, k), p32[name].select(ax, k),
+                   g32[name].select(ax, k)) for k in range(ref.shape[ax])])
+        for key, a, b, c in parts:
+            scale = float(a.abs().max())
+            ek = (c.double() - a).abs()
+            ep = (b.double() - a).abs()
+            rel = lambda x: float(x) / scale if scale > 0 else (
+                0.0 if float(x) == 0 else float("inf"))
+            excess[key] = (rel(ek.max() - ep.max()),
+                           rel((ek - ep).clamp(min=0.0).max()))
+    worst_excess = max(((k, v[0]) for k, v in excess.items()),
+                       key=lambda kv: kv[1])
+    worst_column = max(((k, v[1]) for k, v in excess.items()),
+                       key=lambda kv: kv[1])
+    acc_k = check.worst(check.field_errors(p64, g32))
+    acc_p = check.worst(check.field_errors(p64, p32))
+    return dict(f64=f64, f32=f32, f32_abs=f32[2], excess=worst_excess,
+                column_excess=worst_column, acc_kernel=acc_k,
+                acc_plain=acc_p, dark=dark, lit=int(lit.sum()),
+                cols=lit.numel(), plain_ms=plain_ms)
+
+
+def small_coupled_config():
+    """The gx1-parity model at 24x16, ndte=8, float64, with every
+    coupled-mode option of the port on."""
+    import dataclasses
+    from cice5_tpu_torch.config import gx1_parity_config
+    cfg = gx1_parity_config(coupled_radiation=True, dtype="float64",
+                            accum_dtype="float64")
+    r = dataclasses.replace
+    return cfg.replace(
+        grid=r(cfg.grid, ny=24, nx=16), dyn=r(cfg.dyn, ndte=8),
+        forcing=r(cfg.forcing, formdrag=True, highfreq=True),
+        thermo=r(cfg.thermo, fbot_xfer_type="Cdn_ocn"))
+
+
+def small_coupled_check():
+    """The coupled model with every coupled-mode option on the card
+    (graph replays) and on the CPU (plain versions): a 24x16 float64
+    gx1-parity model on the small tripole grid, a northern-summer noon
+    with rain on the ice, the exchanges of each hour as NumPy arrays; one
+    warm-up coupled step on the CPU, then 2 coupled steps on each device
+    from that state, every state field within 3e-8 of its scale (tracers
+    as conserved amounts, the stresses at the EVP's 1e-5); the graph
+    rollout against the eager step at 0.0; and a restart after 2 steps
+    through the graphs (dump, restore on the card, a fresh model, 2 more
+    coupled steps) equal to 4 continuous coupled steps at 0.0."""
+    import dataclasses
+    import tempfile
+    import torch
+    from cice5_tpu_torch.driver.model import Model
+    from cice5_tpu_torch.forcing import idealized_polar_forcing
+    from cice5_tpu_torch.io import restart as restart_mod
+    from cice5_tpu_torch.models.thermo.itd import tracer_weights
+    from cice5_tpu_torch.ops import check
+    from cice5_tpu_torch.state import State
+    cfg = small_coupled_config()
+    istep = 172 * 24 + 12
+
+    def rainy(m, k):
+        f = idealized_polar_forcing(
+            m.grid.shape, m.calendar.info(k, cfg.time.dt).yday,
+            dtype=m.cfg.xp_dtype, tlat=m.grid.TLAT, tlon=m.grid.TLON,
+            orb=m.orb, device=m.device)
+        return f.replace(frain=torch.full_like(f.frain, 2.0e-5))
+
+    def model(device):
+        m = Model(cfg, grid=small_parity_grid(cfg, "cpu"), device=device)
+        # the forcing a CoupledModel starts from (coszen and yday are not
+        # exchanged) and init_state's prefill take the summer noon's
+        m.forcing_provider = lambda k, info, f=rainy(m, istep): f
+        return m
+    mc, mg = model("cpu"), model("cuda")
+    ex = host_exchanges(lambda k: rainy(mc, k), range(istep, istep + 5))
+    st, _ = coupled_model(mc, ex).run(mc.init_state(), 1, start_step=istep)
+    ref, _ = coupled_model(mc, ex).run(st, 2, start_step=istep + 1)
+    got, dg = coupled_model(mg, ex).run(st.to("cuda"), 2,
+                                        start_step=istep + 1)
+    got = got.to("cpu")
+    names = ("aicen", "vicen", "vsnon", "uvel", "vvel", "sst", "scale_factor",
+             "rad_alb", "strocnxT", "strocnyT")
+    amount = lambda s: tracer_weights(mc.tr, s.aicen, s.vicen, s.vsnon,
+                                      s.trcrn) * s.trcrn
+    r = {k: getattr(ref, k) for k in names}
+    g = {k: getattr(got, k) for k in names}
+    r["trcrn_amount"], g["trcrn_amount"] = amount(ref), amount(got)
+    r["rad_prev"], g["rad_prev"] = ref.rad_prev, got.rad_prev
+    field, rel, err = check.worst(check.field_errors(
+        r, g, axes={"trcrn_amount": 1, "rad_prev": 1}))
+    sfield, srel, _ = check.worst(check.field_errors(
+        {k: getattr(ref, k) for k in ("stressp", "stressm", "stress12")},
+        {k: getattr(got, k) for k in ("stressp", "stressm", "stress12")}))
+    merged = merged_forcings(mg, ex, [istep + 3])[0]
+    graph_against_eager(mg, st.to("cuda"), merged,
+                        "small float64 coupled run (every coupled option)")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_coupled_") as tmp:
+        full, _ = coupled_model(mg, ex).run(st.to("cuda"), 4,
+                                            start_step=istep + 1)
+        half, _ = coupled_model(mg, ex).run(st.to("cuda"), 2,
+                                            start_step=istep + 1)
+        restart_mod.dump(half, f"{tmp}/iced.npz", istep=istep + 3,
+                         time=(istep + 3) * cfg.time.dt)
+        st2, meta = restart_mod.restore(pointer_dir=tmp)
+        out, _ = coupled_model(model("cuda"), ex).run(
+            st2, 2, start_step=meta["istep"])
+    torch.cuda.synchronize()
+    differ = [f.name for f in dataclasses.fields(State)
+              if not torch.equal(getattr(out, f.name), getattr(full, f.name))]
+    print(f"small float64 coupled run (24x16 tripole, coupled_radiation, "
+          f"formdrag, highfreq, fbot_xfer_type='Cdn_ocn', ndte=8, 2 coupled "
+          f"steps after a warm-up step): GPU kernels vs CPU plain max abs "
+          f"diff {err:.3e}; worst field {field}: rel diff {rel:.3e} (bound "
+          f"3e-8 x the field's scale); worst stress {sfield}: rel diff "
+          f"{srel:.3e} (bound 1e-5); drag planes {tuple(dg.drag.shape)}; "
+          f"restart after 2 coupled steps through the graphs vs 4 "
+          f"continuous: fields that differ {differ or 'none'}", flush=True)
+    if not (rel <= 3e-8 and srel <= 1e-5):
+        fail(f"small float64 coupled run: {field} on the GPU differs from "
+             f"the CPU by {rel:.3e} of its scale (> 3e-8), or {sfield} by "
+             f"{srel:.3e} (> 1e-5)")
+    if differ:
+        fail(f"small float64 coupled run: the restored run differs from the "
+             f"continuous one in {differ}")
+
+
 def build_parity():
     """gx1_parity_config() on synth_gx1_grid, as bench.py:bench_parity
     builds it: the default 70N/60S ice edge, forcing of step 0."""
@@ -1166,13 +1637,79 @@ def build_bl99_fused():
 
 
 def capture(build_model, dtype):
-    """Kernel arguments of one step at the main path's shapes, after a
-    warm-up step (velocities and stresses non-zero)."""
+    """(grid, kernel arguments of one step at the main path's shapes after
+    a warm-up step (velocities and stresses non-zero), the form-drag Cw
+    plane of the state that step started from)."""
     from cice5_tpu_torch.ops import check
     from cice5_tpu_torch.driver.step import step as step_fn
     m, st, f = build_model(dtype)
     st, _ = step_fn(st, f, *m.step_args)
-    return m.grid, check.capture_kernel_args(m, st, f)[1]
+    return m.grid, check.capture_kernel_args(m, st, f)[1], drag_plane(m, st)
+
+
+def drag_plane(m, st):
+    """The ocean drag coefficient that form drag computes for ``st``
+    (``neutral_drag_coeffs``, as the step calls it with formdrag on): a
+    Cw plane for the EVP kernels."""
+    from cice5_tpu_torch.models.formdrag import neutral_drag_coeffs
+    tr, trc = m.tr, st.trcrn
+    kw = {}
+    if tr.nt_apnd >= 0:
+        kw.update(apnd=trc[:, tr.nt_apnd], hpnd=trc[:, tr.nt_hpnd])
+    if tr.nt_alvl >= 0:
+        kw.update(alvl=trc[:, tr.nt_alvl], vlvl=trc[:, tr.nt_vlvl])
+    return neutral_drag_coeffs(
+        aice=st.aicen.sum(0), vice=st.vicen.sum(0), vsno=st.vsnon.sum(0),
+        aicen=st.aicen, vicen=st.vicen, **kw).Cdn_ocn
+
+
+def formdrag_evp_phase(cap64, cap32, cw64, cw32, label, fused):
+    """Kernel A (or with ``fused`` kernel D, ndte=120 in launches of 10)
+    with a form-drag Cw plane in its U-point inputs, against its plain
+    version with the same plane (and D against A), float64 and float32,
+    each output on its own scale with A's bounds; A's device-memory branch
+    must equal the plain sweep bit for bit, D must equal A bit for bit.
+    The plane must change the result against the constant ct.dragio."""
+    import torch
+    from cice5_tpu_torch import constants as ct
+    from cice5_tpu_torch.models.dynamics import evp as tevp
+    from cice5_tpu_torch.ops import check
+    from cice5_tpu_torch.ops import evp_fused as tfused
+    name = "evp_fused" if fused else "evp_sweep"
+    bad = []
+    for tag, (p, _, topo, kw), cw, tol in (("f64", cap64, cw64, 3e-8),
+                                           ("f32", cap32, cw32, 1e-5)):
+        kw = dict(kw, Cw=cw.to(kw["uvel"].dtype))
+        ndte = 120
+        a = check.evp_outputs(tevp.evp_sweep(p, ndte, topo, **kw))
+        const = check.evp_outputs(tevp.evp_sweep(
+            p, ndte, topo, **dict(kw, Cw=ct.dragio)))
+        if fused:
+            sw = dict(kchunk=10, nwin=4, **kw)
+            got = check.evp_outputs(tfused.fused_sweep(p, ndte, topo, **sw))
+            ref = check.evp_outputs(tfused.fused_sweep_plain(p, ndte, topo,
+                                                             **sw))
+            _, _, exact = check.worst(check.field_errors(a, got))
+        else:
+            got = a
+            ref = check.evp_outputs(tevp.subcycle_sweep(p, ndte, topo, **kw))
+            dev = check.evp_outputs(check.evp_on_plan(p, ndte, topo,
+                                                      device_plan(kw), **kw))
+            _, _, exact = check.worst(check.field_errors(ref, dev))
+        torch.cuda.synchronize()
+        field, rel, err = check.worst(check.field_errors(ref, got))
+        moved = float((const["uvel"] - got["uvel"]).abs().max())
+        print(f"{name} {label} {tag} ndte={ndte} with a form-drag Cw plane "
+              f"(Cdn_ocn {float(cw.min()):.4g}..{float(cw.max()):.4g}): vs "
+              f"its plain version max abs diff {err:.3e}; worst field "
+              f"{field}: rel diff {rel:.3e} (bound {tol:.0e} x the field's "
+              f"scale); {'vs evp_sweep' if fused else 'device-memory branch'}"
+              f" max abs diff {exact:.3e} (must be 0); uvel moved by "
+              f"{moved:.3e} from the constant Cw", flush=True)
+        if not (rel <= tol and exact == 0.0 and moved > 0.0):
+            bad.append(tag)
+    if bad:
+        fail(f"{name} with a form-drag Cw plane ({label}): {bad}")
 
 
 def main():
@@ -1212,6 +1749,9 @@ def main():
                 caps["float64"][0], caps["float32"][0], "BL99")
     # slice 3: kernel D on the same open-boundary inputs, E beside B
     d = evp_fused_phase(caps["float64"][1]["evp"], caps["float32"][1]["evp"])
+    formdrag_evp_phase(caps["float64"][1]["evp"], caps["float32"][1]["evp"],
+                       caps["float64"][2], caps["float32"][2], "BL99",
+                       fused=True)
     remap_edge_phase(caps["float64"][1]["remap"],
                      caps["float32"][1]["remap"], "BL99")
     # slice 2: the gx1-parity model's (tripole seam, 19 tracers, dEdd)
@@ -1225,6 +1765,9 @@ def main():
                   "gx1 tripole")
     a["eager_ms"], a["ms"] = a["ms"], evp_costs(caps["float32"][1]["evp"],
                                                 "gx1 tripole")
+    formdrag_evp_phase(caps["float64"][1]["evp"], caps["float32"][1]["evp"],
+                       caps["float64"][2], caps["float32"][2], "gx1 tripole",
+                       fused=False)
     b = remap_phase(caps["float64"][1]["remap"], caps["float32"][1]["remap"],
                     caps["float64"][0], caps["float32"][0], "gx1")
     c = dedd_phase(caps["float64"][1]["dedd"], caps["float32"][1]["dedd"])
@@ -1234,10 +1777,13 @@ def main():
     small_reference_check()
     small_reference_check("pallas", ndte=10)
     parity_reference_check()
+    small_coupled_check()
+    torch.cuda.reset_peak_memory_stats()
     launches = main_path("gx1-parity", build_parity, 10,
                          dict(evp_sweep=10, remap_flux_both=10,
                               shortwave_dedd=10, evp_fused=0,
                               remap_flux_edge=0))
+    gx1_peak = torch.cuda.max_memory_allocated()
     main_path("BL99+CCSM3", build_bl99, 5,
               dict(evp_sweep=5, remap_flux_both=5, shortwave_dedd=0,
                    evp_fused=0, remap_flux_edge=0))
@@ -1245,6 +1791,7 @@ def main():
                       dict(evp_sweep=0, remap_flux_both=5, shortwave_dedd=0,
                            evp_fused=60, remap_flux_edge=0))
     run_phase()
+    auscom_025_phase(gx1_peak)
 
     line = {"kernels": [
         dict(name="evp_sweep", route="cuda",

@@ -310,3 +310,30 @@ def gx1_parity_config(**overrides) -> ModelConfig:
         kcatbound=0,
     )
     return cfg.replace(**overrides) if overrides else cfg
+
+
+def auscom_025_config(**overrides) -> ModelConfig:
+    """ACCESS-OM 0.25-degree production config: 1440x1080 tripole, gx1
+    physics parity (bld/config.nci.auscom.1440x1080; the coupled-model
+    run-length configs of BASELINE.md). The grid is built by the caller:
+    ``Model(cfg, grid=synth_gx1_grid(cfg, ...))`` (the grid file lives in
+    the coupled model's input bundle, not this repository). The coupled
+    model (``driver.coupled.CoupledModel``) runs it with
+    ``coupled_radiation=True``."""
+    cfg = gx1_parity_config()
+    return cfg.replace(
+        grid=GridConfig(nx=1440, ny=1080, grid_type="tripole",
+                        ew_boundary="cyclic", ns_boundary="tripole"),
+        **overrides)
+
+
+def tx01_config(**overrides) -> ModelConfig:
+    """tx0.1 0.1-degree production config: 3600x2700 tripole, gx1 physics
+    parity (bld/config.nci.auscom.3600x2700; CMHB-2014 Table 4 scaling
+    runs used 3600x2400 with dt such that 10 days = 240 steps). Its run
+    waits for the multi-GPU slice of the port."""
+    cfg = gx1_parity_config()
+    return cfg.replace(
+        grid=GridConfig(nx=3600, ny=2700, grid_type="tripole",
+                        ew_boundary="cyclic", ns_boundary="tripole"),
+        **overrides)

@@ -45,6 +45,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import time
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -142,6 +143,7 @@ class StepGraph:
     raises."""
 
     def __init__(self, fn, state, forcing):
+        t0 = time.perf_counter()
         self.state = clone_fields(state)
         self.forcing = clone_fields(forcing)
         self.replays = 0       # graph launches
@@ -176,6 +178,8 @@ class StepGraph:
                 except RuntimeError:
                     pass
         torch.cuda.current_stream().wait_stream(stream)
+        torch.cuda.synchronize()
+        self.capture_seconds = time.perf_counter() - t0   # host wall time
 
     def _begin(self):
         graph = torch.cuda.CUDAGraph()

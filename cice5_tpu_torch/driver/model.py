@@ -21,7 +21,7 @@ from cice5_tpu_torch import constants as ct
 from cice5_tpu_torch.calendar import Calendar
 from cice5_tpu_torch.config import ModelConfig
 from cice5_tpu_torch.driver import graph
-from cice5_tpu_torch.driver.step import step as step_fn
+from cice5_tpu_torch.driver.step import prefill_radiation, step as step_fn
 from cice5_tpu_torch.forcing import Forcing, idealized_polar_forcing
 from cice5_tpu_torch.grid import Grid, make_grid
 from cice5_tpu_torch.io import diagnostics as diag_mod
@@ -46,8 +46,10 @@ def check_supported(cfg: ModelConfig) -> None:
     model with all of its options together: POP/tripole grid with a U-fold
     seam, mushy thermodynamics, delta-Eddington shortwave, the
     iage/FY/lvl/level-pond tracers with the refrozen pond lid; either with
-    ``evp_algorithm="pallas"``, the fused EVP sweep, off a tripole seam),
-    naming the slice that brings it. Nothing is silently approximated."""
+    ``evp_algorithm="pallas"``, the fused EVP sweep, off a tripole seam;
+    either with the coupled-mode options formdrag, highfreq,
+    coupled_radiation and fbot_xfer_type="Cdn_ocn"), naming the slice that
+    brings it. Nothing is silently approximated."""
     g, th, dy, tc = cfg.grid, cfg.thermo, cfg.dyn, cfg.tracers
     parity = {"grid_type='tripole'": g.grid_type == "tripole",
               "the tripole seam": g.ns_boundary == "tripole",
@@ -70,14 +72,9 @@ def check_supported(cfg: ModelConfig) -> None:
         (g.compact_columns == "on", "compact_columns='on'", _LATER),
         (th.ktherm == 0, "ktherm=0 (zero-layer thermodynamics)", _LATER),
         (not th.calc_Tsfc, "calc_Tsfc=False", _LATER),
-        (th.fbot_xfer_type != "constant",
-         f"fbot_xfer_type={th.fbot_xfer_type!r}", _LATER),
         (tc.tr_pond_cesm or tc.tr_pond_topo or tc.tr_aero or tc.tr_brine
          or tc.skl_bgc, "the cesm/topo ponds, aerosol, brine and BGC "
          "tracers", _LATER),
-        (cfg.forcing.formdrag, "formdrag", _LATER),
-        (cfg.forcing.highfreq, "highfreq coupling", _LATER),
-        (cfg.coupled_radiation, "coupled_radiation", _LATER),
         (dy.kdyn == 2, "kdyn=2 (EAP)", _LATER),
         (dy.advection == "upwind", "advection='upwind'", _LATER),
         (dy.kdyn >= 1 and dy.advection == "none",
@@ -106,6 +103,11 @@ def check_supported(cfg: ModelConfig) -> None:
             f"evp_algorithm='pallas' with ndte={dy.ndte}: the fused EVP "
             f"sweep runs chunks of 10 subcycles, so ndte must be a multiple "
             f"of 10 (cice5_tpu/ops/pallas/evp_fused.py:162)")
+    if th.fbot_xfer_type not in ("constant", "Cdn_ocn"):
+        raise ValueError(
+            f"fbot_xfer_type={th.fbot_xfer_type!r}: the bottom heat "
+            "transfer is 'constant' or 'Cdn_ocn' "
+            "(ice_therm_vertical.F90:741-746)")
     if dy.yield_curve != "ellipse":
         raise NotImplementedError(
             f"yield_curve={dy.yield_curve!r}: only 'ellipse' exists "
@@ -240,8 +242,14 @@ class Model:
         if "sst" not in kw and self.cfg.forcing.oceanmixed_ice \
                 and self.forcing_provider is None:
             kw["sst"] = self.forcing_at(0).sst
-        return init_state(self.cfg, self.grid, self.tr, self.hin_max,
-                          self.salinz, **kw)
+        st = init_state(self.cfg, self.grid, self.tr, self.hin_max,
+                        self.salinz, **kw)
+        if self.cfg.coupled_radiation:
+            # init_shortwave analog: seed the radiation memory so the
+            # first coupled-ordering step has nonzero SW
+            st = prefill_radiation(st, self.forcing_at(0), self.cfg,
+                                   self.tr)
+        return st
 
     forcing_provider = None   # optional: callable(istep, info) -> Forcing
 

@@ -1,8 +1,9 @@
 """One model time step (PyTorch port of ``cice5_tpu/driver/step.py``,
-restricted to the BL99 + CCSM3 and gx1-parity configurations).
+restricted to the BL99 + CCSM3 and gx1-parity configurations and their
+coupled-mode options).
 
 ice_step_mod.F90 and the standalone driver loop (CICE_RunMod.F90:107-267):
-radiation (CCSM3 or delta-Eddington), per-category vertical
+radiation (CCSM3 or delta-Eddington), form drag, per-category vertical
 thermodynamics (BL99 or mushy), the ice age, first-year area and
 level-ice pond tracers, ITD evolution (linear remap, frazil, lateral
 melt, cleanup), EVP dynamics + remap transport + ridging, the slab
@@ -12,7 +13,10 @@ ocean, and the flux aggregation for diagnostics, as one function
 Categories are an explicit leading batch axis: per-category fields are
 (ncat, ny, nx) and layer stacks are layer-first (nlyr, ncat, ny, nx), the
 JAX package's vmap written out. Radiation runs at the start of the step
-(the standalone ordering of the JAX package).
+(the standalone ordering of the JAX package), or with
+``cfg.coupled_radiation`` at its end, on the state after dynamics, with
+the thermo of the next step reading it rescaled (the reference's coupled
+prep_radiation / step_radiation ordering, ice_step_mod.F90:33-154, :1364).
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from cice5_tpu_torch.config import ModelConfig
 from cice5_tpu_torch.forcing import Forcing
 from cice5_tpu_torch.grid import Grid
 from cice5_tpu_torch.models import atmo, ocean
+from cice5_tpu_torch.models.formdrag import neutral_drag_coeffs
 from cice5_tpu_torch.models.dynamics import shared as dyn
 from cice5_tpu_torch.models.dynamics.evp import evp
 from cice5_tpu_torch.models.dynamics.ridge import ridge_ice
@@ -116,6 +121,16 @@ class StepDiag(NamedTuple):
     opening: torch.Tensor
     niter_thermo: torch.Tensor  # BL99 or mushy Picard passes (0-d int64)
     niter_ridge: torch.Tensor   # ridging passes (0-d int64)
+    # form-drag diagnostics stacked in DRAG_KEYS order (ice_history_drag
+    # .F90 f_drag/f_Cdn_atm/f_Cdn_ocn); (len(DRAG_KEYS), ny, nx) when
+    # cfg.forcing.formdrag else (0, ny, nx)
+    drag: torch.Tensor
+
+
+DRAG_KEYS = ("Cdn_atm", "Cdn_ocn", "Cdn_atm_skin", "Cdn_atm_floe",
+             "Cdn_atm_pond", "Cdn_atm_rdg", "Cdn_ocn_skin", "Cdn_ocn_floe",
+             "Cdn_ocn_keel", "hfreebd", "hdraft", "hridge", "distrdg",
+             "hkeel", "dkeel", "lfloe", "dfloe")
 
 
 # the smallest ocean-cell spacing of each grid, read from the device once
@@ -200,13 +215,51 @@ def _step_radiation(aicen, vicen, vsnon, trcrn, forcing: Forcing,
     return alb, absr, Sswabsn, torch.zeros_like(aicen), snowfracn
 
 
+def _radiation_memory(aicen, alb, absr, Sswabsn, forcing: Forcing):
+    """(rad_prev, rad_alb, scale_factor) of a radiation pass, the memory of
+    the coupled ordering: the per-category absorption stack (ncat, 3 +
+    nslyr + nilyr, ...) [fswsfc, fswint, fswthru, Sswabs, Iswabs], the
+    ai-weighted ice-only band albedos (4, ...) (prep_radiation reads
+    alvdr_ai, ice_step_mod.F90:86-97) and the net SW they absorb."""
+    rad_prev = torch.cat(
+        [absr.fswsfc[:, None], absr.fswint[:, None], absr.fswthru[:, None],
+         Sswabsn.movedim(0, 1), absr.Iswabs.movedim(0, 1)], dim=1)
+    rad_alb = torch.stack([(aicen * a).sum(0) for a in (
+        alb.alvdrn, alb.alvdfn, alb.alidrn, alb.alidfn)])
+    return rad_prev, rad_alb, _net_sw(forcing, rad_alb)
+
+
+def _net_sw(forcing: Forcing, al):
+    """The 4-band shortwave absorbed under band albedos ``al``."""
+    return (forcing.swvdr * (1.0 - al[0]) + forcing.swvdf * (1.0 - al[1])
+            + forcing.swidr * (1.0 - al[2]) + forcing.swidf * (1.0 - al[3]))
+
+
+def prefill_radiation(state: State, forcing: Forcing, cfg: ModelConfig,
+                      tr: TracerRegistry) -> State:
+    """Seed the coupled-ordering radiation memory from the initial state
+    (init_shortwave, ice_shortwave.F90:164, called from cice_init:
+    without it the first coupled step would run thermo with zero SW)."""
+    alb, absr, Sswabsn, _, _ = _step_radiation(
+        state.aicen, state.vicen, state.vsnon, state.trcrn, forcing, cfg, tr)
+    rad_prev, rad_alb, scale_factor = _radiation_memory(
+        state.aicen, alb, absr, Sswabsn, forcing)
+    return state.replace(rad_prev=rad_prev, rad_alb=rad_alb,
+                         scale_factor=scale_factor)
+
+
 def _column_physics(aicen, vicen, vsnon, trcrn, strocnxT, strocnyT,
                     forcing: Forcing, *, sst, frzmlt, tmask, ULAT, salinz,
-                    cfg: ModelConfig, tr: TracerRegistry, hin_max):
-    """Pre-dynamics column physics: radiation, ABL + vertical thermo, the
+                    cfg: ModelConfig, tr: TracerRegistry, hin_max,
+                    uice_T=None, vice_T=None, scale_factor=None,
+                    rad_prev=None, rad_alb=None):
+    """Pre-dynamics column physics: form drag, radiation (or, in the
+    coupled ordering, last step's rescaled), ABL + vertical thermo, the
     age/FY/pond tracers and the step_therm2 ITD evolution
-    (ice_step_mod.F90 step_therm1/2). Returns (state dict, diagnostics
-    dict, scalars dict)."""
+    (ice_step_mod.F90 step_therm1/2). uice_T/vice_T: the ice velocity on
+    the T grid (highfreq); scale_factor/rad_prev/rad_alb: the coupled
+    ordering's radiation memory. Returns (state dict, diagnostics dict,
+    scalars dict)."""
     dt = cfg.time.dt
     nilyr, nslyr = cfg.nilyr, cfg.nslyr
     tcfg = cfg.tracers
@@ -221,9 +274,47 @@ def _column_physics(aicen, vicen, vsnon, trcrn, strocnxT, strocnyT,
     aice = agg0.aice
     Tf = forcing.Tf
 
-    # radiation, all categories at once
-    alb, absr, Sswabsn, albpndn, snowfracn = _step_radiation(
-        aicen, vicen, vsnon, trcrn, forcing, cfg, tr)
+    # form drag (ice_atmo.F90:644 neutral_drag_coeffs; formdrag namelist)
+    Cdn_atm, Cw_ocn = None, ct.dragio
+    drag_stack = aice.new_zeros((0,) + tuple(aice.shape))
+    if cfg.forcing.formdrag:
+        fdkw = {}
+        if tr.nt_apnd >= 0:
+            fdkw.update(apnd=trcrn[:, tr.nt_apnd], hpnd=trcrn[:, tr.nt_hpnd])
+            if tr.nt_ipnd >= 0:
+                fdkw.update(ipnd=trcrn[:, tr.nt_ipnd])
+        if tr.nt_alvl >= 0:
+            fdkw.update(alvl=trcrn[:, tr.nt_alvl], vlvl=trcrn[:, tr.nt_vlvl])
+        fd = neutral_drag_coeffs(aice=aice, vice=agg0.vice, vsno=agg0.vsno,
+                                 aicen=aicen, vicen=vicen, **fdkw)
+        Cdn_atm, Cw_ocn = fd.Cdn_atm, fd.Cdn_ocn
+        drag_stack = torch.stack([getattr(fd, k) for k in DRAG_KEYS])
+
+    if cfg.coupled_radiation:
+        # prep_radiation ordering (ice_step_mod.F90:33-154): thermo runs on
+        # LAST step's per-category SW absorption, rescaled by the ratio of
+        # this step's net SW under last step's ice albedos to last step's
+        # (scale_factor); the radiation proper runs at the end of the step
+        # (``step``), which also fills the albedos and snow fraction
+        sfac = torch.where((aice > 0.0) & (scale_factor > ct.puny),
+                           _net_sw(forcing, rad_alb)
+                           / torch.clamp(scale_factor, min=ct.puny), 1.0)
+        rp = rad_prev * sfac[None, None]
+        absr = AbsorbedSolar(
+            fswsfc=rp[:, 0], fswint=rp[:, 1], fswthru=rp[:, 2],
+            Iswabs=rp[:, 3 + nslyr:3 + nslyr + nilyr].movedim(1, 0),
+            fswpenl=None)
+        Sswabsn = rp[:, 3:3 + nslyr].movedim(1, 0)
+        zc = torch.zeros_like(aicen)
+        alb = Albedos(alvdrn=zc, alidrn=zc, alvdfn=zc, alidfn=zc,
+                      alvdrni=zc, alidrni=zc, alvdfni=zc, alidfni=zc,
+                      alvdrns=zc, alidrns=zc, alvdfns=zc, alidfns=zc,
+                      albin=zc, albsn=zc)
+        albpndn = snowfracn = zc
+    else:
+        # radiation, all categories at once
+        alb, absr, Sswabsn, albpndn, snowfracn = _step_radiation(
+            aicen, vicen, vsnon, trcrn, forcing, cfg, tr)
 
     # bottom flux & lateral melt potential
     qicen_tot = trcrn[:, tr.nt_qice:tr.nt_qice + nilyr].sum(1) * vicen \
@@ -232,7 +323,9 @@ def _column_physics(aicen, vicen, vsnon, trcrn, strocnxT, strocnyT,
         / nslyr
     Tbot, fbot, rside = vertical.frzmlt_bottom_lateral(
         dt, aice, frzmlt, vicen, vsnon, qicen_tot, qsnon_tot, sst, Tf,
-        strocnxT, strocnyT, ustar_min=cfg.thermo.ustar_min)
+        strocnxT, strocnyT, ustar_min=cfg.thermo.ustar_min,
+        Cdn_ocn=(Cw_ocn if cfg.thermo.fbot_xfer_type == "Cdn_ocn"
+                 else None))
 
     # ABL + vertical thermo, all categories at once
     if cfg.forcing.atmbndy == "constant":
@@ -245,7 +338,8 @@ def _column_physics(aicen, vicen, vsnon, trcrn, strocnxT, strocnyT,
             sfctype="ice", Tsf=Tsfcn, potT=forcing.potT, uatm=forcing.uatm,
             vatm=forcing.vatm, wind=forcing.wind, zlvl=forcing.zlvl,
             Qa=forcing.Qa, rhoa=forcing.rhoa,
-            natmiter=cfg.forcing.natmiter)
+            natmiter=cfg.forcing.natmiter, Cdn_atm=Cdn_atm,
+            highfreq=cfg.forcing.highfreq, uice=uice_T, vice=vice_T)
     pond = {}
     if tcfg.tr_pond and mushy_on:
         apnd_all = trcrn[:, tr.nt_apnd]
@@ -282,7 +376,7 @@ def _column_physics(aicen, vicen, vsnon, trcrn, strocnxT, strocnyT,
         fsurfn_ai=w * tres.fsurfn, flatn_ai=w * tres.flatn,
         fsensn_ai=w * tres.fsensn,
         fmelttn_ai=w * torch.clamp(tres.fsurfn - tres.fcondtopn, min=0.0),
-        fcondtopn_ai=w * tres.fcondtopn)
+        fcondtopn_ai=w * tres.fcondtopn, Cw_ocn=Cw_ocn, drag=drag_stack)
 
     aicen, vicen, vsnon = tres.aicen, tres.vicen, tres.vsnon
     trcrn = trcrn.clone()
@@ -385,11 +479,19 @@ def step(state: State, forcing: Forcing, grid: Grid, cfg: ModelConfig,
     sst = state.sst if cfg.forcing.oceanmixed_ice else forcing.sst
     sst = torch.maximum(sst, forcing.Tf)
     frzmlt = state.frzmlt if cfg.forcing.oceanmixed_ice else forcing.frzmlt
+    # high-frequency (RASM) coupling uses winds relative to the ice drift
+    # at T points (ice_atmo.F90:220-227; Roberts et al 2014)
+    uice_T = vice_T = None
+    if cfg.forcing.highfreq:
+        uice_T = dyn.to_tgrid(state.uvel, grid, topo)
+        vice_T = dyn.to_tgrid(state.vvel, grid, topo)
 
     stout, dg, sc = _column_physics(
         state.aicen, state.vicen, state.vsnon, state.trcrn, state.strocnxT,
         state.strocnyT, forcing, sst=sst, frzmlt=frzmlt, tmask=tmask,
-        ULAT=grid.ULAT, salinz=salinz, cfg=cfg, tr=tr, hin_max=hin_max)
+        ULAT=grid.ULAT, salinz=salinz, cfg=cfg, tr=tr, hin_max=hin_max,
+        uice_T=uice_T, vice_T=vice_T, scale_factor=state.scale_factor,
+        rad_prev=state.rad_prev, rad_alb=state.rad_alb)
     aicen, vicen, vsnon = stout["aicen"], stout["vicen"], stout["vsnon"]
     trcrn = stout["trcrn"]
     fresh, fsalt, fhocn = dg["fresh"], dg["fsalt"], dg["fhocn"]
@@ -455,7 +557,8 @@ def step(state: State, forcing: Forcing, grid: Grid, cfg: ModelConfig,
                         strairxT=dg["strairxT"], strairyT=dg["strairyT"],
                         uocn=forcing.uocn, vocn=forcing.vocn, uvel=uvel,
                         vvel=vvel, stressp=stressp, stressm=stressm,
-                        stress12=stress12, iceumask=iceumask, Cw=ct.dragio)
+                        stress12=stress12, iceumask=iceumask,
+                        Cw=dg["Cw_ocn"])
             uvel, vvel = ev.uvel, ev.vvel
             prs_sig_d = ev.prs_sig
             strintx_d, strinty_d = ev.strintx, ev.strinty
@@ -536,14 +639,30 @@ def step(state: State, forcing: Forcing, grid: Grid, cfg: ModelConfig,
         sst_new = sst
         frzmlt_out = forcing.frzmlt
 
+    # end-of-step radiation under the coupled ordering (step_radiation,
+    # ice_step_mod.F90:1364, runs after dynamics; its outputs feed the
+    # coupler now and next step's prep_radiation rescale)
+    rad_prev, rad_alb = state.rad_prev, state.rad_alb
+    if cfg.coupled_radiation:
+        alb, absr, Sswabsn, albpndn, snowfracn = _step_radiation(
+            aicen, vicen, vsnon, trcrn, forcing, cfg, tr)
+        dg.update(alvdrn=alb.alvdrn, alvdfn=alb.alvdfn, alidrn=alb.alidrn,
+                  alidfn=alb.alidfn, snowfracn=snowfracn,
+                  albice=(aicen * alb.albin).sum(0),
+                  albsno=(aicen * alb.albsn).sum(0),
+                  albpnd=(aicen * albpndn).sum(0))
+        # next step's rescale inputs, and (the reference's coupling_prep
+        # pairing with prep_radiation's netsw) the ICE-ONLY albedos' net
+        # SW as scale_factor
+        rad_prev, rad_alb, scale_factor = _radiation_memory(
+            aicen, alb, absr, Sswabsn, forcing)
+
     # cell-mean albedos incl. open water (coupling_prep)
     alb4 = [(aicen * dg[k]).sum(0) + aggf.aice0 * ct.albocn
             for k in ("alvdrn", "alvdfn", "alidrn", "alidfn")]
     alvdr, alvdf, alidr, alidf = alb4
-    scale_factor = (forcing.swvdr * (1.0 - alvdr)
-                    + forcing.swvdf * (1.0 - alvdf)
-                    + forcing.swidr * (1.0 - alidr)
-                    + forcing.swidf * (1.0 - alidf))
+    if not cfg.coupled_radiation:
+        scale_factor = _net_sw(forcing, alb4)
 
     # in-step failure count (the l_stop analog, ice_step_mod.F90:858-867)
     def _nbad(x, lo, hi, mask=None):
@@ -565,6 +684,7 @@ def step(state: State, forcing: Forcing, grid: Grid, cfg: ModelConfig,
         uvel=uvel, vvel=vvel, stressp=stressp, stressm=stressm,
         stress12=stress12, iceumask=iceumask, strocnxT=strocnxT,
         strocnyT=strocnyT, frzmlt=frzmlt_out, scale_factor=scale_factor,
+        rad_prev=rad_prev, rad_alb=rad_alb,
         sst=sst_new, mlt_onset=mlt_onset, frz_onset=frz_onset)
 
     diag = StepDiag(
@@ -595,5 +715,6 @@ def step(state: State, forcing: Forcing, grid: Grid, cfg: ModelConfig,
         daidtt=daidtt, dvidtt=dvidtt, daidtd=daidtd, dvidtd=dvidtd,
         dagedtt=dagedtt, dagedtd=dagedtd,
         opening=opening_d,
-        niter_thermo=sc["niter_thermo"], niter_ridge=niter_ridge)
+        niter_thermo=sc["niter_thermo"], niter_ridge=niter_ridge,
+        drag=dg["drag"])
     return new_state, diag

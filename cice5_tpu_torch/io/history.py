@@ -11,9 +11,9 @@ The registry is a plain list of HistField descriptors; a stream
 accumulates on the device, one stacked buffer per dims class, and copies
 to the host only when it writes (``averages``), as classic netCDF-3 via
 scipy with CF-style time/units/cell coordinates: the JAX package's files,
-variable for variable. The aerosol, brine, skeletal-BGC, form-drag,
-per-category mechred and EAP field sets come with their physics: a
-configuration that has them raises here. The asynchronous native writer
+variable for variable. The aerosol, brine, skeletal-BGC, per-category
+mechred and EAP field sets come with their physics: a configuration that
+has them raises here. The asynchronous native writer
 (``use_async``) comes in a later slice and raises too.
 """
 from __future__ import annotations
@@ -252,6 +252,37 @@ POND_FIELDS = [
               "categories", dims="3Dc"),
 ]
 
+# form-drag field set (ice_history_drag.F90 f_drag/f_Cdn_atm/f_Cdn_ocn:
+# total + skin/floe-edge/pond/ridge components and the sail/keel geometry)
+DRAG_FIELDS = [
+    HistField("Cdn_atm", "1", "atmospheric neutral drag coefficient",
+              instantaneous=True),
+    HistField("Cdn_ocn", "1", "oceanic neutral drag coefficient",
+              instantaneous=True),
+    HistField("Cdn_atm_skin", "1", "atm drag, skin component",
+              instantaneous=True),
+    HistField("Cdn_atm_floe", "1", "atm drag, floe-edge component",
+              instantaneous=True),
+    HistField("Cdn_atm_pond", "1", "atm drag, pond-edge component",
+              instantaneous=True),
+    HistField("Cdn_atm_rdg", "1", "atm drag, ridge component",
+              instantaneous=True),
+    HistField("Cdn_ocn_skin", "1", "ocean drag, skin component",
+              instantaneous=True),
+    HistField("Cdn_ocn_floe", "1", "ocean drag, floe-edge component",
+              instantaneous=True),
+    HistField("Cdn_ocn_keel", "1", "ocean drag, keel component",
+              instantaneous=True),
+    HistField("hfreebd", "m", "mean freeboard", instantaneous=True),
+    HistField("hdraft", "m", "mean draft", instantaneous=True),
+    HistField("hridge", "m", "mean ridge sail height", instantaneous=True),
+    HistField("distrdg", "m", "mean ridge spacing", instantaneous=True),
+    HistField("hkeel", "m", "mean keel depth", instantaneous=True),
+    HistField("dkeel", "m", "mean keel spacing", instantaneous=True),
+    HistField("lfloe", "m", "mean floe length", instantaneous=True),
+    HistField("dfloe", "m", "mean floe spacing", instantaneous=True),
+]
+
 MAX_NSTRM = 5     # ice_domain_size.F90:50
 
 # f_* flags that select static grid/coordinate variables — these are
@@ -350,6 +381,9 @@ def available_fields(cfg=None, tr=None, include_3d=True) -> list:
             fields.append(f)
         fields += [f for f in VERT_FIELDS
                    if cfg is None or f.dims != "4Ds" or cfg.nslyr >= 1]
+    if cfg is not None and cfg.forcing.formdrag:
+        fields += [f for f in DRAG_FIELDS if f.name not in
+                   {g.name for g in fields}]
     if not include_3d:
         fields = [f for f in fields if f.dims == "2D"]
     return fields
@@ -367,8 +401,6 @@ def _check_ported(cfg=None, tr=None):
         what.append("the EAP fields (kdyn=2)")
     if cfg is not None and cfg.dyn.diag_mechred:
         what.append("the per-category mechred fields (diag_mechred)")
-    if cfg is not None and cfg.forcing.formdrag:
-        what.append("the form-drag fields (formdrag)")
     if what:
         raise NotImplementedError(
             f"history: {', '.join(what)} are not ported yet: they come "
@@ -588,7 +620,8 @@ def diag_to_values(diag, state, grid, tr=None, forcing=None,
                    nilyr=None, nslyr=None) -> dict:
     """Map a StepDiag + state into the standard history field names
     (+ mechred/pond/category/vertical fields when the tracer registry is
-    given, + forcing fields when forcing is given): the JAX package's keys
+    given, + forcing fields when forcing is given, + the form-drag fields
+    when the diag holds their stack): the JAX package's keys
     and values. The strain-rate and yield-stress tensors (EAP) and the
     algal growth rates (BGC) are zeros, as the JAX step fills them under
     EVP and without BGC; the state's a11n/a12n give a11/a12. Elementwise
@@ -624,12 +657,16 @@ def diag_to_values(diag, state, grid, tr=None, forcing=None,
                       + forcing.swvdf * diag.alvdf
                       + forcing.swidr * diag.alidr
                       + forcing.swidf * diag.alidf)})
+    stacks = {}
+    if diag.drag.shape[0]:
+        from cice5_tpu_torch.driver.step import DRAG_KEYS
+        stacks.update({k: diag.drag[i] for i, k in enumerate(DRAG_KEYS)})
     zero = torch.zeros_like(aice)
     eap = {"a11": state.a11n[0], "a12": state.a12n[0],
            "e11": zero, "e12": zero, "e22": zero,
            "yieldstress11": zero, "yieldstress12": zero,
            "yieldstress22": zero}
-    return extra | eap | {
+    return extra | eap | stacks | {
         "opening": diag.opening * secday * 100.0,
         "aice": aice, "hi": diag.vice, "hs": diag.vsno, "Tsfc": diag.Tsfc,
         "uvel": state.uvel, "vvel": state.vvel,

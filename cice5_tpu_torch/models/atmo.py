@@ -39,15 +39,34 @@ def _psixhu(x):
 
 
 def atmo_boundary_layer(*, sfctype: str, Tsf, potT, uatm, vatm, wind, zlvl,
-                        Qa, rhoa, natmiter: int = 5) -> ABLResult:
+                        Qa, rhoa, natmiter: int = 5, Cdn_atm=None,
+                        highfreq: bool = False, uice=None,
+                        vice=None) -> ABLResult:
     """Monin-Obukhov surface layer over 'ice' or 'ocn'
-    (ice_atmo.F90:82-489), without form drag or high-frequency coupling
-    (options of later slices)."""
+    (ice_atmo.F90:82-489).
+
+    Cdn_atm: the form-drag neutral drag coefficient over ice (None: the
+    constant roughness-length value). highfreq: RASM high-frequency
+    coupling (Roberts et al 2014, ice_atmo.F90:220-227,272-277,398-417):
+    winds relative to the ice velocity (uice/vice on the T grid) drive the
+    turbulence scales and the wind stress."""
     umin = 1.0
-    vmag = torch.clamp(wind, min=umin)
+    hf = highfreq and sfctype == "ice"
+    if hf:
+        if uice is None or vice is None:
+            raise ValueError("highfreq coupling needs uice/vice")
+        relu, relv = uatm - uice, vatm - vice
+        relmag = torch.sqrt(relu ** 2 + relv ** 2)
+        vmag = torch.clamp(relmag, min=umin)
+    else:
+        vmag = torch.clamp(wind, min=umin)
     if sfctype == "ice":
         qqq, TTT, Lheat = ct.qqqice, ct.TTTice, ct.Lsub
-        rdn = torch.full_like(vmag, ct.vonkar / math.log(ct.zref / ct.iceruf))
+        rdn0 = ct.vonkar / math.log(ct.zref / ct.iceruf)
+        if Cdn_atm is not None:
+            rdn = torch.where(Cdn_atm > ct.puny, torch.sqrt(Cdn_atm), rdn0)
+        else:
+            rdn = torch.full_like(vmag, rdn0)
     else:
         qqq, TTT, Lheat = ct.qqqocn, ct.TTTocn, ct.Lvap
         rdn = torch.sqrt(0.0027 / vmag + 0.000142 + 0.0000764 * vmag)
@@ -91,9 +110,15 @@ def atmo_boundary_layer(*, sfctype: str, Tsf, potT, uatm, vatm, wind, zlvl,
         tstar = rh * delt
         qstar = re * delq
 
-    tau = rhoa * ustar * rd
-    strx = tau * uatm
-    stry = tau * vatm
+    if hf:
+        # stress on the relative wind (ice_atmo.F90:398-417)
+        tau = rhoa * rd * rd
+        strx = tau * relmag * relu
+        stry = tau * relmag * relv
+    else:
+        tau = rhoa * ustar * rd
+        strx = tau * uatm
+        stry = tau * vatm
 
     shcoef = rhoa * ustar * cp * rh + 1.0   # windless coefficient, Jordan 99
     lhcoef = rhoa * ustar * Lheat * re

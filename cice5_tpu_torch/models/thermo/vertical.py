@@ -30,17 +30,21 @@ QBOTMAX = -0.5 * ct.rhoi * ct.Lfresh
 
 def frzmlt_bottom_lateral(dt, aice, frzmlt, vicen, vsnon, qicen_tot,
                           qsnon_tot, sst, Tf, strocnxT, strocnyT,
-                          ustar_min=0.0005):
+                          ustar_min=0.0005, Cdn_ocn=None):
     """Ocean-ice bottom heat flux, bottom temperature and lateral-melt
     fraction (ice_therm_vertical.F90:611-837). qicen_tot/qsnon_tot:
-    per-category column energies (ncat, *B). Returns (Tbot, fbot, rside).
+    per-category column energies (ncat, *B). Cdn_ocn: the form-drag ocean
+    exchange coefficient replacing the 0.006 McPhee/Maykut constant when
+    fbot_xfer_type='Cdn_ocn' (ice_therm_vertical.F90:741-746). Returns
+    (Tbot, fbot, rside).
     """
     Tbot = Tf
     melt = (aice > ct.puny) & (frzmlt < 0.0)
     deltaT = torch.clamp(sst - Tbot, min=0.0)
     ustar = torch.sqrt(torch.sqrt(strocnxT ** 2 + strocnyT ** 2) / ct.rhow)
     ustar = torch.clamp(ustar, min=ustar_min)
-    cpchr = -ct.cp_ocn * ct.rhow * 0.006
+    chio = 0.006 if Cdn_ocn is None else Cdn_ocn
+    cpchr = -ct.cp_ocn * ct.rhow * chio
     fbot = cpchr * deltaT * ustar
     fbot = torch.maximum(fbot, frzmlt)          # frzmlt < fbot < 0
 

@@ -3,9 +3,12 @@
     python -m cice5_tpu_torch.profile_step [--config gx1_parity]
         [--evp-algorithm pallas] [--ny 384 --nx 320 --steps 3]
 
-Runs the BL99 + CCSM3 configuration (``bench_easy``, the default) or the
+Runs the BL99 + CCSM3 configuration (``bench_easy``, the default), the
 gx1-parity configuration (``gx1_parity``: mushy thermo, dEdd, tracers,
-tripole seam, on ``synth_gx1_grid``), float32, ndte=120, on the GPU;
+tripole seam, on ``synth_gx1_grid``) or the ACCESS-OM 0.25-degree one
+(``auscom_025``: the gx1-parity physics at 1080x1440 with the coupled
+radiation ordering of the coupled model), float32, ndte=120, on the GPU;
+``--ny``/``--nx`` default to the configuration's grid;
 ``--evp-algorithm pallas`` takes the fused EVP sweep (kernel evp_fused)
 where the step does (not on the tripole seam). Prints one JSON line with
 
@@ -14,8 +17,10 @@ where the step does (not on the tripole seam). Prints one JSON line with
   ridging, slab ocean, and the rest), each phase bracketed by
   ``torch.cuda.synchronize()`` so that its device work is inside it;
   ``column_ms`` splits the column physics the same way (radiation,
-  vertical thermo; the rest of it is the tracers and the ITD). The phase
-  wrappers patch module functions, so they time the eager step only;
+  vertical thermo; the rest of it is the tracers and the ITD; under the
+  coupled radiation ordering the radiation runs after the dynamics and is
+  a phase of its own). The phase wrappers patch module functions, so they
+  time the eager step only;
 - ``eager`` and ``graph``: the eager step and ``Model.rollout``, whose
   steps replay the step's CUDA graphs, each over ``--steps`` steps:
   ``ms_per_step`` (host clock, no syncs inside), and from
@@ -39,7 +44,8 @@ from collections import defaultdict
 
 import torch
 
-from cice5_tpu_torch.config import bench_easy_config, gx1_parity_config
+from cice5_tpu_torch.config import (auscom_025_config, bench_easy_config,
+                                    gx1_parity_config)
 from cice5_tpu_torch.driver import step as step_mod
 from cice5_tpu_torch.driver.model import Model
 from cice5_tpu_torch.grid import synth_gx1_grid
@@ -61,10 +67,12 @@ OWN_KERNELS = {"evp_resident": "evp_sweep",
                "shortwave_dedd": "shortwave_dedd"}
 
 
-def _timed_phases(totals, column):
+def _timed_phases(totals, column, coupled_radiation=False):
     """Wrap the phase functions the step module calls so that each adds
     its synchronized wall time to ``totals`` (``column`` for the parts of
-    the column physics). Returns an undo function."""
+    the column physics; the radiation goes to ``totals`` under the coupled
+    ordering, which runs it after the dynamics). Returns an undo
+    function."""
     saved = []
 
     def wrap(owner, attr, label, acc):
@@ -85,7 +93,8 @@ def _timed_phases(totals, column):
         wrap(owner, attr, label, totals)
     for attr, label in COLUMN_PHASES.items():
         owner = step_mod.vertical if attr == "thermo_vertical" else step_mod
-        wrap(owner, attr, label, column)
+        in_column = not (coupled_radiation and attr == "_step_radiation")
+        wrap(owner, attr, label, column if in_column else totals)
 
     def undo():
         for owner, attr, fn in saved:
@@ -95,26 +104,27 @@ def _timed_phases(totals, column):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--config", choices=("bench_easy", "gx1_parity"),
+    ap.add_argument("--config", choices=("bench_easy", "gx1_parity",
+                                         "auscom_025"),
                     default="bench_easy")
     ap.add_argument("--evp-algorithm", choices=("auto", "pallas"),
                     default="auto")
-    ap.add_argument("--ny", type=int, default=384)
-    ap.add_argument("--nx", type=int, default=320)
+    ap.add_argument("--ny", type=int, default=None)
+    ap.add_argument("--nx", type=int, default=None)
     ap.add_argument("--steps", type=int, default=3)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
 
-    if args.config == "gx1_parity":
-        cfg = gx1_parity_config()
-        cfg = cfg.replace(grid=dataclasses.replace(cfg.grid, ny=args.ny,
-                                                   nx=args.nx))
-    else:
-        cfg = bench_easy_config(ny=args.ny, nx=args.nx)
-    cfg = cfg.replace(dyn=dataclasses.replace(
-        cfg.dyn, evp_algorithm=args.evp_algorithm))
-    if args.config == "gx1_parity":
+    cfg = {"gx1_parity": gx1_parity_config,
+           "auscom_025": lambda: auscom_025_config(coupled_radiation=True),
+           "bench_easy": bench_easy_config}[args.config]()
+    args.ny = args.ny or cfg.grid.ny
+    args.nx = args.nx or cfg.grid.nx
+    cfg = cfg.replace(
+        grid=dataclasses.replace(cfg.grid, ny=args.ny, nx=args.nx),
+        dyn=dataclasses.replace(cfg.dyn, evp_algorithm=args.evp_algorithm))
+    if cfg.grid.grid_type == "tripole":
         m = Model(cfg, grid=synth_gx1_grid(cfg, device="cuda"))
         st = m.init_state()
     else:
@@ -131,7 +141,7 @@ def main(argv=None):
         return st, diag
 
     totals, column = defaultdict(float), defaultdict(float)
-    undo = _timed_phases(totals, column)
+    undo = _timed_phases(totals, column, cfg.coupled_radiation)
     try:
         t0 = time.perf_counter()
         st, _ = eager(st, args.steps)

@@ -29,6 +29,7 @@ from cice5_tpu.models.dynamics import shared as jdyn
 from cice5_tpu.models.dynamics.strength import strength_hibler as jhibler
 from cice5_tpu.ops.pallas.evp_resident import sweep_resident
 from cice5_tpu.parallel import Topology as JTopology
+from cice5_tpu_torch import constants as ct
 from cice5_tpu_torch.config import rect_config
 from cice5_tpu_torch.grid import rectgrid
 from cice5_tpu_torch.models.dynamics import evp as tevp
@@ -336,3 +337,29 @@ def test_tiled_schedule_matches_jax_sweep_resident():
                              _flat(ref), _flat(got), _flat(plain)):
         assert torch.equal(b, c), name
         assert_close(a, b, 1e-9, name, floor=1e-12)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_tiled_schedule_device_branch_with_fold_and_cw_plane(dtype):
+    """The plan the 0.25-degree coupled path takes (the device branch,
+    more tiles than blocks, so each block walks several tiles per
+    subcycle), on a 64x70 tripole grid whose fold crosses three tile
+    columns, with the form-drag Cw plane: bit for bit against
+    ``subcycle_sweep``, and the plane changes the result."""
+    ny, nx = 64, 70
+    p, topo, kw = _sweep_inputs(ny, nx, "cyclic", "tripole", dtype,
+                                cw_plane=True)
+    plan = tile_plan(ny, nx, kw["uvel"].dtype, 2, H100["smem_optin"],
+                     "device")
+    assert (plan.branch, plan.ntj, plan.nti, plan.blocks) == ("device", 3,
+                                                              3, 2)
+    ref = tevp.subcycle_sweep(p, 3, topo, **kw)
+    got = tiled_sweep(p, 3, topo, plan, **kw)
+    for name, a, b in zip(("u", "v", "stress", "divu", "shear", "rdg_conv",
+                           "rdg_shear", "prs_sig", "strintx", "strinty"),
+                          _flat(ref), _flat(got)):
+        assert torch.equal(a, b), name
+    const = tevp.subcycle_sweep(p, 3, topo, **dict(kw, Cw=ct.dragio))
+    assert not torch.equal(const[0], ref[0])
+    # the seam rows move
+    assert float(ref[0][-2:].abs().max()) > 0.0

@@ -173,3 +173,43 @@ def test_model_on_the_cpu_stays_eager():
     s2, d2 = step_fn(*step_fn(st, f, *m.step_args)[:1], f, *m.step_args)
     assert m.graphs == {}
     assert _equal(s1, s2) == [] and _equal(d1, d2) == []
+
+
+COUPLED_OPTIONS = {
+    "coupled_radiation": lambda c: c.replace(coupled_radiation=True),
+    "formdrag": lambda c: c.replace(forcing=dataclasses.replace(
+        c.forcing, formdrag=True)),
+    "highfreq": lambda c: c.replace(forcing=dataclasses.replace(
+        c.forcing, highfreq=True)),
+    "Cdn_ocn": lambda c: c.replace(thermo=dataclasses.replace(
+        c.thermo, fbot_xfer_type="Cdn_ocn")),
+}
+
+
+@pytest.mark.parametrize("option", list(COUPLED_OPTIONS) + ["all"])
+def test_coupled_options_as_captured_equal_eager(option):
+    """The gx1-parity step with each coupled-mode option (and with all
+    four) run as its graphs run it, under a strict HostSyncs: two steps
+    equal the eager steps bit for bit, with no host read but the loops'
+    flag reads and no tensor made from host data (float32, from the
+    initial state, which ``init_state`` prefills under
+    coupled_radiation)."""
+    m0, _, f = _model("parity", "float32")
+    cfg = m0.cfg
+    for name, on in COUPLED_OPTIONS.items():
+        if option in (name, "all"):
+            cfg = on(cfg)
+    m = Model(cfg, grid=m0.grid, device="cpu")
+    st = m.init_state()
+    if cfg.coupled_radiation:
+        assert float(st.rad_prev.abs().max()) > 0.0
+    ref = got = st
+    for _ in range(2):
+        ref, dref = step_fn(ref, f, *m.step_args)
+        guard = graph.HostSyncs(strict=True)
+        (got, dgot), passes = _as_captured(step_fn, got, f, *m.step_args,
+                                           k=1, guard=guard)
+        assert _equal(ref, got) == [] and _equal(dref, dgot) == []
+        assert guard.host_made == 0
+        assert guard.syncs == sum(n + 1 for n in passes)
+    assert dgot.drag.shape[0] == (17 if cfg.forcing.formdrag else 0)

@@ -285,10 +285,15 @@ def test_finished_file(tmp_path):
 def _configs():
     parity = U.port_parity_model().cfg
     easy = bench_easy_config(ny=8, nx=8, ndte=2)
-    return {"parity": parity, "bl99": easy}
+    # the coupled-mode options: the form-drag fields join the catalog
+    coupled = parity.replace(
+        coupled_radiation=True,
+        forcing=dataclasses.replace(parity.forcing, formdrag=True,
+                                    highfreq=True))
+    return {"parity": parity, "bl99": easy, "coupled": coupled}
 
 
-@pytest.mark.parametrize("name", ["parity", "bl99"])
+@pytest.mark.parametrize("name", ["parity", "bl99", "coupled"])
 @pytest.mark.parametrize("include_3d", [True, False])
 def test_catalog_matches_jax(name, include_3d):
     cfg = _configs()[name]
@@ -318,7 +323,7 @@ def test_icefields_mapping_matches_jax():
 
 
 @pytest.mark.parametrize("what", ["tr_aero", "tr_brine", "skl_bgc",
-                                  "formdrag", "diag_mechred", "kdyn"])
+                                  "diag_mechred", "kdyn"])
 def test_catalog_raises_for_physics_not_ported(what):
     cfg = bench_easy_config(ny=8, nx=8, ndte=2)
     r = dataclasses.replace
@@ -326,7 +331,6 @@ def test_catalog_raises_for_physics_not_ported(what):
                                             n_aero=1)),
            "tr_brine": cfg.replace(tracers=r(cfg.tracers, tr_brine=True)),
            "skl_bgc": cfg.replace(tracers=r(cfg.tracers, skl_bgc=True)),
-           "formdrag": cfg.replace(forcing=r(cfg.forcing, formdrag=True)),
            "diag_mechred": cfg.replace(dyn=r(cfg.dyn, diag_mechred=True)),
            "kdyn": cfg.replace(dyn=r(cfg.dyn, kdyn=2))}[what]
     with pytest.raises(NotImplementedError, match="not ported"):

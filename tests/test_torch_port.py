@@ -94,8 +94,6 @@ def _unsupported():
                                            tr_pond_lvl=True)),
         "aero": base.replace(tracers=r(base.tracers, tr_aero=True,
                                        n_aero=1)),
-        "formdrag": base.replace(forcing=r(base.forcing, formdrag=True)),
-        "coupled_radiation": base.replace(coupled_radiation=True),
         "eap": base.replace(dyn=r(base.dyn, kdyn=2)),
         "upwind": base.replace(dyn=r(base.dyn, advection="upwind")),
         "chunked": base.replace(dyn=r(base.dyn, evp_algorithm="chunked")),
@@ -140,6 +138,17 @@ def _ported():
         "bench_easy_fused": easy.replace(dyn=r(easy.dyn,
                                                evp_algorithm="pallas")),
         "rect": tconfig.rect_config(ny=8, nx=8),
+        # the coupled-mode options, alone and together
+        "formdrag": easy.replace(forcing=r(easy.forcing, formdrag=True)),
+        "highfreq": parity.replace(forcing=r(parity.forcing,
+                                             highfreq=True)),
+        "coupled_radiation": parity.replace(coupled_radiation=True),
+        "fbot_Cdn_ocn": easy.replace(thermo=r(easy.thermo,
+                                              fbot_xfer_type="Cdn_ocn")),
+        "auscom_025_coupled": tconfig.auscom_025_config(
+            coupled_radiation=True, forcing=r(parity.forcing, formdrag=True,
+                                              highfreq=True)),
+        "tx01": tconfig.tx01_config(),
     }
 
 

@@ -92,7 +92,31 @@ toolkit. Phases (any failure exits non-zero):
    fbot_xfer_type="Cdn_ocn") on the card and on the CPU within 3e-8 of
    scale, its graph rollout equal to the eager step at 0.0 and a restart
    after 2 steps through the graphs equal to the continuous run at 0.0.
-8. Print one JSON line with every kernel (launches from the gx1-parity
+8. The standalone configurations and the column options
+   (``options_phase``): ``gx3_config`` and ``tp1_config`` at 116x100
+   (nilyr=7, ndte=120, float32), each reading its grid through
+   ``make_grid`` -> ``popgrid`` -> ``read_pop_grid_nc`` from a netCDF3
+   file pair this phase writes to a temporary directory (the synthetic
+   global mesh with the gx1 land mask resampled; the reference's
+   global_gx3/global_tp1 files are not in the repository), driven
+   through ``Model.run`` for 4 steps after 2 warm-up steps; the
+   gx1-parity model with topographic ponds (``gx1_topo``, 384x320, kernel
+   C under pond_scheme="topo") through ``Model.rollout``, 5 steps; the
+   BL99 model at 384x320 with zero-layer thermo (``Model.rollout``, 5
+   steps) and with the coupler's per-category surface fluxes
+   (calc_Tsfc=False, ``CoupledModel`` with NumPy fluxes every step, 4
+   steps). Each with the launch counters set to 0 just before its timed
+   steps and read just after (A, B, and C where the path runs dEdd, once
+   per step), the bench.py guards, ms/step, peak device memory, and the
+   graph rollout against the eager step at 0.0; one JSON line each
+   (``gx3:``, ``tp1:``, ``gx1_topo:``, ``bl99_options ktherm=0:``,
+   ``bl99_options calc_Tsfc=False:``). Then A, B and C against their
+   plain versions on inputs captured from gx3 and from gx1_topo, float64
+   and float32 (C's float32 held to the plain float32's accuracy against
+   float64), and every option set of tests/test_torch_options.py small
+   (24x16, float64) on the card against the CPU within 3e-8 of scale,
+   with its graph rollout equal to the eager step at 0.0.
+9. Print one JSON line with every kernel (launches from the gx1-parity
    main path, the fused kernel's from the fused path; times on the
    gx1-parity inputs, the fused kernel's on the BL99 ones), then the card
    line, then ``{"ok": true, "device": {...}}`` as the last line.
@@ -1712,6 +1736,364 @@ def formdrag_evp_phase(cap64, cap32, cw64, cw32, label, fused):
         fail(f"{name} with a form-drag Cw plane ({label}): {bad}")
 
 
+# ---------------------------------------------------------------------
+# the standalone configurations and the column options (phase 9)
+# ---------------------------------------------------------------------
+
+# the coupler's per-category surface fluxes of the calc_Tsfc=False path
+# (W/m^2, from a fixed generator): fsurfn_f = fcondtopn_f, a surface in
+# conductive balance, with latent and sensible parts
+CPL_FLUX = dict(fsurf=(-40.0, -5.0), flat=(-6.0, 0.0), fsens=(-15.0, 5.0))
+
+
+def write_pop_pair(d, stem, ny, nx):
+    """A POP grid file pair as netCDF3 under directory ``d``
+    (``<stem>.grid.nc``: ulat/ulon/angle in radians, htn/hte in cm;
+    ``<stem>.kmt.nc``: kmt), popgrid_nc's layout: the synthetic global mesh
+    of ``synth_global_arrays`` with the gx1 land mask resampled to ny x nx
+    (its polar land bands; the reference's global_gx3 and global_tp1
+    files are not in the repository), open water at the north edge."""
+    import numpy as np
+    from scipy.io import netcdf_file
+    from cice5_tpu_torch.grid import _gx1_kmt, synth_global_arrays
+    kmt = _gx1_kmt()
+    kmt = kmt[np.arange(ny) * kmt.shape[0] // ny][
+        :, np.arange(nx) * kmt.shape[1] // nx]
+    ulat, ulon, htn, hte, angle, kmt = synth_global_arrays(kmt)
+    with netcdf_file(os.path.join(d, f"{stem}.grid.nc"), "w") as f:
+        f.createDimension("nj", ny)
+        f.createDimension("ni", nx)
+        for name, a in (("ulat", ulat), ("ulon", ulon), ("htn", htn * 100.0),
+                        ("hte", hte * 100.0), ("angle", angle)):
+            f.createVariable(name, "d", ("nj", "ni"))[:] = a
+    with netcdf_file(os.path.join(d, f"{stem}.kmt.nc"), "w") as f:
+        f.createDimension("nj", ny)
+        f.createDimension("ni", nx)
+        f.createVariable("kmt", "i", ("nj", "ni"))[:] = kmt
+
+
+def coupler_fluxes(cfg, seed):
+    """{field: (ncat, ny, nx) NumPy float array} of the per-category
+    surface fluxes an atmosphere sends under calc_Tsfc=False."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    shp = (cfg.ncat, cfg.grid.ny, cfg.grid.nx)
+    fs = rng.uniform(*CPL_FLUX["fsurf"], shp)
+    return dict(fsurfn_f=fs, fcondtopn_f=fs.copy(),
+                flatn_f=rng.uniform(*CPL_FLUX["flat"], shp),
+                fsensn_f=rng.uniform(*CPL_FLUX["fsens"], shp))
+
+
+def option_path(label, m, st, nsteps, expect, drive="rollout", cm=None,
+                grid_read_s=None, nwarm=2):
+    """Drive one path of phase 9: ``nwarm`` warm-up steps (the first an
+    eager step and the capture), then ``nsteps`` timed steps through
+    ``Model.run`` (``drive="run"``), ``Model.rollout`` or the coupled
+    model ``cm`` with the launch counters set to 0 just before and read
+    just after (each kernel ``expect[name]`` launches per step), the
+    bench.py guards, and the graph rollout against the eager step at 0.0
+    (``graph_phase``). Prints the path's line and one JSON line."""
+    import torch
+    from cice5_tpu_torch.ops import kernels
+    cfg = m.cfg
+    f0 = m.forcing_at(0)
+    t0 = time.perf_counter()
+    if cm is not None:
+        st, diag = cm.run(st, nwarm)
+        f0 = cm._forcing
+    else:
+        st, diag = m.rollout(st, f0, nwarm)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    check_health(m, st, diag, f"{label} post-warmup")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    if cm is not None:
+        st, diag = cm.run(st, nsteps, start_step=nwarm)
+    elif drive == "run":
+        st = m.run(st, nsteps, start_step=nwarm, check_every=1,
+                   log=lambda *a: None)
+        diag = None
+    else:
+        st, diag = m.rollout(st, f0, nsteps)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / nsteps * 1e3
+    launches = kernels.launch_counts()
+    want = {k: v * nsteps for k, v in expect.items()}
+    want.update({k: 0 for k in kernels.KERNELS if k not in want})
+    frac = check_health(m, st, diag, f"{label} post-timing")
+    if launches != want:
+        fail(f"{label}: launches {launches}, expected {want}")
+    peak = torch.cuda.max_memory_allocated()
+    (g,) = m.graphs.values()
+    cells = cfg.grid.nx * cfg.grid.ny
+    through = {"run": "Model.run", "rollout": "Model.rollout"}[drive] \
+        if cm is None else "CoupledModel.run"
+    per_step = {k: v / nsteps for k, v in launches.items() if v}
+    print(f"main path {label} on {card_line()}: {cfg.grid.ny}x{cfg.grid.nx} "
+          f"{cfg.dtype} ndte={cfg.dyn.ndte} nilyr={cfg.nilyr} ktherm="
+          f"{cfg.thermo.ktherm} calc_Tsfc={cfg.thermo.calc_Tsfc}, through "
+          f"{through}, {nsteps} timed steps after {nwarm}: {ms:.3f} ms/step "
+          f"({cells / ms * 1e3:.4e} cell-steps/s); launches per step "
+          f"{per_step}; ice fraction {frac:.4f}; peak device memory "
+          f"{peak / 2**30:.3f} GiB; capture {g.capture_seconds:.2f} s, "
+          f"first {nwarm} steps {first_s:.2f} s", flush=True)
+    graph_phase(label, m, st, f0, 2)
+    line = dict(path=label, shape=[cfg.grid.ny, cfg.grid.nx],
+                dtype=cfg.dtype, ndte=cfg.dyn.ndte, nilyr=cfg.nilyr,
+                ktherm=cfg.thermo.ktherm, calc_Tsfc=cfg.thermo.calc_Tsfc,
+                through=through, card=card_line(), warmup_steps=nwarm,
+                timed_steps=nsteps, ms_per_step=ms,
+                cell_steps_per_s=cells / ms * 1e3,
+                launches_per_step=per_step, ice_fraction=frac,
+                peak_memory_bytes=peak, capture_s=g.capture_seconds)
+    if grid_read_s is not None:
+        line["grid_read_s"] = grid_read_s
+    print(f"{label}: " + json.dumps(line), flush=True)
+    return st
+
+
+def fresh_path():
+    """Free the previous path's device memory and start a peak count."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def build_standalone(builder, grid_dir, dtype="float32"):
+    """``gx3_config(grid_dir)`` or ``tp1_config(grid_dir)`` (116x100,
+    nilyr=7, ndte=120) at ``dtype``: a Model that reads its grid through
+    make_grid -> popgrid -> read_pop_grid_nc, and its initial state (the
+    default 70N/60S ice edge)."""
+    from cice5_tpu_torch import config
+    from cice5_tpu_torch.driver.model import Model
+    cfg = getattr(config, f"{builder}_config")(grid_dir, dtype=dtype,
+                                               accum_dtype=dtype)
+    m = Model(cfg)
+    return m, m.init_state(), m.forcing_at(0)
+
+
+def gx1_topo_config(dtype="float32"):
+    """gx1_parity_config with topographic ponds in place of level ponds."""
+    import dataclasses
+    from cice5_tpu_torch.config import gx1_parity_config
+    cfg = gx1_parity_config(dtype=dtype, accum_dtype=dtype)
+    return cfg.replace(tracers=dataclasses.replace(
+        cfg.tracers, tr_pond_lvl=False, tr_pond_topo=True))
+
+
+def build_gx1_topo(dtype="float32"):
+    from cice5_tpu_torch.driver.model import Model
+    from cice5_tpu_torch.grid import synth_gx1_grid
+    cfg = gx1_topo_config(dtype)
+    m = Model(cfg, grid=synth_gx1_grid(cfg, device="cuda"))
+    return m, m.init_state(), m.forcing_at(0)
+
+
+def bl99_option_config(option, dtype="float32"):
+    """bench_easy_config (384x320) with ktherm=0 or calc_Tsfc=False."""
+    import dataclasses
+    from cice5_tpu_torch.config import bench_easy_config
+    cfg = bench_easy_config(dtype=dtype)
+    th = dict(ktherm=0) if option == "ktherm0" else dict(calc_Tsfc=False)
+    return cfg.replace(thermo=dataclasses.replace(cfg.thermo, **th))
+
+
+def option_kernels(label, build_model, scheme=None):
+    """Kernels A, B and C against their plain versions on the arguments of
+    one step of ``build_model`` (after a warm-up step) in float64 and
+    float32, with phase 2's tolerances (A, B) and C's float64 check at
+    1e-12 with its float32 accuracy held to the plain float32's against
+    float64 (``dedd_full_size_check``); C must have been called with pond
+    setup ``scheme``. Prints A's plan and cost split (``evp_costs``) and
+    C's time as a CUDA graph replay."""
+    from cice5_tpu_torch.models.radiation import dedd
+    caps = {dt: capture(build_model, dt) for dt in ("float64", "float32")}
+    evp_phase(caps["float64"][1]["evp"], caps["float32"][1]["evp"], label)
+    evp_costs(caps["float32"][1]["evp"], label)
+    remap_phase(caps["float64"][1]["remap"], caps["float32"][1]["remap"],
+                caps["float64"][0], caps["float32"][0], label)
+    kw = caps["float32"][1]["dedd"]
+    if kw["pond_scheme"] != scheme:
+        fail(f"{label}: shortwave_dedd called with pond_scheme="
+             f"{kw['pond_scheme']!r}, expected {scheme!r}")
+    c = dedd_full_size_check(kw)
+    ncat, ny, nx = kw["aicen"].shape
+    print(f"shortwave_dedd {label} at {ny}x{nx}, nilyr={kw['nilyr']}, "
+          f"pond_scheme={kw['pond_scheme']!r}: float64 vs "
+          f"shortwave_dEdd_plain worst field {c['f64'][0]}: rel diff "
+          f"{c['f64'][1]:.3e} (bound 1e-12); float32 vs the plain float32 "
+          f"worst field {c['f32'][0]}: rel diff {c['f32'][1]:.3e}; the "
+          f"kernel's float32 worst distance from the float64 result beyond "
+          f"the plain float32's {c['excess'][1]:.3e} of scale "
+          f"({c['excess'][0]}; bound {DEDD_F32_TOL:.0e}); lit columns "
+          f"{c['lit']} of {c['cols']}, unlit exact zeros: {c['dark']}",
+          flush=True)
+    if not (c["f64"][1] <= 1e-12 and c["excess"][1] <= DEDD_F32_TOL
+            and c["dark"]):
+        fail(f"shortwave_dedd disagrees with shortwave_dEdd_plain "
+             f"({label})")
+    ms, _ = graph_ms(lambda: dedd.shortwave_dEdd_ncat(**kw), reps=50)
+    bound = dedd_bound(kw)
+    print(f"shortwave_dedd {label} f32: kernel {ms:.4f} ms in a CUDA graph,"
+          f" plain {c['plain_ms']:.3f} ms, bound {bound[0]:.4f} ms "
+          f"({bound[2]})", flush=True)
+
+
+def small_option_configs():
+    """{label: float64 config} of the small GPU-vs-CPU runs: the option
+    sets of tests/test_torch_options.py on a 24x16 global mesh (land on
+    the tripole seam), ndte=8."""
+    import dataclasses
+    from cice5_tpu_torch import config as C
+    r = dataclasses.replace
+    kw = dict(dtype="float64", accum_dtype="float64")
+    grid = lambda ns: C.GridConfig(
+        nx=16, ny=24, ew_boundary="cyclic", ns_boundary=ns,
+        grid_type="tripole" if ns == "tripole" else "displaced_pole")
+    dyn = C.DynConfig(kdyn=1, ndte=8, advection="remap", kstrength=1,
+                      krdg_partic=1, krdg_redist=1, mu_rdg=3.0, Cf=17.0)
+    base = C.ModelConfig(grid=grid("open"), dyn=dyn,
+                         forcing=C.ForcingConfig(oceanmixed_ice=True,
+                                                 natmiter=5),
+                         time=C.TimeConfig(dt=3600.0), **kw)
+    dedd = C.gx3_config().shortwave
+    ponds = dict(hs0=0.0, hs1=0.03, hp1=0.01, dpscale=1e-3, rfracmin=0.15,
+                 rfracmax=1.0, pndaspect=0.8)
+    mushy = dict(ktherm=2, dSdt_slow_mode=-5.0e-8)
+    gx3 = C.gx3_config(**kw)
+    tp1 = C.tp1_config(**kw)
+    return {
+        "gx3": gx3.replace(grid=grid("open"), dyn=r(gx3.dyn, ndte=8)),
+        "tp1": tp1.replace(grid=grid("tripole"), dyn=r(tp1.dyn, ndte=8)),
+        "cesm ponds bl99": base.replace(shortwave=dedd, tracers=C.TracerConfig(
+            tr_pond_cesm=True, **ponds)),
+        "cesm ponds mushy": base.replace(
+            shortwave=dedd, thermo=r(base.thermo, **mushy),
+            tracers=C.TracerConfig(tr_pond_cesm=True, **ponds)),
+        "topo ponds bl99": base.replace(shortwave=dedd, tracers=C.TracerConfig(
+            tr_pond_topo=True, **ponds)),
+        "topo ponds mushy": base.replace(
+            shortwave=dedd, thermo=r(base.thermo, **mushy),
+            tracers=C.TracerConfig(tr_pond_topo=True, **ponds)),
+        "frzpnd cesm": base.replace(shortwave=dedd, tracers=C.TracerConfig(
+            tr_lvl=True, tr_pond_lvl=True, frzpnd="cesm", **ponds)),
+        "ktherm=0": base.replace(thermo=r(base.thermo, ktherm=0)),
+        "calc_Tsfc=False": base.replace(thermo=r(base.thermo,
+                                                 calc_Tsfc=False)),
+    }
+
+
+def small_option_check(label, cfg):
+    """One option set through the kernels on the GPU against the plain
+    versions on the CPU: 24x16 float64, ndte=8, a northern-summer noon
+    with rain on the ice, ponds seeded where there is ice, one warm-up
+    step on the CPU, then two steps on each device, within 3e-8 of each
+    field's scale (tracers as conserved amounts); and on the GPU the graph
+    rollout against the eager step at 0.0."""
+    import torch
+    from cice5_tpu_torch.driver.model import Model
+    from cice5_tpu_torch.models.thermo.itd import tracer_weights
+    from cice5_tpu_torch.ops import check
+    mc = Model(cfg, grid=small_parity_grid(cfg, "cpu"), device="cpu")
+    mg = Model(cfg, grid=small_parity_grid(cfg, "cpu"), device="cuda")
+    st = mc.init_state()
+    tr = mc.tr
+    if tr.nt_apnd >= 0:
+        gen = torch.Generator().manual_seed(7)
+        has = st.aicen > 0
+        u = lambda lo, hi: torch.where(has, lo + (hi - lo) * torch.rand(
+            has.shape, generator=gen, dtype=torch.float64), 0.0)
+        trc = st.trcrn.clone()
+        trc[:, tr.nt_apnd], trc[:, tr.nt_hpnd] = u(0.1, 0.5), u(0.02, 0.3)
+        st = st.replace(trcrn=trc)
+    f = mc.forcing_at(172 * 24 + 12)
+    f = f.replace(frain=torch.full_like(f.frain, 2.0e-5))
+    if not cfg.thermo.calc_Tsfc:
+        f = f.replace(**{k: torch.as_tensor(v) for k, v in
+                         coupler_fluxes(cfg, seed=11).items()})
+    st, _ = mc.step(st, f)
+    ref = mc.rollout(st, f, 2)[0]
+    got = mg.rollout(st.to("cuda"), f.to("cuda"), 2)[0].to("cpu")
+    torch.cuda.synchronize()
+    graph_against_eager(mg, st.to("cuda"), f.to("cuda"),
+                        f"small float64 {label} run")
+    names = ("aicen", "vicen", "vsnon", "uvel", "vvel", "sst")
+    amount = lambda s: tracer_weights(tr, s.aicen, s.vicen, s.vsnon,
+                                      s.trcrn) * s.trcrn
+    r = {k: getattr(ref, k) for k in names}
+    g = {k: getattr(got, k) for k in names}
+    r["trcrn_amount"], g["trcrn_amount"] = amount(ref), amount(got)
+    field, rel, err = check.worst(check.field_errors(
+        r, g, axes={"trcrn_amount": 1}))
+    live = ""
+    if tr.nt_apnd >= 0:
+        vol = (got.trcrn[:, tr.nt_apnd] * got.trcrn[:, tr.nt_hpnd]
+               * got.aicen).sum()
+        live = f"; pond volume {float(vol):.4e}"
+        if not float(vol) > 0.0:
+            fail(f"small float64 {label} run: no pond water")
+    print(f"small float64 {label} run (24x16 {cfg.grid.ns_boundary} north, "
+          f"ndte=8, 2 steps after a warm-up step): GPU kernels vs CPU plain "
+          f"max abs diff {err:.3e}; worst field {field}: rel diff "
+          f"{rel:.3e} (bound 3e-8 x the field's scale){live}", flush=True)
+    if not rel <= 3e-8:
+        fail(f"small {label} run: {field} on the GPU differs from the CPU "
+             f"by {rel:.3e} of its scale (> 3e-8)")
+
+
+def options_phase():
+    """Phase 9: the standalone configurations gx3 and tp1 (116x100, grids
+    read from netCDF3 files this phase writes), the gx1-parity model with
+    topographic ponds (384x320), and the BL99 model with zero-layer thermo
+    (``Model.rollout``) and with the coupler's surface fluxes
+    (calc_Tsfc=False, ``CoupledModel`` with NumPy fluxes each step);
+    kernels A, B and C on the gx3 and gx1_topo inputs; the small float64
+    GPU-vs-CPU run of every option set."""
+    import tempfile
+    import torch
+    from cice5_tpu_torch.driver.coupled import CoupledModel
+    from cice5_tpu_torch.driver.model import Model
+    abc = dict(evp_sweep=1, remap_flux_both=1, shortwave_dedd=1)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_grids_") as tmp:
+        write_pop_pair(tmp, "global_gx3", 116, 100)
+        write_pop_pair(tmp, "global_tp1", 116, 100)
+        for label in ("gx3", "tp1"):
+            fresh_path()
+            t0 = time.perf_counter()
+            m, st, _ = build_standalone(label, tmp)
+            torch.cuda.synchronize()
+            read_s = time.perf_counter() - t0
+            option_path(label, m, st, 4, abc, drive="run",
+                        grid_read_s=read_s)
+            del m, st
+        option_kernels("gx3", lambda dt: build_standalone("gx3", tmp, dt),
+                       scheme="lvl")
+    fresh_path()
+    m, st, _ = build_gx1_topo()
+    option_path("gx1_topo", m, st, 5, abc)
+    del m, st
+    option_kernels("gx1_topo", build_gx1_topo, scheme="topo")
+    fresh_path()
+    m = Model(bl99_option_config("ktherm0"))
+    option_path("bl99_options ktherm=0", m,
+                m.init_state(ice_mask=m.grid.tmask), 5,
+                dict(evp_sweep=1, remap_flux_both=1))
+    fresh_path()
+    m = Model(bl99_option_config("calc_Tsfc"))
+    sent = [coupler_fluxes(m.cfg, seed=k) for k in range(2)]
+    cm = CoupledModel(model=m, get_atm=lambda t: sent[int(t // 3600) % 2])
+    option_path("bl99_options calc_Tsfc=False", m,
+                m.init_state(ice_mask=m.grid.tmask), 4,
+                dict(evp_sweep=1, remap_flux_both=1), cm=cm)
+    del m, cm
+    fresh_path()
+    for label, cfg in small_option_configs().items():
+        small_option_check(label, cfg)
+
+
 def main():
     try:
         import torch
@@ -1792,6 +2174,7 @@ def main():
                            evp_fused=60, remap_flux_edge=0))
     run_phase()
     auscom_025_phase(gx1_peak)
+    options_phase()
 
     line = {"kernels": [
         dict(name="evp_sweep", route="cuda",

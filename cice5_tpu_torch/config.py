@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
+from pathlib import Path
 
 import torch
 
@@ -260,6 +261,18 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
+def column_config(**overrides) -> ModelConfig:
+    """Single-column config (input_templates/col/ice_in analog): an 8x8
+    all-ocean grid of independent columns, no dynamics."""
+    cfg = ModelConfig(
+        grid=GridConfig(nx=8, ny=8, grid_type="column",
+                        ew_boundary="cyclic", ns_boundary="open"),
+        dyn=DynConfig(kdyn=0, advection="none"),
+        thermo=ThermoConfig(ktherm=1),
+    )
+    return cfg.replace(**overrides) if overrides else cfg
+
+
 def rect_config(ny: int = 116, nx: int = 100, **overrides) -> ModelConfig:
     """Synthetic rectangular basin with default physics (the reference's
     rectgrid, ice_grid.F90:1145)."""
@@ -310,6 +323,54 @@ def gx1_parity_config(**overrides) -> ModelConfig:
         kcatbound=0,
     )
     return cfg.replace(**overrides) if overrides else cfg
+
+
+# the reference's input templates (gx3/, tp1/ grid and KMT files) where
+# the repository carries them; it does not yet, so a caller passes grid_dir
+INPUT_TEMPLATES = Path(__file__).resolve().parents[1] / "input_templates"
+
+
+def gx3_config(grid_dir: str | None = None, **overrides) -> ModelConfig:
+    """gx3 standalone config (input_templates/gx3/ice_in): the 100x116
+    3-degree POP displaced-pole grid read from global_gx3.grid.nc +
+    global_gx3.kmt.nc in ``grid_dir``, mushy thermo, delta-Eddington
+    shortwave, iage/lvl/pond_lvl tracers, Rothrock strength, slab
+    mixed-layer ocean."""
+    d = grid_dir or str(INPUT_TEMPLATES / "gx3")
+    cfg = ModelConfig(
+        grid=GridConfig(nx=100, ny=116, grid_type="displaced_pole",
+                        ew_boundary="cyclic", ns_boundary="open",
+                        grid_format="nc",
+                        grid_file=f"{d}/global_gx3.grid.nc",
+                        kmt_file=f"{d}/global_gx3.kmt.nc"),
+        thermo=ThermoConfig(ktherm=2, dSdt_slow_mode=-5.0e-8),
+        dyn=DynConfig(kdyn=1, ndte=120, advection="remap", kstrength=1,
+                      krdg_partic=1, krdg_redist=1, mu_rdg=3.0, Cf=17.0),
+        shortwave=ShortwaveConfig(shortwave="dEdd", R_ice=0.0, R_pnd=0.0,
+                                  R_snw=1.5, dT_mlt=1.5, rsnw_mlt=1500.0),
+        tracers=TracerConfig(tr_iage=True, tr_lvl=True, tr_pond_lvl=True,
+                             hs0=0.0, hs1=0.03, hp1=0.01, dpscale=1e-3,
+                             frzpnd="hlid", rfracmin=0.15, rfracmax=1.0,
+                             pndaspect=0.8),
+        forcing=ForcingConfig(oceanmixed_ice=True, natmiter=5),
+        time=TimeConfig(dt=3600.0, year_init=1997),
+        kcatbound=0,
+    )
+    return cfg.replace(**overrides) if overrides else cfg
+
+
+def tp1_config(grid_dir: str | None = None, **overrides) -> ModelConfig:
+    """tp1 tripole config (input_templates/tp1): the 100x116 POP grid of
+    global_tp1.grid.nc + global_tp1.kmt.nc in ``grid_dir`` with a tripole
+    north seam, otherwise gx3's physics."""
+    d = grid_dir or str(INPUT_TEMPLATES / "tp1")
+    return gx3_config().replace(
+        grid=GridConfig(nx=100, ny=116, grid_type="tripole",
+                        ew_boundary="cyclic", ns_boundary="tripole",
+                        grid_format="nc",
+                        grid_file=f"{d}/global_tp1.grid.nc",
+                        kmt_file=f"{d}/global_tp1.kmt.nc"),
+        **overrides)
 
 
 def auscom_025_config(**overrides) -> ModelConfig:

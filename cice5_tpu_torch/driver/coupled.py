@@ -12,7 +12,9 @@ into the per-ice-area fluxes a coupler expects.
 In place of MPI + OASIS puts and gets into a remote coupler, the exchange
 is three host callbacks of the embedding system:
 
-    get_atm(time_sec)  -> dict of atmospheric fields (ny, nx)
+    get_atm(time_sec)  -> dict of atmospheric fields (ny, nx); with
+                          calc_Tsfc=False also the per-category surface
+                          fluxes CAT_FIELDS (ncat, ny, nx)
     get_ocn(time_sec)  -> dict of ocean fields
     put_ocn(time_sec, dict)  # receives the scaled outbound fields
 
@@ -85,6 +87,11 @@ ATM_FIELDS = ("swvdr", "swvdf", "swidr", "swidf", "flw", "Tair", "potT",
               "frain", "fsw")
 OCN_FIELDS = ("sst", "sss", "uocn", "vocn", "ss_tltx", "ss_tlty", "frzmlt",
               "qdp", "hmix")
+# the per-category surface fluxes an atmosphere sends when the ice takes
+# them as given (calc_Tsfc=False; set_sfcflux, ice_flux.F90:1015), each
+# (ncat, ny, nx): the JAX package's Forcing has the fields and its step
+# reads them, but its coupled driver passes no field of that shape
+CAT_FIELDS = ("fsurfn_f", "fcondtopn_f", "flatn_f", "fsensn_f")
 
 
 @dataclasses.dataclass
@@ -105,15 +112,18 @@ class CoupledModel:
         self._shape = tuple(self.model.grid.shape)
         self._dtype = self.model.cfg.xp_dtype
 
-    def _field(self, v) -> torch.Tensor:
+    def _field(self, v, per_category=False) -> torch.Tensor:
         """An inbound field on the model's device in its dtype, at the
-        grid's shape (a scalar is broadcast, as it broadcasts in the JAX
-        package's step, so the step's captured graphs keep their
-        shapes). A copy: the caller may reuse its buffer."""
+        grid's shape, or (ncat, ny, nx) ``per_category`` (a scalar is
+        broadcast, as it broadcasts in the JAX package's step, so the
+        step's captured graphs keep their shapes). A copy: the caller may
+        reuse its buffer."""
         if not torch.is_tensor(v):
             v = torch.from_numpy(np.asarray(v, dtype=_NP_DTYPES[self._dtype]))
         t = v.to(device=self.model.device, dtype=self._dtype, copy=True)
-        return torch.broadcast_to(t, self._shape).contiguous()
+        shape = ((self.model.cfg.ncat,) + self._shape if per_category
+                 else self._shape)
+        return torch.broadcast_to(t, shape).contiguous()
 
     def _merge(self, updates: Mapping[str, object], allowed) -> None:
         """Overwrite forcing fields from a coupler exchange."""
@@ -125,7 +135,7 @@ class CoupledModel:
                 continue
             if k not in allowed:
                 raise KeyError(f"unknown coupling field '{k}'")
-            fields[k] = self._field(v)
+            fields[k] = self._field(v, per_category=k in CAT_FIELDS)
         if "sss" in fields:
             fields["Tf"] = Tf_from_sss(fields["sss"])
         if "Tair" in fields and "potT" not in fields:
@@ -137,8 +147,12 @@ class CoupledModel:
         self._forcing = self._forcing.replace(**fields)
 
     def from_atm(self, fields: Mapping[str, object]) -> None:
-        """Receive atmospheric coupling fields (cpl_interface.F90:470)."""
-        self._merge(fields, ATM_FIELDS)
+        """Receive atmospheric coupling fields (cpl_interface.F90:470);
+        the per-category surface fluxes only when the model takes them
+        (calc_Tsfc=False)."""
+        allowed = ATM_FIELDS if self.model.cfg.thermo.calc_Tsfc \
+            else ATM_FIELDS + CAT_FIELDS
+        self._merge(fields, allowed)
 
     def from_ocn(self, fields: Mapping[str, object]) -> None:
         """Receive ocean coupling fields (cpl_interface.F90:554)."""

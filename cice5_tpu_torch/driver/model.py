@@ -41,40 +41,30 @@ _LATER = "a later slice of the port"
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for every option outside the port so far
-    (the BL99 + CCSM3 model on a rectangular grid, and the gx1-parity
-    model with all of its options together: POP/tripole grid with a U-fold
-    seam, mushy thermodynamics, delta-Eddington shortwave, the
-    iage/FY/lvl/level-pond tracers with the refrozen pond lid; either with
-    ``evp_algorithm="pallas"``, the fused EVP sweep, off a tripole seam;
-    either with the coupled-mode options formdrag, highfreq,
-    coupled_radiation and fbot_xfer_type="Cdn_ocn"), naming the slice that
-    brings it. Nothing is silently approximated."""
+    """Raise NotImplementedError for every option outside the port so far,
+    naming the slice that brings it. The port runs the rectangular,
+    column, POP displaced-pole and tripole (U-fold), lat-lon and CPOM
+    grids; zero-layer, BL99 or mushy thermodynamics, with the surface
+    temperature solved or the coupler's fluxes prescribed
+    (calc_Tsfc=False); CCSM3 or delta-Eddington shortwave; the iage, FY
+    and level-ice tracers and the CESM, level-ice or topographic ponds
+    (frzpnd 'hlid' or 'cesm'); EVP dynamics with remap transport and
+    ridging, or the fused EVP sweep off a tripole seam; and the
+    coupled-mode options formdrag, highfreq, coupled_radiation and
+    fbot_xfer_type="Cdn_ocn". Each option is held against the JAX step
+    on its own (tests/test_torch_options.py). Nothing is silently
+    approximated."""
     g, th, dy, tc = cfg.grid, cfg.thermo, cfg.dyn, cfg.tracers
-    parity = {"grid_type='tripole'": g.grid_type == "tripole",
-              "the tripole seam": g.ns_boundary == "tripole",
-              "ktherm=2": th.ktherm == 2,
-              "shortwave='dEdd'": cfg.shortwave.shortwave == "dEdd",
-              "tr_iage": tc.tr_iage, "tr_FY": tc.tr_FY, "tr_lvl": tc.tr_lvl,
-              "tr_pond_lvl": tc.tr_pond_lvl}
-    on = [name for name, set_ in parity.items() if set_]
     checks = [
-        (g.grid_type not in ("rectangular", "column", "tripole"),
+        (g.grid_type not in ("rectangular", "column", "displaced_pole",
+                             "tripole", "latlon", "cpom"),
          f"grid_type={g.grid_type!r}", _LATER),
         (g.ns_boundary == "tripoleT" or g.ew_boundary in ("tripole",
                                                           "tripoleT"),
          "the tripoleT (T-fold) seam", _LATER),
-        (0 < len(on) < len(parity),
-         f"{', '.join(on)} without the rest of the gx1-parity options",
-         _LATER),
-        (tc.tr_pond_lvl and tc.frzpnd != "hlid",
-         f"frzpnd={tc.frzpnd!r} with level ponds", _LATER),
         (g.compact_columns == "on", "compact_columns='on'", _LATER),
-        (th.ktherm == 0, "ktherm=0 (zero-layer thermodynamics)", _LATER),
-        (not th.calc_Tsfc, "calc_Tsfc=False", _LATER),
-        (tc.tr_pond_cesm or tc.tr_pond_topo or tc.tr_aero or tc.tr_brine
-         or tc.skl_bgc, "the cesm/topo ponds, aerosol, brine and BGC "
-         "tracers", _LATER),
+        (tc.tr_aero or tc.tr_brine or tc.skl_bgc,
+         "the aerosol, brine and BGC tracers", _LATER),
         (dy.kdyn == 2, "kdyn=2 (EAP)", _LATER),
         (dy.advection == "upwind", "advection='upwind'", _LATER),
         (dy.kdyn >= 1 and dy.advection == "none",
@@ -108,6 +98,12 @@ def check_supported(cfg: ModelConfig) -> None:
             f"fbot_xfer_type={th.fbot_xfer_type!r}: the bottom heat "
             "transfer is 'constant' or 'Cdn_ocn' "
             "(ice_therm_vertical.F90:741-746)")
+    if th.ktherm not in (0, 1, 2):
+        raise ValueError(f"ktherm={th.ktherm}: 0 (zero-layer), 1 (BL99) or "
+                         "2 (mushy)")
+    if tc.tr_pond_lvl and tc.frzpnd not in ("hlid", "cesm"):
+        raise ValueError(f"frzpnd={tc.frzpnd!r}: the level-pond refreezing "
+                         "is 'hlid' or 'cesm' (ice_meltpond_lvl.F90)")
     if dy.yield_curve != "ellipse":
         raise NotImplementedError(
             f"yield_curve={dy.yield_curve!r}: only 'ellipse' exists "
@@ -163,13 +159,18 @@ def init_state(cfg: ModelConfig, grid: Grid, tr, hin_max, salinz,
     trcrn[:, tr.nt_Tsfc] = torch.where(msk[None], Tsfc0, Tf)
     sal = torch.as_tensor(salinz, **kw)
     Tmltz = -sal * ct.depressT
+    zero_layer = cfg.thermo.ktherm == 0     # latent heat only
     for k in range(cfg.nilyr):
         zfrac = (k + 0.5) / cfg.nilyr
         Ti = torch.minimum(Tsfc0 + (Tf - Tsfc0) * zfrac, Tmltz[k] - 0.1)
         qk = thshared.ice_enthalpy(Ti, Tmltz[k])
+        if zero_layer:
+            qk = torch.full_like(qk, -ct.rhoi * ct.Lfresh)
         trcrn[:, tr.nt_qice + k] = torch.where(msk[None], qk, 0.0)
         trcrn[:, tr.nt_sice + k] = torch.where(msk[None], sal[k], 0.0)
     qs = thshared.snow_enthalpy(torch.clamp(Tsfc0, max=-1.0))
+    if zero_layer:
+        qs = torch.full_like(qs, -ct.rhos * ct.Lfresh)
     for k in range(cfg.nslyr):
         trcrn[:, tr.nt_qsno + k] = torch.where(msk[None], qs,
                                                -ct.rhos * ct.Lfresh)
@@ -187,8 +188,9 @@ class Model:
     device: None runs on the GPU and raises when there is none; pass
     ``device="cpu"`` to run the plain PyTorch path on the CPU.
     grid: optional pre-built Grid (moved to the device); defaults to
-    ``make_grid(cfg)``. A POP/tripole configuration takes its grid from
-    the caller (``grid.synth_gx1_grid(cfg, device=...)`` for gx1).
+    ``make_grid(cfg)``, which reads the grid files a POP, CPOM or lat-lon
+    configuration names (``gx3_config(grid_dir)``); gx1 takes its grid
+    from the caller (``grid.synth_gx1_grid(cfg, device=...)``).
 
     On a CUDA device ``step`` and ``rollout`` replay the step captured as
     CUDA graphs (``driver/graph.py``), once for each set of input shapes

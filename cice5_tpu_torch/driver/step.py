@@ -1,14 +1,15 @@
 """One model time step (PyTorch port of ``cice5_tpu/driver/step.py``,
-restricted to the BL99 + CCSM3 and gx1-parity configurations and their
-coupled-mode options).
+without the aerosol, brine and BGC tracers, EAP, upwind transport and the
+conservation checks, which come with later slices).
 
 ice_step_mod.F90 and the standalone driver loop (CICE_RunMod.F90:107-267):
 radiation (CCSM3 or delta-Eddington), form drag, per-category vertical
-thermodynamics (BL99 or mushy), the ice age, first-year area and
-level-ice pond tracers, ITD evolution (linear remap, frazil, lateral
-melt, cleanup), EVP dynamics + remap transport + ridging, the slab
-ocean, and the flux aggregation for diagnostics, as one function
-``step(state, forcing, grid, ...) -> (state, diag)``.
+thermodynamics (zero-layer, BL99 or mushy; the coupler's surface fluxes
+with calc_Tsfc=False), the ice age, first-year area and the CESM,
+level-ice and topographic pond tracers, ITD evolution (linear remap,
+frazil, lateral melt, cleanup), EVP dynamics + remap transport +
+ridging, the slab ocean, and the flux aggregation for diagnostics, as one
+function ``step(state, forcing, grid, ...) -> (state, diag)``.
 
 Categories are an explicit leading batch axis: per-category fields are
 (ncat, ny, nx) and layer stacks are layer-first (nlyr, ncat, ny, nx), the
@@ -174,6 +175,12 @@ def _step_radiation(aicen, vicen, vsnon, trcrn, forcing: Forcing,
             hpnd_r = trcrn[:, tr.nt_hpnd]
             if tcfg.tr_pond_lvl:
                 apnd_r = apnd_r * trcrn[:, tr.nt_alvl]
+            elif tcfg.tr_pond_topo:
+                # a topo pond counts for radiation only while its refrozen
+                # lid is thinner than hp1 (ice_shortwave.F90:1516-1537)
+                eff = ((apnd_r * aicen > ct.puny)
+                       & (trcrn[:, tr.nt_ipnd] < tcfg.hp1))
+                apnd_r = torch.where(eff, apnd_r, 0.0)
         else:
             apnd_r = hpnd_r = torch.zeros_like(aicen)
         de = dedd.shortwave_dEdd_ncat(
@@ -186,7 +193,8 @@ def _step_radiation(aicen, vicen, vsnon, trcrn, forcing: Forcing,
             R_snw=sw.R_snw, dT_mlt=sw.dT_mlt, rsnw_mlt=sw.rsnw_mlt,
             kalg=sw.kalg, hs0=tcfg.hs0, hs1=tcfg.hs1,
             pndaspect=tcfg.pndaspect,
-            pond_scheme="lvl" if tcfg.tr_pond_lvl else "cesm")
+            pond_scheme=("topo" if tcfg.tr_pond_topo else
+                         "lvl" if tcfg.tr_pond_lvl else "cesm"))
         zc = torch.zeros_like(aicen)
         alb = Albedos(alvdrn=de.alvdrn, alidrn=de.alidrn, alvdfn=de.alvdfn,
                       alidfn=de.alidfn, alvdrni=de.alvdrn,
@@ -340,19 +348,32 @@ def _column_physics(aicen, vicen, vsnon, trcrn, strocnxT, strocnyT,
             Qa=forcing.Qa, rhoa=forcing.rhoa,
             natmiter=cfg.forcing.natmiter, Cdn_atm=Cdn_atm,
             highfreq=cfg.forcing.highfreq, uice=uice_T, vice=vice_T)
-    pond = {}
+    thermo_kw = {}
     if tcfg.tr_pond and mushy_on:
         apnd_all = trcrn[:, tr.nt_apnd]
         if tcfg.tr_pond_lvl:
             apnd_all = apnd_all * trcrn[:, tr.nt_alvl]
-        pond = dict(hpond=trcrn[:, tr.nt_hpnd], apond=apnd_all)
+        thermo_kw.update(hpond=trcrn[:, tr.nt_hpnd], apond=apnd_all)
+    if not cfg.thermo.calc_Tsfc:
+        # coupled mode: per-category surface fluxes from the coupler
+        # (set_sfcflux, ice_flux.F90:1015)
+        if forcing.fsurfn_f is None or forcing.fcondtopn_f is None \
+                or forcing.flatn_f is None:
+            raise ValueError(
+                "calc_Tsfc=False needs the coupler's per-category fluxes "
+                "Forcing.fsurfn_f, fcondtopn_f and flatn_f (fsensn_f "
+                "optional), each (ncat, ny, nx)")
+        thermo_kw.update(fsurfn_f=forcing.fsurfn_f,
+                         fcondtopn_f=forcing.fcondtopn_f,
+                         flatn_f=forcing.flatn_f,
+                         fsensn_f=forcing.fsensn_f)
     tres = vertical.thermo_vertical(
         dt, cfg, aicen=aicen, vicen=vicen, vsnon=vsnon, Tsfcn=Tsfcn,
         zqin=zqin, zqsn=zqsn, zSin=zSin, flw=forcing.flw, potT=forcing.potT,
         Qa=forcing.Qa, rhoa=forcing.rhoa, fsnow=forcing.fsnow,
         shcoef=abl.shcoef, lhcoef=abl.lhcoef, fswsfc=absr.fswsfc,
         fswint=absr.fswint, Sswabs=Sswabsn, Iswabs=absr.Iswabs, fbot=fbot,
-        Tbot=Tbot, sss=forcing.sss, **pond)
+        Tbot=Tbot, sss=forcing.sss, **thermo_kw)
 
     # merge per-category fluxes with pre-thermo areas (merge_fluxes)
     w = aicen
@@ -402,20 +423,43 @@ def _column_physics(aicen, vicen, vsnon, trcrn, strocnxT, strocnyT,
             return v.sum(0)
         fpond = -_pond_volume(trcrn, aicen)
         rfrac = tcfg.rfracmin + (tcfg.rfracmax - tcfg.rfracmin) * aice
-        pr = ponds.compute_ponds_lvl(
-            dt, aicen=aicen, vicen=vicen, vsnon=vsnon, Tsfcn=tres.Tsf,
-            alvl=trcrn[:, tr.nt_alvl], apnd=trcrn[:, tr.nt_apnd],
-            hpnd=trcrn[:, tr.nt_hpnd], ipnd=trcrn[:, tr.nt_ipnd],
-            meltt=tres.meltt, melts=tres.melts, frain=forcing.frain,
-            rfrac=rfrac[None], Tair=forcing.Tair, fsurfn=tres.fsurfn,
-            dhs=tres.dsnow, qicen=tres.zqin, sicen=zSin,
-            pndaspect=tcfg.pndaspect, frzpnd=tcfg.frzpnd,
-            dpscale=tcfg.dpscale, ktherm=cfg.thermo.ktherm)
-        trcrn[:, tr.nt_apnd] = pr.apnd
-        trcrn[:, tr.nt_hpnd] = pr.hpnd
-        trcrn[:, tr.nt_ipnd] = pr.ipnd
+        if tcfg.tr_pond_cesm:
+            trcrn[:, tr.nt_apnd], trcrn[:, tr.nt_hpnd] = \
+                ponds.compute_ponds_cesm(
+                    dt, aicen=aicen, vicen=vicen, vsnon=vsnon,
+                    Tsfcn=tres.Tsf, apnd=trcrn[:, tr.nt_apnd],
+                    hpnd=trcrn[:, tr.nt_hpnd], meltt=tres.meltt,
+                    melts=tres.melts, frain=forcing.frain,
+                    rfrac=rfrac[None], pndaspect=tcfg.pndaspect)
+        else:
+            if tcfg.tr_pond_lvl:
+                pr = ponds.compute_ponds_lvl(
+                    dt, aicen=aicen, vicen=vicen, vsnon=vsnon,
+                    Tsfcn=tres.Tsf, alvl=trcrn[:, tr.nt_alvl],
+                    apnd=trcrn[:, tr.nt_apnd], hpnd=trcrn[:, tr.nt_hpnd],
+                    ipnd=trcrn[:, tr.nt_ipnd], meltt=tres.meltt,
+                    melts=tres.melts, frain=forcing.frain,
+                    rfrac=rfrac[None], Tair=forcing.Tair,
+                    fsurfn=tres.fsurfn, dhs=tres.dsnow, qicen=tres.zqin,
+                    sicen=zSin, pndaspect=tcfg.pndaspect,
+                    frzpnd=tcfg.frzpnd, dpscale=tcfg.dpscale,
+                    ktherm=cfg.thermo.ktherm)
+            else:
+                # the cell's meltwater over the lowest-lying categories
+                # (ice_step_mod.F90:713-731 compute_ponds_topo)
+                pr = ponds.compute_ponds_topo(
+                    dt, aice=agg0.aice, aicen=aicen, vice=agg0.vice,
+                    vicen=vicen, vsno=agg0.vsno, vsnon=vsnon,
+                    meltt=dg["meltt"], fsurf=dg["fsurf"], Tsfcn=tres.Tsf,
+                    Tf=Tf, qicen=tres.zqin,
+                    sicen=tres.zSin if mushy_on else zSin,
+                    apnd=trcrn[:, tr.nt_apnd], hpnd=trcrn[:, tr.nt_hpnd],
+                    ipnd=trcrn[:, tr.nt_ipnd], ktherm=cfg.thermo.ktherm,
+                    heat_capacity=cfg.thermo.ktherm != 0)
+            trcrn[:, tr.nt_apnd] = pr.apnd
+            trcrn[:, tr.nt_hpnd] = pr.hpnd
+            trcrn[:, tr.nt_ipnd] = pr.ipnd
         fpond = fpond + _pond_volume(trcrn, aicen)
-    dg["fpond"] = fpond
 
     # step_therm2: ITD evolution
     if cfg.kitd == 1:
@@ -440,7 +484,8 @@ def _column_physics(aicen, vicen, vsnon, trcrn, strocnxT, strocnyT,
     dg["fsalt"] = dg["fsalt"] + nir.dfsalt
 
     lm = itd.lateral_melt(dt, tr, nilyr, nslyr, aicen=aicen, vicen=vicen,
-                          vsnon=vsnon, trcrn=trcrn, rside=rside)
+                          vsnon=vsnon, trcrn=trcrn, rside=rside,
+                          tr_pond_topo=tcfg.tr_pond_topo)
     aicen, vicen, vsnon = lm.aicen, lm.vicen, lm.vsnon
     dg["fresh"] = dg["fresh"] + lm.fresh
     dg["fsalt"] = dg["fsalt"] + lm.fsalt
@@ -448,11 +493,17 @@ def _column_physics(aicen, vicen, vsnon, trcrn, strocnxT, strocnyT,
     dg["meltl"] = lm.meltl
 
     cl = itd.cleanup_itd(dt, tr, hin_max, nilyr, nslyr, aicen=aicen,
-                         vicen=vicen, vsnon=vsnon, trcrn=trcrn)
+                         vicen=vicen, vsnon=vsnon, trcrn=trcrn,
+                         tr_pond_topo=tcfg.tr_pond_topo)
     aicen, vicen, vsnon, trcrn = cl.aicen, cl.vicen, cl.vsnon, cl.trcrn
     dg["fresh"] = dg["fresh"] + cl.dfresh
     dg["fsalt"] = dg["fsalt"] + cl.dfsalt
     dg["fhocn"] = dg["fhocn"] + cl.dfhocn
+    if tcfg.tr_pond_topo:
+        # topo-pond water that lateral melt and the zap removed
+        # (ice_itd.F90:1741-1750, ice_therm_itd.F90:1146-1212)
+        fpond = fpond - lm.dfpond - cl.dfpond
+    dg["fpond"] = fpond
 
     # land mask enforcement
     aicen = torch.where(tmask[None], aicen, 0.0)
@@ -495,6 +546,7 @@ def step(state: State, forcing: Forcing, grid: Grid, cfg: ModelConfig,
     aicen, vicen, vsnon = stout["aicen"], stout["vicen"], stout["vsnon"]
     trcrn = stout["trcrn"]
     fresh, fsalt, fhocn = dg["fresh"], dg["fsalt"], dg["fhocn"]
+    fpond = dg["fpond"]
 
     # dynamics: EVP + transport + ridging
     uvel, vvel = state.uvel, state.vvel
@@ -582,7 +634,8 @@ def step(state: State, forcing: Forcing, grid: Grid, cfg: ModelConfig,
                            rdg_shear=ev.rdg_shear,
                            krdg_partic=cfg.dyn.krdg_partic,
                            krdg_redist=cfg.dyn.krdg_redist,
-                           mu_rdg=cfg.dyn.mu_rdg, ndtd=cfg.time.ndtd)
+                           mu_rdg=cfg.dyn.mu_rdg, ndtd=cfg.time.ndtd,
+                           tr_pond_topo=cfg.tracers.tr_pond_topo)
             aicen, vicen, vsnon, trcrn = rr.aicen, rr.vicen, rr.vsnon, rr.trcrn
             niter_ridge += rr.niter
             fresh = fresh + rr.fresh
@@ -594,12 +647,17 @@ def step(state: State, forcing: Forcing, grid: Grid, cfg: ModelConfig,
 
             cl2 = itd.cleanup_itd(dt_dyn, tr, hin_max, nilyr, nslyr,
                                   aicen=aicen, vicen=vicen, vsnon=vsnon,
-                                  trcrn=trcrn)
+                                  trcrn=trcrn,
+                                  tr_pond_topo=cfg.tracers.tr_pond_topo)
             aicen, vicen, vsnon, trcrn = (cl2.aicen, cl2.vicen, cl2.vsnon,
                                           cl2.trcrn)
             fresh = fresh + cl2.dfresh
             fsalt = fsalt + cl2.dfsalt
             fhocn = fhocn + cl2.dfhocn
+            if cfg.tracers.tr_pond_topo:
+                # ridged and zapped topo-pond water
+                # (ice_mechred.F90:707-718)
+                fpond = fpond - rr.dfpond - cl2.dfpond
 
     # coupling prep: slab ocean update
     aggf = itd.aggregate(tr, aicen, vicen, vsnon, trcrn)
@@ -618,7 +676,7 @@ def step(state: State, forcing: Forcing, grid: Grid, cfg: ModelConfig,
     # meltwater retained in ponds does not reach the ocean
     # (CICE_RunMod.F90:384-387 coupling_prep, l_mpond_fresh)
     if cfg.forcing.l_mpond_fresh and cfg.tracers.tr_pond:
-        fresh = fresh - dg["fpond"] * ct.rhofresh / dt
+        fresh = fresh - fpond * ct.rhofresh / dt
     if cfg.forcing.oceanmixed_ice:
         ml = ocean.ocean_mixed_layer(
             dt, sst=sst, Tf=forcing.Tf, hmix=forcing.hmix, qdp=forcing.qdp,
@@ -677,7 +735,14 @@ def step(state: State, forcing: Forcing, grid: Grid, cfg: ModelConfig,
                  + _nbad(vsnon, -1e-6, 50.0)
                  + _nbad(uvel, -5.0, 5.0) + _nbad(vvel, -5.0, 5.0)
                  + _nbad(trcrn[:, tr.nt_Tsfc], -100.0, Tsfc_tol,
-                         mask=aicen > ct.puny)).to(torch.int32)
+                         mask=aicen > ct.puny))
+    if cfg.thermo.ktherm == 0:
+        # zero-layer enthalpies after every ITD operation
+        # (ice_itd.F90:2428 zerolayer_check, from cleanup_itd when
+        # heat_capacity=F)
+        state_bad = state_bad + global_sum(itd.zerolayer_check(
+            tr, nilyr, nslyr, aicen, vicen, vsnon, trcrn), topo)
+    state_bad = state_bad.to(torch.int32)
 
     new_state = state.replace(
         aicen=aicen, vicen=vicen, vsnon=vsnon, trcrn=trcrn,
@@ -701,7 +766,7 @@ def step(state: State, forcing: Forcing, grid: Grid, cfg: ModelConfig,
         alvdr=alvdr, alvdf=alvdf, alidr=alidr, alidf=alidf,
         Tsfc=aggf.trcr[tr.nt_Tsfc],
         therm_converged=sc["therm_converged"], ferr_max=sc["ferr_max"],
-        fpond=dg["fpond"], fsurfn_ai=dg["fsurfn_ai"], flatn_ai=dg["flatn_ai"],
+        fpond=fpond, fsurfn_ai=dg["fsurfn_ai"], flatn_ai=dg["flatn_ai"],
         fsensn_ai=dg["fsensn_ai"], fmelttn_ai=dg["fmelttn_ai"],
         snowfracn=dg["snowfracn"], fcondtopn_ai=dg["fcondtopn_ai"],
         fsurf=dg["fsurf"], fcondtop=dg["fcondtop"],

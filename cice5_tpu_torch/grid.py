@@ -1,9 +1,11 @@
 """Model grid: metrics, masks, staggering (PyTorch port).
 
 The NumPy builders ``_shift``, ``_tlatlon``, ``_finish_grid``,
-``rectgrid`` and ``popgrid_np`` are copies of ``cice5_tpu/grid.py``
-(ice_grid.F90:1145-1303 rectgrid, :543-874 popgrid, :1408-1533 metric
-derivation, the tripole seam umask from the fold image); ``_gx1_kmt`` and
+``rectgrid``, ``popgrid_np``, ``popgrid``, ``latlongrid``,
+``gridbox_corners`` and ``make_grid`` are copies of ``cice5_tpu/grid.py``
+(ice_grid.F90:1145-1303 rectgrid, :543-874 popgrid, :876-1141 latlongrid,
+:1313 cpomgrid, :1408-1533 metric derivation, the tripole seam umask from
+the fold image, :1972 gridbox_corners); ``_gx1_kmt`` and
 ``synth_gx1_grid`` are copies of ``bench.py``'s gx1 grid. They run once on
 the host in float64 NumPy, and ``Grid`` holds the results as tensors on
 the model's device. Axis 0 = j/latitude rows, axis 1 = i/longitude columns; the U
@@ -289,14 +291,110 @@ def synth_gx1_grid(cfg: ModelConfig, *, device) -> Grid:
     return popgrid_np(cfg, *synth_global_arrays(kmt), device=device)
 
 
+def popgrid(cfg: ModelConfig, *, device) -> Grid:
+    """Read + build a POP displaced-pole/tripole grid from the files named
+    in cfg.grid (ice_grid.F90:543 popgrid, :659 popgrid_nc)."""
+    from cice5_tpu_torch.io import readers
+    g = cfg.grid
+    if not g.grid_file or not g.kmt_file:
+        raise ValueError(
+            f"grid_type={g.grid_type!r} needs grid_file/kmt_file in "
+            "GridConfig")
+    if g.grid_format == "nc":
+        data = readers.read_pop_grid_nc(g.grid_file, g.kmt_file)
+    else:
+        data = readers.read_pop_grid_binary(g.grid_file, g.kmt_file,
+                                            g.nx, g.ny)
+    got = data["ULAT"].shape
+    if got != (g.ny, g.nx):
+        raise ValueError(f"grid file {g.grid_file} is {got[::-1]} (nx, ny) "
+                         f"but config says ({g.nx}, {g.ny})")
+    return popgrid_np(cfg, data["ULAT"], data["ULON"], data["HTN"],
+                      data["HTE"], data["ANGLE"], data["kmt"], device=device)
+
+
+SENTINEL = 1.0e36      # latlongrid metric sentinel (ice_grid.F90:1118-1131)
+
+
+def latlongrid(cfg: ModelConfig, tlat_deg, tlon_deg, tarea_rad2, mask, *,
+               device) -> Grid:
+    """CESM/CAM latitude-longitude grid for thermodynamics-only runs
+    (ice_grid.F90:876-1141 latlongrid): TLON/TLAT + cell areas from a CESM
+    domain file; the U grid is unused (its metrics are 1e36 sentinels, so
+    dynamics must be off, kdyn=0), and ULAT is TLAT shifted by half a row
+    so that the default initialization finds ice."""
+    ny, nx = np.asarray(tlat_deg).shape
+    dtype = cfg.xp_dtype
+    tlat = np.deg2rad(np.asarray(tlat_deg, np.float64))
+    tlon = np.deg2rad(np.asarray(tlon_deg, np.float64))
+    tarea = np.asarray(tarea_rad2, np.float64) * ct.radius ** 2
+    hm = (np.asarray(mask) >= 0.5).astype(np.float64)
+
+    sh = lambda a, di, dj: _shift(a, di, dj, False)
+    if ny == 1:
+        uarea = tarea.copy()
+        ulat = tlat.copy()
+    else:
+        uarea = 0.25 * (tarea + sh(tarea, 1, 0) + sh(tarea, 0, 1)
+                        + sh(tarea, 1, 1))
+        ulat = tlat + np.pi / ny
+    uvm = np.minimum.reduce([hm, sh(hm, 1, 0), sh(hm, 0, 1), sh(hm, 1, 1)])
+    z = np.zeros((ny, nx))
+    big = np.full((ny, nx), SENTINEL)
+    cast = lambda a: torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,
+                                     device=device)
+    lmask_n = ulat >= -ct.puny
+    return Grid(
+        ULAT=cast(ulat), ULON=cast(z), TLAT=cast(tlat), TLON=cast(tlon),
+        HTN=cast(big), HTE=cast(big), dxt=cast(big), dyt=cast(big),
+        dxu=cast(big), dyu=cast(big), tarea=cast(tarea), uarea=cast(uarea),
+        tarear=cast(1.0 / tarea), uarear=cast(1.0 / uarea),
+        tinyarea=cast(ct.puny * tarea),
+        dxhy=cast(big), dyhx=cast(big), cxp=cast(big), cyp=cast(big),
+        cxm=cast(big), cym=cast(big), ANGLE=cast(z), ANGLET=cast(z),
+        hm=cast(hm), uvm=cast(uvm),
+        tmask=torch.as_tensor(hm > 0.5, device=device),
+        umask=torch.as_tensor(uvm > 0.5, device=device),
+        tarean=cast(np.where(lmask_n, tarea * hm, 0.0)),
+        tareas=cast(np.where(~lmask_n, tarea * hm, 0.0)),
+        fcor=cast(2.0 * ct.omega * np.sin(ulat)))
+
+
+def gridbox_corners(grid: Grid) -> tuple:
+    """Per-cell corner longitudes/latitudes for history cell bounds
+    (ice_grid.F90:1972-2121 gridbox_corners): corner order NE, NW, SW, SE
+    from the U (NE-corner) coordinates. Returns (lont_bounds,
+    latt_bounds), each (4, ny, nx) NumPy arrays in degrees."""
+    ulat = np.rad2deg(grid.ULAT.detach().cpu().numpy().astype(np.float64))
+    ulon = np.rad2deg(grid.ULON.detach().cpu().numpy().astype(np.float64))
+    sh = lambda a, di, dj: _shift(a, di, dj, True)
+    latb = np.stack([ulat, sh(ulat, -1, 0), sh(ulat, -1, -1),
+                     sh(ulat, 0, -1)])
+    lonb = np.stack([ulon, sh(ulon, -1, 0), sh(ulon, -1, -1),
+                     sh(ulon, 0, -1)])
+    return lonb, latb
+
+
 def make_grid(cfg: ModelConfig, *, device, **kw) -> Grid:
-    """Rectangular grids; a POP/tripole grid is built by the caller from
-    its arrays (``popgrid_np``, ``synth_gx1_grid``): reading POP grid
-    files comes with a later slice."""
+    """The grid of ``cfg.grid.grid_type``: rectangular and column grids
+    built here; displaced_pole and tripole grids read from POP files
+    (netCDF or binary), cpom from CPOM binary files, latlon from a CESM
+    domain file (``io/readers.py``)."""
     t = cfg.grid.grid_type
     if t in ("rectangular", "column"):
         return rectgrid(cfg, device=device, **kw)
-    raise NotImplementedError(
-        f"grid_type={t!r}: reading POP grid files comes with a later slice "
-        "of the port; pass Model(cfg, grid=popgrid_np(...)) or "
-        "synth_gx1_grid(cfg, device=...)")
+    if t in ("displaced_pole", "tripole"):
+        return popgrid(cfg, device=device)
+    from cice5_tpu_torch.io import readers
+    g = cfg.grid
+    if t == "latlon":
+        d = readers.read_latlon_domain(g.grid_file or g.kmt_file)
+        return latlongrid(cfg, d["yc"], d["xc"], d["area"], d["mask"],
+                          device=device)
+    if t == "cpom":
+        data = readers.read_cpom_grid_binary(g.grid_file, g.kmt_file,
+                                             g.nx, g.ny)
+        return popgrid_np(cfg, data["ULAT"], data["ULON"], data["HTN"],
+                          data["HTE"], data["ANGLE"], data["kmt"],
+                          device=device)
+    raise NotImplementedError(f"grid_type={t}")

@@ -6,9 +6,10 @@ asum_ridging (:758), ridge_prep (:820), ridge_itd (:936, participation +
 ridge-ITD functions), ridge_shift (:1303), ridge_check (:2040). The donor
 (n) x receiver (nr) loops are a static ncat x ncat double loop of
 vectorized ops; the outer iteration (``ops/loop.py``) ends when every
-cell's area is conserved or after NITERMAX passes. The
-aerosol, topo-pond, BGC and per-category diagnostic bookkeeping belongs
-to options of later slices.
+cell's area is conserved or after NITERMAX passes. The topo-pond water
+of the ridged area drains to the ocean (``dfpond``, ice_mechred.F90:
+1713-1717); the aerosol, BGC and per-category diagnostic bookkeeping
+belongs to options of later slices.
 """
 from __future__ import annotations
 
@@ -104,6 +105,7 @@ class RidgeResult(NamedTuple):
     fhocn: torch.Tensor      # heat flux to melt that snow (W/m^2)
     asum_err: torch.Tensor   # |asum - 1| after the final iteration
     niter: torch.Tensor      # iterations taken (0-d int64; normally 1-2)
+    dfpond: torch.Tensor     # topo-pond water lost with ridged area (m)
 
 
 def _chain_root_and_parents(tr: TracerRegistry, it):
@@ -118,7 +120,7 @@ def _chain_root_and_parents(tr: TracerRegistry, it):
 def ridge_ice(dt, tr: TracerRegistry, hin_max, nilyr, nslyr, *, aicen,
               vicen, vsnon, trcrn, aice0, rdg_conv, rdg_shear,
               krdg_partic=1, krdg_redist=1, mu_rdg=4.0,
-              ndtd=1) -> RidgeResult:
+              ndtd=1, tr_pond_topo=False) -> RidgeResult:
     """Full ridging driver (ice_mechred.F90:101-757 ridge_ice), in
     conserved-amount space: amounts are built once, transferred by every
     iteration, and turned back into tracer values once at the end."""
@@ -154,7 +156,9 @@ def ridge_ice(dt, tr: TracerRegistry, hin_max, nilyr, nslyr, *, aicen,
              atrcrn=tracer_weights(tr, aicen, vicen, vsnon, trcrn) * trcrn,
              aice0=aice0, closing_net=closing_net, opning=opning,
              done=torch.zeros(B, dtype=torch.bool, device=aicen.device),
-             ardg1=z, ardg2=z, virdg=z, aopen=z, msnow_mlt=z, esnow_mlt=z)
+             ardg1=z, ardg2=z, virdg=z, aopen=z, msnow_mlt=z, esnow_mlt=z,
+             mpond=z)
+    pond_slot = tr.nt_hpnd if tr_pond_topo and tr.nt_hpnd >= 0 else None
     qs0, qs1 = tr.nt_qsno, tr.nt_qsno + nslyr
     eps_sum = 8.0 * torch.finfo(aicen.dtype).eps
 
@@ -195,7 +199,7 @@ def ridge_ice(dt, tr: TracerRegistry, hin_max, nilyr, nslyr, *, aicen,
         aopen = c["aopen"] + opn * dt
         a_init, v_init, s_init = aicen, vicen, vsnon
         ardg1_d, ardg2_d, virdg_d = c["ardg1"], c["ardg2"], c["virdg"]
-        msnow, esnow = c["msnow_mlt"], c["esnow_mlt"]
+        msnow, esnow, mpond = c["msnow_mlt"], c["esnow_mlt"], c["mpond"]
 
         d_aicen = [None] * ncat
         d_vicen = [None] * ncat
@@ -228,6 +232,9 @@ def ridge_ice(dt, tr: TracerRegistry, hin_max, nilyr, nslyr, *, aicen,
 
             # donor side: a fraction afrac of every amount leaves
             acc(d_atrcr, n, (-afrac)[None] * atrcrn[n])
+            if pond_slot is not None:
+                # ridged topo-pond water drains: afrac * aicen*apnd*hpnd
+                mpond = mpond + afrac * atrcrn[n, pond_slot]
 
             # receiver-side redistribution
             dhr = torch.clamp(r.hrmax[n] - r.hrmin[n], min=ct.puny)
@@ -291,7 +298,8 @@ def ridge_ice(dt, tr: TracerRegistry, hin_max, nilyr, nslyr, *, aicen,
             closing_net=torch.where(ok, 0.0, torch.clamp(-divadv, min=0.0)),
             opning=torch.where(ok, 0.0, torch.clamp(divadv, min=0.0)),
             done=c["done"] | ok, ardg1=ardg1_d, ardg2=ardg2_d,
-            virdg=virdg_d, aopen=aopen, msnow_mlt=msnow, esnow_mlt=esnow)
+            virdg=virdg_d, aopen=aopen, msnow_mlt=msnow, esnow_mlt=esnow,
+            mpond=mpond)
 
     # the first pass always runs (ridge_ice's loop is a do-while)
     c = while_loop(body, pending, body(c, torch.ones(
@@ -308,4 +316,5 @@ def ridge_ice(dt, tr: TracerRegistry, hin_max, nilyr, nslyr, *, aicen,
         dardg1dt=c["ardg1"] * dti, dardg2dt=c["ardg2"] * dti,
         dvirdgdt=c["virdg"] * dti, opening=c["aopen"] * dti,
         fresh=c["msnow_mlt"] * dti_th, fhocn=c["esnow_mlt"] * dti_th,
-        asum_err=torch.abs(asum_f - 1.0), niter=c["niter"])
+        asum_err=torch.abs(asum_f - 1.0), niter=c["niter"],
+        dfpond=c["mpond"])

@@ -1,7 +1,8 @@
 """Bitz & Lipscomb (1999) vertical heat-conduction solver (PyTorch port of
 ``cice5_tpu/models/thermo/bl99.py``; ice_therm_bl99.F90
 temperature_changes :51, conductivity :940,
-get_matrix_elements_calc_Tsfc :1172).
+get_matrix_elements_calc_Tsfc :1172, get_matrix_elements_know_Tsfc
+:1484).
 
 Every cell of the batch is solved at once; cells that have converged are
 frozen by a mask while the others iterate. The loop (``ops/loop.py``)
@@ -10,8 +11,10 @@ host read of that condition per pass, in a captured step one per block of
 passes.
 
 Array convention: layer axis first after any leading batch axes of the
-scalars: zTin (nilyr, *B), zTsn (nslyr, *B), kh (nilyr+nslyr+1, *B). Only
-the calc_Tsfc=True path exists in this slice.
+scalars: zTin (nilyr, *B), zTsn (nslyr, *B), kh (nilyr+nslyr+1, *B). With
+calc_Tsfc=False the coupler prescribes the surface fluxes per category
+(set_sfcflux, ice_flux.F90:1015) and the surface temperature is not
+solved for.
 """
 from __future__ import annotations
 
@@ -147,13 +150,66 @@ def _assemble_matrix(*, nilyr, nslyr, l_snow, l_cold, Tsf, Tbot, fsurfn,
             torch.stack(rh))
 
 
+def _assemble_matrix_know(*, nilyr, nslyr, l_snow, Tbot, fcondtopn,
+                          Tin_init, Tsn_init, kh, Sswabs, Iswabs, etai,
+                          etas):
+    """Tridiagonal rows when the coupler prescribes the conductive top flux
+    (ice_therm_bl99.F90:1484-1761 get_matrix_elements_know_Tsfc). Row 0
+    is a dummy; the top snow row (or the top ice row, without snow) takes
+    fcondtopn into its right-hand side."""
+    nmat = nilyr + nslyr + 1
+    one = torch.ones_like(Tin_init[0])
+    zero = torch.zeros_like(Tin_init[0])
+    sb, dg, sp, rh = [zero], [one], [zero], [zero]
+    for r in range(1, nmat):
+        if r <= nslyr:
+            ks = r - 1
+            sb_s = zero if ks == 0 else -etas[ks] * kh[r - 1]
+            sp_s = -etas[ks] * kh[r]
+            dg_s = 1.0 + etas[ks] * ((0.0 if ks == 0 else kh[r - 1])
+                                     + kh[r])
+            rh_s = Tsn_init[ks] + etas[ks] * Sswabs[ks]
+            if ks == 0:
+                rh_s = rh_s + etas[0] * fcondtopn
+            sb.append(torch.where(l_snow, sb_s, zero))
+            dg.append(torch.where(l_snow, dg_s, one))
+            sp.append(torch.where(l_snow, sp_s, zero))
+            rh.append(torch.where(l_snow, rh_s, zero))
+            continue
+        ki = r - nslyr - 1
+        kt, kb = kh[r - 1], kh[r]
+        sb_i = -etai[ki] * kt
+        sp_i = -etai[ki] * kb
+        dg_i = 1.0 + etai[ki] * (kt + kb)
+        rh_i = Tin_init[ki] + etai[ki] * Iswabs[ki]
+        if ki == 0:
+            # no snow: the prescribed flux enters the top ice layer
+            sb_i = torch.where(l_snow, sb_i, zero)
+            dg_i = torch.where(l_snow, dg_i, 1.0 + etai[0] * kb)
+            rh_i = torch.where(l_snow, rh_i, rh_i + etai[0] * fcondtopn)
+        if ki == nilyr - 1:
+            sp_i = zero
+            rh_i = rh_i + etai[ki] * kb * Tbot
+        sb.append(sb_i)
+        dg.append(dg_i)
+        sp.append(sp_i)
+        rh.append(rh_i)
+    return (torch.stack(sb), torch.stack(dg), torch.stack(sp),
+            torch.stack(rh))
+
+
 def temperature_changes(dt, *, nilyr, nslyr, conduct, ksno, l_brine,
                         mask, rhoa, flw, potT, Qa, shcoef, lhcoef,
                         fswsfc, fswint, Sswabs, Iswabs,
                         hilyr, hslyr, zTin, zSin, zTsn, Tsf, Tbot,
-                        einit) -> BL99Result:
-    """BL99 temperature update (calc_Tsfc path). mask: bool (*B), True
-    where aicen > puny; masked-out cells pass through."""
+                        einit, calc_Tsfc=True, fsurfn_f=None,
+                        fcondtopn_f=None, flatn_f=None,
+                        fsensn_f=None) -> BL99Result:
+    """BL99 temperature update. mask: bool (*B), True where aicen > puny;
+    masked-out cells pass through. With calc_Tsfc=False the surface
+    fluxes fsurfn_f, fcondtopn_f, flatn_f and fsensn_f (*B) come from the
+    coupler, Tsf stays as it is, and the oscillation control moves to the
+    top ice layer (condition 2b, ice_therm_bl99.F90:721-735)."""
     dtype = zTin.dtype
     nmat = nilyr + nslyr + 1
     B = Tsf.shape
@@ -234,10 +290,16 @@ def temperature_changes(dt, *, nilyr, nslyr, conduct, ksno, l_brine,
         ci = brine_ci(c_zTin, Tin_init)
         etai = dt_rhoi_hlyr / ci
 
-        flwo, fsen, flat, fsur = shared.surface_heat_flux(
-            c_Tsf, fswsfc, rhoa, flw, potT, Qa, shcoef, lhcoef)
-        dfsurf, dflwo, dfsen, dflat = shared.dsurface_heat_flux_dTsf(
-            c_Tsf, rhoa, shcoef, lhcoef)
+        if calc_Tsfc:
+            flwo, fsen, flat, fsur = shared.surface_heat_flux(
+                c_Tsf, fswsfc, rhoa, flw, potT, Qa, shcoef, lhcoef)
+            dfsurf, dflwo, dfsen, dflat = shared.dsurface_heat_flux_dTsf(
+                c_Tsf, rhoa, shcoef, lhcoef)
+        else:
+            # prescribed coupler fluxes (set_sfcflux, ice_flux.F90:1015)
+            flwo = dfsurf = dflwo = dfsen = dflat = fzero
+            fsen = fsensn_f if fsensn_f is not None else fzero
+            flat, fsur = flatn_f, fsurfn_f
         flwoutn = torch.where(active, flwo, c["flwoutn"])
         fsensn = torch.where(active, fsen, c["fsensn"])
         flatn = torch.where(active, flat, c["flatn"])
@@ -246,39 +308,58 @@ def temperature_changes(dt, *, nilyr, nslyr, conduct, ksno, l_brine,
         dfsens_dT = torch.where(active, dfsen, c["dfsens_dT"])
         dflat_dT = torch.where(active, dflat, c["dflat_dT"])
 
-        fct = torch.where(l_snow, c_kh[0] * (c_Tsf - c_zTsn[0]),
-                          c_kh[nslyr] * (c_Tsf - c_zTin[0]))
-        fcondtopn = torch.where(active, fct, c["fcondtopn"])
-        Tsf_start = torch.where(
-            active & (c_Tsf >= 0.0) & (fsurfn < fcondtopn), -ct.puny, c_Tsf)
-        l_cold = Tsf_start < 0.0
-
-        sb, dg, sp, rh = _assemble_matrix(
-            nilyr=nilyr, nslyr=nslyr, l_snow=l_snow, l_cold=l_cold,
-            Tsf=Tsf_start, Tbot=Tbot, fsurfn=fsurfn, dfsurf_dT=dfsurf,
-            Tin_init=Tin_init, Tsn_init=Tsn_init, kh=c_kh,
-            Sswabs=Sswabs, Iswabs=Iswabs, etai=etai, etas=etas)
+        dTsf_prev = c["dTsf_prev"]
+        if calc_Tsfc:
+            fct = torch.where(l_snow, c_kh[0] * (c_Tsf - c_zTsn[0]),
+                              c_kh[nslyr] * (c_Tsf - c_zTin[0]))
+            fcondtopn = torch.where(active, fct, c["fcondtopn"])
+            Tsf_start = torch.where(
+                active & (c_Tsf >= 0.0) & (fsurfn < fcondtopn), -ct.puny,
+                c_Tsf)
+            l_cold = Tsf_start < 0.0
+            sb, dg, sp, rh = _assemble_matrix(
+                nilyr=nilyr, nslyr=nslyr, l_snow=l_snow, l_cold=l_cold,
+                Tsf=Tsf_start, Tbot=Tbot, fsurfn=fsurfn, dfsurf_dT=dfsurf,
+                Tin_init=Tin_init, Tsn_init=Tsn_init, kh=c_kh,
+                Sswabs=Sswabs, Iswabs=Iswabs, etai=etai, etas=etas)
+        else:
+            fcondtopn = torch.where(active, fcondtopn_f, c["fcondtopn"])
+            sb, dg, sp, rh = _assemble_matrix_know(
+                nilyr=nilyr, nslyr=nslyr, l_snow=l_snow, Tbot=Tbot,
+                fcondtopn=fcondtopn, Tin_init=Tin_init, Tsn_init=Tsn_init,
+                kh=c_kh, Sswabs=Sswabs, Iswabs=Iswabs, etai=etai,
+                etas=etas)
         Tmat = tridiag_solve(sb, dg, sp, rh)
 
-        # surface temperature update + conditions 1 & 2
-        Tsf_new = torch.where(l_cold,
-                              torch.where(l_snow, Tmat[0], Tmat[nslyr]),
-                              0.0)
-        dTsf = Tsf_new - Tsf_start
-        dTsf_prev = c["dTsf_prev"]
-        cond1 = Tsf_new > ct.puny
-        cond2 = ((niter > 1) & (Tsf_start <= -ct.puny)
-                 & (torch.abs(dTsf) > ct.puny)
-                 & (torch.abs(dTsf_prev) > ct.puny)
-                 & (-dTsf / (dTsf_prev + ct.puny * ct.puny) > 0.5)
-                 & ~cond1)
-        Tsf_new = torch.where(cond1, 0.0, Tsf_new)
-        dTsf = torch.where(cond1, -Tsf_start,
-                           torch.where(cond2, 0.5 * dTsf, dTsf))
-        avg_Tsf = (cond2 & l_brine).to(dtype)
-        avg_Tsi = ((cond1 | cond2) & l_brine).to(dtype)
-        conv = ~cond1 & ~cond2
-        Tsf_new = Tsf_new + avg_Tsf * 0.5 * (Tsf_start - Tsf_new)
+        if calc_Tsfc:
+            # surface temperature update + conditions 1 & 2
+            Tsf_new = torch.where(l_cold,
+                                  torch.where(l_snow, Tmat[0], Tmat[nslyr]),
+                                  0.0)
+            dTsf = Tsf_new - Tsf_start
+            cond1 = Tsf_new > ct.puny
+            cond2 = ((niter > 1) & (Tsf_start <= -ct.puny)
+                     & (torch.abs(dTsf) > ct.puny)
+                     & (torch.abs(dTsf_prev) > ct.puny)
+                     & (-dTsf / (dTsf_prev + ct.puny * ct.puny) > 0.5)
+                     & ~cond1)
+            Tsf_new = torch.where(cond1, 0.0, Tsf_new)
+            dTsf = torch.where(cond1, -Tsf_start,
+                               torch.where(cond2, 0.5 * dTsf, dTsf))
+            avg_Tsf = (cond2 & l_brine).to(dtype)
+            avg_Tsi = ((cond1 | cond2) & l_brine).to(dtype)
+            conv = ~cond1 & ~cond2
+            Tsf_new = Tsf_new + avg_Tsf * 0.5 * (Tsf_start - Tsf_new)
+        else:
+            # Tsf is not solved for; the oscillation control watches the
+            # top ice layer (condition 2b), and dTsf_prev carries its dT
+            Tsf_new = c_Tsf
+            dTsf = Tmat[1 + nslyr] - c_zTin[0]
+            cond2 = ((niter > 1) & (torch.abs(dTsf) > ct.puny)
+                     & (torch.abs(dTsf_prev) > ct.puny)
+                     & (-dTsf / (dTsf_prev + ct.puny * ct.puny) > 0.5))
+            avg_Tsi = (cond2 & l_brine).to(dtype)
+            conv = ~cond2
 
         # snow layers
         zTsn_new = torch.where(l_snow, Tmat[1:1 + nslyr], 0.0)
@@ -310,13 +391,14 @@ def temperature_changes(dt, *, nilyr, nslyr, conduct, ksno, l_brine,
         dener = dener + (hilyr * (zqin_new - qin_init0)).sum(0)
         einex = (hilyr * dqmat).sum(0)
 
-        # conditions 3 & 4
-        conv = conv & (torch.abs(dTsf) <= tsf_errmax_eff)
-        fsurfn = torch.where(active, fsurfn + dTsf * dfsurf, fsurfn)
-        fct2 = torch.where(l_snow, c_kh[0] * (Tsf_new - zTsn_new[0]),
-                           c_kh[nslyr] * (Tsf_new - zTin_new[0]))
-        fcondtopn = torch.where(active, fct2, fcondtopn)
-        conv = conv & ~((Tsf_new >= 0.0) & (fsurfn < fcondtopn))
+        if calc_Tsfc:
+            # conditions 3 & 4
+            conv = conv & (torch.abs(dTsf) <= tsf_errmax_eff)
+            fsurfn = torch.where(active, fsurfn + dTsf * dfsurf, fsurfn)
+            fct2 = torch.where(l_snow, c_kh[0] * (Tsf_new - zTsn_new[0]),
+                               c_kh[nslyr] * (Tsf_new - zTin_new[0]))
+            fcondtopn = torch.where(active, fct2, fcondtopn)
+            conv = conv & ~((Tsf_new >= 0.0) & (fsurfn < fcondtopn))
 
         # condition 5: energy conservation
         fcb = c_kh[nmat - 1] * (zTin_new[nilyr - 1] - Tbot) + einex / dt

@@ -1,6 +1,5 @@
 """Ice thickness distribution (ITD) machinery (PyTorch port of the parts of
-``cice5_tpu/models/thermo/itd.py`` the BL99 and gx1-parity configurations
-run).
+``cice5_tpu/models/thermo/itd.py`` the configurations of the port run).
 
 ice_itd.F90: category bounds :83-237, aggregate :246, rebin :516,
 shift_ice :815, compute_tracers :1359, cleanup_itd :1514, zap_small_areas
@@ -11,10 +10,13 @@ boundaries stays a Python loop, each step vectorized over the grid.
 
 Tracer conservation uses the dependency weights: every tracer slot has a
 weight in {aicen, vicen, vsnon, weight(parent)*trcrn[parent]} and the
-conserved amount is weight*trcrn, so the iage, FY, lvl and level-pond
-tracers ride through the shifts, rebinning and zapping as they are. The
-topo-pond, aerosol, brine and BGC bookkeeping of the JAX functions belongs
-to options of later slices.
+conserved amount is weight*trcrn, so the iage, FY, lvl and pond tracers
+ride through the shifts, rebinning and zapping as they are; the topo-pond
+water that lateral melt and the zaps remove is returned as ``dfpond``
+(ice_therm_itd.F90:1146-1152, ice_itd.F90:1905-1913), and
+``zerolayer_check`` (ice_itd.F90:2428) counts the zero-layer columns whose
+enthalpy left its latent value. The aerosol, brine and BGC bookkeeping of
+the JAX functions belongs to options of later slices.
 """
 from __future__ import annotations
 
@@ -135,6 +137,32 @@ def aggregate(tr: TracerRegistry, aicen, vicen, vsnon, trcrn) -> Aggregate:
     trcr = torch.where(ok, atrcr / torch.where(ok, wtot, 1.0), 0.0)
     aice0 = torch.clamp(1.0 - aice, min=0.0)
     return Aggregate(aice=aice, vice=vice, vsno=vsno, trcr=trcr, aice0=aice0)
+
+
+def zerolayer_check(tr: TracerRegistry, nilyr, nslyr, aicen, vicen, vsnon,
+                    trcrn):
+    """ktherm=0 consistency check (ice_itd.F90:2428 zerolayer_check): with
+    zero heat capacity every enthalpy slot holds the latent placeholder,
+    eicen + rhoi*Lfresh*vicen == 0 and esnon + rhos*Lfresh*vsnon == 0 to
+    within puny*Lfresh*rhos (plus the rounding floor of the q*v products
+    in the dtype). Returns the count of failing (cell, category) pairs as
+    a 0-d int32 tensor."""
+    eps = torch.finfo(vicen.dtype).eps
+    max_error_i = ct.puny * ct.Lfresh * ct.rhos \
+        + 16.0 * eps * ct.rhoi * ct.Lfresh * vicen
+    max_error_s = ct.puny * ct.Lfresh * ct.rhos \
+        + 16.0 * eps * ct.rhos * ct.Lfresh * vsnon
+    eicen = trcrn[:, tr.nt_qice:tr.nt_qice + nilyr].sum(1) * vicen / nilyr
+    esnon = trcrn[:, tr.nt_qsno:tr.nt_qsno + nslyr].sum(1) * vsnon / nslyr
+    bad_i = torch.abs(eicen + ct.rhoi * ct.Lfresh * vicen) > max_error_i
+    bad_s = torch.abs(esnon + ct.rhos * ct.Lfresh * vsnon) > max_error_s
+    return (bad_i | bad_s).sum().to(torch.int32)
+
+
+def _pond_volume_per_cat(tr: TracerRegistry, aicen, trcrn):
+    """Per-category topo-pond water volume aicen*apnd*hpnd (m)
+    (ice_itd.F90:1910-1913)."""
+    return aicen * trcrn[:, tr.nt_apnd] * trcrn[:, tr.nt_hpnd]
 
 
 def _shift_boundary(tr: TracerRegistry, pair, t_lo, t_hi, lo_is_donor,
@@ -429,16 +457,21 @@ class LateralMelt(NamedTuple):
     fsalt: torch.Tensor
     fhocn: torch.Tensor
     meltl: torch.Tensor
+    dfpond: torch.Tensor | None   # topo-pond water removed (m); None
+                                  # without topo ponds
 
 
 def lateral_melt(dt, tr: TracerRegistry, nilyr, nslyr, *, aicen, vicen,
-                 vsnon, trcrn, rside) -> LateralMelt:
+                 vsnon, trcrn, rside, tr_pond_topo=False) -> LateralMelt:
     """Melt fraction rside of every category laterally; tracers unchanged
-    (ice_therm_itd.F90:1043-1235)."""
+    (ice_therm_itd.F90:1043-1235). The melted fraction's topo-pond water
+    leaves the ponds (:1146-1152 dfpond)."""
     r = rside[None]
     dfresh = ((ct.rhos * vsnon + ct.rhoi * vicen) * r).sum(0) / dt
     dfsalt = (ct.rhoi * vicen * r).sum(0) * ct.ice_ref_salinity * 0.001 / dt
     meltl = (vicen * r).sum(0)
+    dfpond = ((_pond_volume_per_cat(tr, aicen, trcrn) * r).sum(0)
+              if tr_pond_topo else None)
     aicen_new = aicen * (1.0 - r)
     vicen_new = vicen * (1.0 - r)
     vsnon_new = vsnon * (1.0 - r)
@@ -448,7 +481,8 @@ def lateral_melt(dt, tr: TracerRegistry, nilyr, nslyr, *, aicen, vicen,
     fhocn = ((qice.sum(1) * vicen_new / nilyr * r).sum(0)
              + (qsno.sum(1) * vsnon_new / nslyr * r).sum(0)) / dt
     return LateralMelt(aicen=aicen_new, vicen=vicen_new, vsnon=vsnon_new,
-                       fresh=dfresh, fsalt=dfsalt, fhocn=fhocn, meltl=meltl)
+                       fresh=dfresh, fsalt=dfsalt, fhocn=fhocn, meltl=meltl,
+                       dfpond=dfpond)
 
 
 class NewIce(NamedTuple):
@@ -613,14 +647,17 @@ class Cleanup(NamedTuple):
     dfresh: torch.Tensor
     dfsalt: torch.Tensor
     dfhocn: torch.Tensor
+    dfpond: torch.Tensor | None   # topo-pond water removed (m); None
+                                  # without topo ponds
     zapped: torch.Tensor     # (ncat, *B) bool: category fully zapped
 
 
 def zap_small_areas(dt, tr: TracerRegistry, nilyr, nslyr, *, aicen, vicen,
-                    vsnon, trcrn) -> Cleanup:
+                    vsnon, trcrn, tr_pond_topo=False) -> Cleanup:
     """Zap categories with 0 < aicen <= puny, returning melt water, salt
     and heat to the ocean (ice_itd.F90:1778-2166), and renormalize
-    aice > 1 (:2028-2160)."""
+    aice > 1 (:2028-2160); the zapped and scaled-away topo-pond water
+    leaves the ponds (:1905-1913)."""
     zap = (torch.abs(aicen) <= ct.puny) & (torch.abs(aicen) != 0.0)
     qice = trcrn[:, tr.nt_qice:tr.nt_qice + nilyr]
     qsno = trcrn[:, tr.nt_qsno:tr.nt_qsno + nslyr]
@@ -634,6 +671,8 @@ def zap_small_areas(dt, tr: TracerRegistry, nilyr, nslyr, *, aicen, vicen,
                          0.0).sum(0) / dt
     dfsalt = torch.where(zap, ct.rhoi * vicen, 0.0).sum(0) \
         * ct.ice_ref_salinity * 0.001 / dt
+    dfpond = (torch.where(zap, _pond_volume_per_cat(tr, aicen, trcrn),
+                          0.0).sum(0) if tr_pond_topo else None)
 
     aicen = torch.where(zap, 0.0, aicen)
     vicen = torch.where(zap, 0.0, vicen)
@@ -655,11 +694,15 @@ def zap_small_areas(dt, tr: TracerRegistry, nilyr, nslyr, *, aicen, vicen,
         * ct.ice_ref_salinity * 0.001 / dt
     dfhocn = dfhocn + ((qice.sum(1) * vicen / nilyr).sum(0)
                        + (qsno.sum(1) * vsnon / nslyr).sum(0)) * excess / dt
+    if tr_pond_topo:
+        dfpond = dfpond + (_pond_volume_per_cat(tr, aicen, trcrn)
+                           * excess[None]).sum(0)
     aicen = aicen * scale[None]
     vicen = vicen * scale[None]
     vsnon = vsnon * scale[None]
     return Cleanup(aicen=aicen, vicen=vicen, vsnon=vsnon, trcrn=trcrn,
-                   dfresh=dfresh, dfsalt=dfsalt, dfhocn=dfhocn, zapped=zap)
+                   dfresh=dfresh, dfsalt=dfsalt, dfhocn=dfhocn,
+                   dfpond=dfpond, zapped=zap)
 
 
 def zap_snow_temperature(dt, tr: TracerRegistry, nslyr, *, aicen, vsnon,
@@ -690,7 +733,7 @@ def zap_snow_temperature(dt, tr: TracerRegistry, nslyr, *, aicen, vsnon,
 
 
 def cleanup_itd(dt, tr: TracerRegistry, hin_max, nilyr, nslyr, *, aicen,
-                vicen, vsnon, trcrn) -> Cleanup:
+                vicen, vsnon, trcrn, tr_pond_topo=False) -> Cleanup:
     """rebin + snow-temperature zap + small-area zap
     (ice_itd.F90:1514-1769 cleanup_itd; the small-area zap runs last so
     its aice>1 renormalization sees the final volumes)."""
@@ -699,6 +742,7 @@ def cleanup_itd(dt, tr: TracerRegistry, hin_max, nilyr, nslyr, *, aicen,
     vsnon, trcrn, dfresh_s, dfhocn_s = zap_snow_temperature(
         dt, tr, nslyr, aicen=aicen, vsnon=vsnon, trcrn=trcrn)
     out = zap_small_areas(dt, tr, nilyr, nslyr, aicen=aicen, vicen=vicen,
-                          vsnon=vsnon, trcrn=trcrn)
+                          vsnon=vsnon, trcrn=trcrn,
+                          tr_pond_topo=tr_pond_topo)
     return out._replace(dfresh=out.dfresh + dfresh_s,
                         dfhocn=out.dfhocn + dfhocn_s)

@@ -1,6 +1,7 @@
 """Vertical thermodynamics driver: growth, melt and state update (PyTorch
-port of the BL99 (ktherm=1) and mushy (ktherm=2) branches of
-``cice5_tpu/models/thermo/vertical.py``).
+port of ``cice5_tpu/models/thermo/vertical.py``: the zero-layer
+(ktherm=0), BL99 (ktherm=1) and mushy (ktherm=2) branches, and the
+coupler's prescribed surface fluxes of calc_Tsfc=False).
 
 ice_therm_vertical.F90: thermo_vertical :73, frzmlt_bottom_lateral :611,
 thickness_changes :1283, freeboard :2031, adjust_enthalpy :2177,
@@ -16,7 +17,7 @@ from typing import NamedTuple
 import torch
 
 from cice5_tpu_torch import constants as ct
-from cice5_tpu_torch.models.thermo import bl99, mushy, shared
+from cice5_tpu_torch.models.thermo import bl99, mushy, shared, zerolayer
 from cice5_tpu_torch.utils import with_index
 
 # lateral melt parameters (ice_therm_vertical.F90:1352-1360)
@@ -107,9 +108,10 @@ def thickness_changes(dt, *, nilyr, nslyr, l_brine, hilyr, hslyr, zqin,
                       fcondbot, fsnow, ktherm=1, sss=None,
                       phi_i_mushy=0.85) -> ThicknessResult:
     """Growth/melt at all surfaces + snowfall + freeboard + repartition
-    (ice_therm_vertical.F90:1283-2028), BL99 (ktherm=1) or mushy
-    (ktherm=2: melting enthalpy of the salty ice, prognostic salinity,
-    freeboard handled by the mushy solver's flood_ice)."""
+    (ice_therm_vertical.F90:1283-2028), zero-layer (ktherm=0: new ice
+    carries the latent enthalpy only), BL99 (ktherm=1) or mushy (ktherm=2:
+    melting enthalpy of the salty ice, prognostic salinity, freeboard
+    handled by the mushy solver's flood_ice)."""
     mushy_on = ktherm == 2
     B = tuple(hilyr.shape)
     dzi = torch.broadcast_to(hilyr, (nilyr,) + B).clone()
@@ -176,7 +178,11 @@ def thickness_changes(dt, *, nilyr, nslyr, l_brine, hilyr, hslyr, zqin,
         qm = with_index(qm, nilyr - 1, newq - qmlt[nilyr - 1])
     else:
         Tmlts_b = -zSin[nilyr - 1] * ct.depressT
-        if l_brine:
+        if ktherm == 0:
+            # the latent placeholder only (:1575-1577, heat_capacity=F):
+            # a sensible part would fail zerolayer_check
+            qbot = torch.full_like(Tbot, -ct.rhoi * ct.Lfresh)
+        elif l_brine:
             Tb = torch.clamp(Tbot, max=-ct.puny)
             qbot = -ct.rhoi * (ct.cp_ice * (Tmlts_b - Tb)
                                + ct.Lfresh * (1.0 - Tmlts_b / Tb)
@@ -379,12 +385,18 @@ class ThermoVerticalResult(NamedTuple):
 def thermo_vertical(dt, cfg, *, aicen, vicen, vsnon, Tsfcn, zqin, zqsn,
                     zSin, flw, potT, Qa, rhoa, fsnow, shcoef, lhcoef,
                     fswsfc, fswint, Sswabs, Iswabs, fbot, Tbot, sss=None,
-                    hpond=None, apond=None) -> ThermoVerticalResult:
+                    hpond=None, apond=None, fsurfn_f=None, fcondtopn_f=None,
+                    flatn_f=None, fsensn_f=None) -> ThermoVerticalResult:
     """Full vertical thermo update (ice_therm_vertical.F90:73-536
     thermo_vertical) over batch *B with layer-first zqin/zSin (nilyr, *B)
-    and zqsn (nslyr, *B): the BL99 solver (ktherm=1) or the mushy solver
-    with prognostic salinity (ktherm=2, which also reads the sea-surface
-    salinity ``sss`` and the pond depth/fraction ``hpond``/``apond``)."""
+    and zqsn (nslyr, *B): the zero-layer surface balance (ktherm=0), the
+    BL99 solver (ktherm=1) or the mushy solver with prognostic salinity
+    (ktherm=2, which also reads the sea-surface salinity ``sss`` and the
+    pond depth/fraction ``hpond``/``apond``). With cfg.thermo.calc_Tsfc
+    False the BL99 solver takes the coupler's fluxes fsurfn_f,
+    fcondtopn_f, flatn_f and fsensn_f; the mushy solver has no such
+    variant in the reference and solves its own surface, ignoring them
+    (ice_therm_vertical.F90:316-343), as the JAX package does."""
     nilyr, nslyr = cfg.nilyr, cfg.nslyr
     th = cfg.thermo
     l_brine = th.saltmax > shared.min_salin and th.ktherm != 0
@@ -428,6 +440,22 @@ def thermo_vertical(dt, cfg, *, aicen, vicen, vsnon, Tsfcn, zqin, zqsn,
         hilyr, hslyr = r.hilyr, r.hslyr   # flood_ice may change them
         snoice_m, fadvocn = r.snoice, r.fadvocn
         r_fswsfc, r_fswint = fswsfc, fswint
+        r_zqin, r_zqsn = r.zqin, r.zqsn
+    elif th.ktherm == 0:
+        # the surface balance alone; enthalpies stay latent-only
+        # (ice_therm_vertical.F90:369-400)
+        r = zerolayer.zerolayer_temperature(
+            dt, mask=mask, rhoa=rhoa, flw=flw, potT=potT, Qa=Qa,
+            shcoef=shcoef, lhcoef=lhcoef, fswsfc=fswsfc, hilyr=hilyr,
+            hslyr=hslyr, nilyr=nilyr, nslyr=nslyr, Tsf=Tsf, Tbot=Tbot,
+            ksno=th.ksno)
+        r_zqin = torch.full_like(zqin, -ct.rhoi * ct.Lfresh)
+        r_zqsn = torch.full_like(zqsn, -ct.rhos * ct.Lfresh)
+        zSin_cur = zSin
+        snoice_m = fadvocn = None
+        r_fswsfc, r_fswint = fswsfc, torch.zeros_like(fswsfc)
+        einit = ((hslyr[None] * r_zqsn).sum(0)
+                 + (hilyr[None] * r_zqin).sum(0))
     else:
         r = bl99.temperature_changes(
             dt, nilyr=nilyr, nslyr=nslyr, conduct=th.conduct, ksno=th.ksno,
@@ -435,14 +463,16 @@ def thermo_vertical(dt, cfg, *, aicen, vicen, vsnon, Tsfcn, zqin, zqsn,
             shcoef=shcoef, lhcoef=lhcoef, fswsfc=fswsfc, fswint=fswint,
             Sswabs=Sswabs, Iswabs=Iswabs, hilyr=hilyr, hslyr=hslyr,
             zTin=zTin, zSin=zSin, zTsn=zTsn, Tsf=Tsf, Tbot=Tbot,
-            einit=einit)
+            einit=einit, calc_Tsfc=th.calc_Tsfc, fsurfn_f=fsurfn_f,
+            fcondtopn_f=fcondtopn_f, flatn_f=flatn_f, fsensn_f=fsensn_f)
         zSin_cur = zSin
         snoice_m = fadvocn = None
         r_fswsfc, r_fswint = r.fswsfc, r.fswint
+        r_zqin, r_zqsn = r.zqin, r.zqsn
 
     tc = thickness_changes(
         dt, nilyr=nilyr, nslyr=nslyr, l_brine=l_brine, hilyr=hilyr,
-        hslyr=hslyr, zqin=r.zqin, zqsn=r.zqsn, zSin=zSin_cur, fbot=fbot,
+        hslyr=hslyr, zqin=r_zqin, zqsn=r_zqsn, zSin=zSin_cur, fbot=fbot,
         Tbot=Tbot, flatn=r.flatn, fsurfn=r.fsurfn, fcondtopn=r.fcondtopn,
         fcondbot=r.fcondbot, fsnow=fsnow, ktherm=th.ktherm, sss=sss,
         phi_i_mushy=th.phi_i_mushy)

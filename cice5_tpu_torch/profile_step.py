@@ -5,7 +5,10 @@
 
 Runs the BL99 + CCSM3 configuration (``bench_easy``, the default), the
 gx1-parity configuration (``gx1_parity``: mushy thermo, dEdd, tracers,
-tripole seam, on ``synth_gx1_grid``) or the ACCESS-OM 0.25-degree one
+tripole seam, on ``synth_gx1_grid``), the same with topographic ponds
+(``gx1_topo``), CICE's gx3 test configuration (``gx3``: 116x100, nilyr=7,
+open north, on ``synth_gx1_grid``'s mesh at that shape, the arrays that
+chip_smoke writes to its gx3 grid files) or the ACCESS-OM 0.25-degree one
 (``auscom_025``: the gx1-parity physics at 1080x1440 with the coupled
 radiation ordering of the coupled model), float32, ndte=120, on the GPU;
 ``--ny``/``--nx`` default to the configuration's grid;
@@ -45,7 +48,7 @@ from collections import defaultdict
 import torch
 
 from cice5_tpu_torch.config import (auscom_025_config, bench_easy_config,
-                                    gx1_parity_config)
+                                    gx1_parity_config, gx3_config)
 from cice5_tpu_torch.driver import step as step_mod
 from cice5_tpu_torch.driver.model import Model
 from cice5_tpu_torch.grid import synth_gx1_grid
@@ -105,7 +108,7 @@ def _timed_phases(totals, column, coupled_radiation=False):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", choices=("bench_easy", "gx1_parity",
-                                         "auscom_025"),
+                                         "gx1_topo", "gx3", "auscom_025"),
                     default="bench_easy")
     ap.add_argument("--evp-algorithm", choices=("auto", "pallas"),
                     default="auto")
@@ -116,7 +119,11 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
 
+    topo = lambda c: c.replace(tracers=dataclasses.replace(
+        c.tracers, tr_pond_lvl=False, tr_pond_topo=True))
     cfg = {"gx1_parity": gx1_parity_config,
+           "gx1_topo": lambda: topo(gx1_parity_config()),
+           "gx3": gx3_config,
            "auscom_025": lambda: auscom_025_config(coupled_radiation=True),
            "bench_easy": bench_easy_config}[args.config]()
     args.ny = args.ny or cfg.grid.ny
@@ -124,7 +131,7 @@ def main(argv=None):
     cfg = cfg.replace(
         grid=dataclasses.replace(cfg.grid, ny=args.ny, nx=args.nx),
         dyn=dataclasses.replace(cfg.dyn, evp_algorithm=args.evp_algorithm))
-    if cfg.grid.grid_type == "tripole":
+    if cfg.grid.grid_type in ("tripole", "displaced_pole"):
         m = Model(cfg, grid=synth_gx1_grid(cfg, device="cuda"))
         st = m.init_state()
     else:

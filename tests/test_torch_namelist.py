@@ -339,9 +339,9 @@ def test_overrides_and_unknown_entries_match_jax(tmp_path):
 
 
 @pytest.mark.parametrize("text,what", [
-    ("&grid_nml\n grid_type = 'displaced_pole'\n/\n", "displaced_pole"),
+    ("&dynamics_nml\n advection = 'upwind'\n/\n", "upwind"),
     ("&dynamics_nml\n kdyn = 2\n/\n", "EAP"),
-    ("&thermo_nml\n ktherm = 2\n/\n", "ktherm=2 without"),
+    ("&tracer_nml\n tr_brine = .true.\n/\n", "brine"),
     ("&tracer_nml\n tr_aero = .true.\n/\n", "aerosol"),
 ])
 def test_options_outside_the_port_raise_at_model_not_at_parse(tmp_path,
@@ -366,3 +366,40 @@ def test_tripole_namelist_builds_the_parity_model(ice_in):
     assert int(d.state_bad) == 0 and bool(d.therm_converged)
     assert torch.isfinite(st.vicen).all()
     assert float(np.asarray(st.vicen.sum())) > 0.0
+
+
+@pytest.mark.parametrize("text", [
+    "&tracer_nml\n tr_pond_cesm = .true.\n/\n",
+    "&tracer_nml\n tr_lvl = .true.\n , tr_pond_topo = .true.\n/\n",
+    "&tracer_nml\n tr_lvl = .true.\n , tr_pond_lvl = .true.\n/\n"
+    "&ponds_nml\n frzpnd = 'cesm'\n/\n",
+    "&thermo_nml\n ktherm = 0\n/\n",
+    "&thermo_nml\n ktherm = 2\n/\n",
+    "&thermo_nml\n calc_Tsfc = .false.\n/\n",
+], ids=["tr_pond_cesm", "tr_pond_topo", "frzpnd_cesm", "ktherm0",
+        "ktherm2", "calc_tsfc_off"])
+def test_column_options_build_a_model_that_steps(tmp_path, text):
+    """An ice_in that sets one of the column options of the port (cesm or
+    topo ponds, the cesm pond refreezing, zero-layer or mushy thermo, the
+    coupler's surface fluxes) parses as the JAX reader parses it, builds
+    the port's Model on a small rectangular grid, and a step from its
+    initial state is healthy."""
+    p = tmp_path / "ice_in"
+    p.write_text(text)
+    cfg, _ = config_from_ice_in(str(p), nx=8, ny=8, dtype="float64",
+                                accum_dtype="float64")
+    jcfg, _ = jnamelist.config_from_ice_in(str(p), nx=8, ny=8,
+                                           dtype="float64",
+                                           accum_dtype="float64")
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    cfg = cfg.replace(dyn=dataclasses.replace(cfg.dyn, ndte=4))
+    m = Model(cfg, device="cpu")
+    f = m.forcing_at(0)
+    if not cfg.thermo.calc_Tsfc:
+        fc = lambda v: torch.full((cfg.ncat, 8, 8), v, dtype=torch.float64)
+        f = f.replace(fsurfn_f=fc(-30.0), fcondtopn_f=fc(-30.0),
+                      flatn_f=fc(-2.0), fsensn_f=fc(-10.0))
+    st, d = m.step(m.init_state(ice_mask=m.grid.tmask), f)
+    assert int(d.state_bad) == 0 and bool(d.therm_converged)
+    assert torch.isfinite(st.vicen).all()
+    assert float(st.vicen.sum()) > 0.0

@@ -1,0 +1,28 @@
+"""The step of every option set of tests/test_torch_options.py as its CUDA
+graphs run it, rehearsed on the CPU: each loop (the BL99, mushy or
+zero-layer solver, ridging) run one pass at a time after a host read of
+its pending flag, under the strict dispatch mode of test_torch_graph.py
+that refuses any other host sync or tensor made from host data, from the
+recorded warmed-up state in float64: bit for bit the eager step. So the
+cesm and topo pond schemes (the `_calc_hpond` sort network), zero-layer
+thermo and the coupler's fluxes capture as the earlier paths do.
+"""
+import pytest
+
+from cice5_tpu_torch.driver import graph
+from cice5_tpu_torch.driver.step import step as step_fn
+import torch_option_sets as O
+from test_torch_graph import _as_captured, _equal
+from test_torch_options import port_inputs, port_model
+
+
+@pytest.mark.parametrize("name", sorted(O.option_sets()))
+def test_set_step_as_captured_equals_eager(name):
+    ref = O.load_reference(name)
+    m = port_model(name)
+    st, f = port_inputs(ref)
+    want = step_fn(st, f, *m.step_args)
+    got, passes = _as_captured(step_fn, st, f, *m.step_args, k=1,
+                               guard=graph.HostSyncs(strict=True))
+    assert _equal(want[0], got[0]) == [] and _equal(want[1], got[1]) == []
+    assert len(passes) >= 2 and sum(passes) >= 1

@@ -77,43 +77,25 @@ def test_builders_need_an_explicit_device(builder):
 def _unsupported():
     base = tconfig.rect_config(ny=8, nx=8)
     r = dataclasses.replace
-    parity = tconfig.gx1_parity_config()
     return {
         "tripole": base.replace(grid=r(base.grid, ns_boundary="tripoleT")),
-        "popgrid": base.replace(grid=r(base.grid,
-                                       grid_type="displaced_pole")),
         "mushy": base.replace(thermo=r(base.thermo, ktherm=2),
                               tracers=r(base.tracers, tr_brine=True)),
-        "zerolayer": base.replace(thermo=r(base.thermo, ktherm=0)),
-        "calc_Tsfc": base.replace(thermo=r(base.thermo, calc_Tsfc=False)),
-        "dEdd": base.replace(shortwave=r(base.shortwave, shortwave="dEdd"),
-                             tracers=r(base.tracers, tr_pond_topo=True)),
-        "iage": base.replace(tracers=r(base.tracers, tr_iage=True,
-                                       tr_pond_cesm=True)),
-        "pond_lvl": base.replace(tracers=r(base.tracers, tr_lvl=False,
-                                           tr_pond_lvl=True)),
+        "skl_bgc": base.replace(tracers=r(base.tracers, skl_bgc=True)),
         "aero": base.replace(tracers=r(base.tracers, tr_aero=True,
                                        n_aero=1)),
         "eap": base.replace(dyn=r(base.dyn, kdyn=2)),
         "upwind": base.replace(dyn=r(base.dyn, advection="upwind")),
         "chunked": base.replace(dyn=r(base.dyn, evp_algorithm="chunked")),
         "compact": base.replace(grid=r(base.grid, compact_columns="on")),
-        # the gx1-parity options are held against JAX only all together
-        "tripole_seam_alone": base.replace(
-            grid=r(base.grid, ns_boundary="tripole")),
-        "mushy_alone": base.replace(thermo=r(base.thermo, ktherm=2)),
-        "dEdd_alone": base.replace(
-            shortwave=r(base.shortwave, shortwave="dEdd")),
-        "iage_FY_alone": base.replace(
-            tracers=r(base.tracers, tr_iage=True, tr_FY=True)),
-        "pond_lvl_alone": base.replace(
-            tracers=r(base.tracers, tr_lvl=True, tr_pond_lvl=True)),
-        "parity_without_ponds": parity.replace(
-            tracers=r(parity.tracers, tr_pond_lvl=False)),
-        "parity_cesm_lid": parity.replace(
-            tracers=r(parity.tracers, frzpnd="cesm")),
-        "parity_ccsm3": parity.replace(
-            shortwave=r(parity.shortwave, shortwave="ccsm3")),
+        "conserv_check": base.replace(dyn=r(base.dyn, conserv_check=True)),
+        "monotonicity_check": base.replace(
+            dyn=r(base.dyn, monotonicity_check=True)),
+        "diag_mechred": base.replace(dyn=r(base.dyn, diag_mechred=True)),
+        "dynamics_without_transport": base.replace(
+            dyn=r(base.dyn, advection="none")),
+        "grid_type_unknown": base.replace(grid=r(base.grid,
+                                                 grid_type="bipolar")),
     }
 
 
@@ -127,6 +109,7 @@ def _ported():
     r = dataclasses.replace
     parity = tconfig.gx1_parity_config()
     easy = tconfig.bench_easy_config()
+    base = tconfig.rect_config(ny=8, nx=8)
     return {
         "gx1_parity": parity,
         "gx1_parity_f64": tconfig.gx1_parity_config(dtype="float64",
@@ -149,12 +132,56 @@ def _ported():
             coupled_radiation=True, forcing=r(parity.forcing, formdrag=True,
                                               highfreq=True)),
         "tx01": tconfig.tx01_config(),
+        # the standalone configurations and the column options, each on
+        # its own (tests/test_torch_options.py holds each against JAX)
+        "gx3": tconfig.gx3_config(),
+        "tp1": tconfig.tp1_config(),
+        "column": tconfig.column_config(),
+        "popgrid": base.replace(grid=r(base.grid,
+                                       grid_type="displaced_pole")),
+        "latlon": base.replace(grid=r(base.grid, grid_type="latlon"),
+                               dyn=r(base.dyn, kdyn=0, advection="none")),
+        "cpom": base.replace(grid=r(base.grid, grid_type="cpom")),
+        "zerolayer": base.replace(thermo=r(base.thermo, ktherm=0)),
+        "calc_Tsfc": base.replace(thermo=r(base.thermo, calc_Tsfc=False)),
+        "dEdd": base.replace(shortwave=r(base.shortwave, shortwave="dEdd"),
+                             tracers=r(base.tracers, tr_pond_topo=True)),
+        "iage": base.replace(tracers=r(base.tracers, tr_iage=True,
+                                       tr_pond_cesm=True)),
+        "tripole_seam_alone": base.replace(
+            grid=r(base.grid, ns_boundary="tripole")),
+        "mushy_alone": base.replace(thermo=r(base.thermo, ktherm=2)),
+        "dEdd_alone": base.replace(
+            shortwave=r(base.shortwave, shortwave="dEdd")),
+        "iage_FY_alone": base.replace(
+            tracers=r(base.tracers, tr_iage=True, tr_FY=True)),
+        "pond_lvl_alone": base.replace(
+            tracers=r(base.tracers, tr_lvl=True, tr_pond_lvl=True)),
+        "parity_without_ponds": parity.replace(
+            tracers=r(parity.tracers, tr_pond_lvl=False)),
+        "parity_cesm_lid": parity.replace(
+            tracers=r(parity.tracers, frzpnd="cesm")),
+        "parity_ccsm3": parity.replace(
+            shortwave=r(parity.shortwave, shortwave="ccsm3")),
+        "parity_topo_ponds": tconfig.gx1_parity_config(
+            tracers=r(parity.tracers, tr_pond_lvl=False,
+                      tr_pond_topo=True)),
     }
 
 
 @pytest.mark.parametrize("name", sorted(_ported()))
 def test_ported_options_are_accepted(name):
     check_supported(_ported()[name])
+
+
+def test_unknown_thermo_and_pond_refreezing_raise():
+    r = dataclasses.replace
+    base = tconfig.rect_config(ny=8, nx=8)
+    with pytest.raises(ValueError, match="ktherm"):
+        check_supported(base.replace(thermo=r(base.thermo, ktherm=3)))
+    with pytest.raises(ValueError, match="frzpnd"):
+        check_supported(base.replace(tracers=r(
+            base.tracers, tr_lvl=True, tr_pond_lvl=True, frzpnd="x")))
 
 
 def _fused_refusals():
@@ -181,8 +208,8 @@ def test_fused_evp_refusals_name_their_reason(name):
 
 def test_parity_model_on_cpu_and_without_cuda(monkeypatch):
     """Model(gx1_parity_config(), grid=synth_gx1_grid(...)) builds on the
-    CPU when asked, and raises without a GPU otherwise; a POP grid is never
-    read from files yet."""
+    CPU when asked, and raises without a GPU otherwise; make_grid asks a
+    POP configuration without grid files for them."""
     from cice5_tpu_torch.grid import make_grid, synth_gx1_grid
     cfg = tconfig.gx1_parity_config()
     cfg = cfg.replace(grid=dataclasses.replace(cfg.grid, ny=24, nx=16))
@@ -199,7 +226,7 @@ def test_parity_model_on_cpu_and_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Model(cfg, grid=g)
-    with pytest.raises(NotImplementedError, match="POP grid files"):
+    with pytest.raises(ValueError, match="grid_file/kmt_file"):
         make_grid(cfg, device="cpu")
 
 

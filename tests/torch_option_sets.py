@@ -1,0 +1,253 @@
+"""The option sets of tests/test_torch_options.py and their JAX reference.
+
+Each set is one configuration of the column physics or the grid that the
+port runs apart from the others (``driver/model.py:check_supported``):
+gx3's and tp1's physics on a displaced-pole and a tripole grid, the BL99
++ CCSM3 model on a tripole seam, mushy thermo without dEdd, dEdd without
+ponds, each of iage, FY and lvl alone, CESM and topographic ponds under
+BL99 and mushy thermo, the CESM refreezing of level ponds, zero-layer
+thermo, and the coupler's surface fluxes (calc_Tsfc=False) under BL99
+and mushy thermo. All run on the 24x16 synthetic global mesh of
+test_torch_parity_step.py, ndte=8, float64, with rain on the ice (a
+pond's "no fresh water" branch then never rests on rounding noise).
+
+The reference is the JAX package's step: the initial state with ponds
+and ages seeded from a fixed generator, one warm-up step, then two steps,
+recorded in OPTIONS_REFERENCE under a SHA-256 of what it depends on (one
+jitted JAX step costs 20-60 s to compile on a CPU):
+``JAX_PLATFORMS=cpu PYTHONPATH=.:tests python tests/torch_option_sets.py
+[set ...]`` rewrites it (every set, or the sets named). Importing this
+module imports no JAX, so the GPU tests read the same states.
+"""
+import dataclasses
+from pathlib import Path
+
+import numpy as np
+
+from cice5_tpu_torch import config as C
+import torch_port_util as U
+
+OPTIONS_REFERENCE = Path(__file__).with_name("test_torch_options.npz")
+NY, NX, NDTE = U.PARITY_NY, U.PARITY_NX, U.PARITY_NDTE
+ISTEP = U.PARITY_ISTEP
+NSTEPS = 2
+SEED = 23
+# the coupler's per-category surface fluxes of the calc_Tsfc=False sets
+# (W/m^2): fsurfn_f = fcondtopn_f, a surface in conductive balance
+CPL_FLUX = dict(fsurf=(-40.0, -5.0), flat=(-6.0, 0.0), fsens=(-15.0, 5.0))
+
+STATE = ("aicen", "vicen", "vsnon", "uvel", "vvel", "sst", "frzmlt",
+         "strocnxT", "strocnyT", "iceumask", "scale_factor")
+STRESS = ("stressp", "stressm", "stress12")
+DIAG = ("aice", "vice", "vsno", "fsens", "flat", "flwout", "evap", "fresh",
+        "fsalt", "fhocn", "fswthru", "fswabs", "strairxT", "meltt", "melts",
+        "meltb", "congel", "snoice", "frazil", "meltl", "dardg1dt",
+        "dvirdgdt", "divu", "shear", "alvdr", "alidf", "Tsfc", "strength",
+        "Tref", "opening", "daidtd", "dvidtd", "albice", "albsno", "albpnd",
+        "fswint", "fpond", "dagedtt", "dagedtd", "snowfracn", "fsurf",
+        "fcondtop", "strintx", "strinty", "prs_sig", "state_bad",
+        "therm_converged")
+DIAG_EVP = ("strintx", "strinty", "prs_sig")
+DIAG_FLAGS = ("state_bad", "therm_converged")
+
+
+def _grid(ns):
+    """The grid section: the test mesh with an open north (displaced
+    pole) or a tripole seam."""
+    return C.GridConfig(nx=NX, ny=NY, ew_boundary="cyclic", ns_boundary=ns,
+                        grid_type="tripole" if ns == "tripole"
+                        else "displaced_pole")
+
+
+def _bl99(ns="open") -> C.ModelConfig:
+    """BL99 + CCSM3 with gx3's dynamics and slab ocean, no tracers."""
+    return C.ModelConfig(
+        grid=_grid(ns),
+        dyn=C.DynConfig(kdyn=1, ndte=NDTE, advection="remap", kstrength=1,
+                        krdg_partic=1, krdg_redist=1, mu_rdg=3.0, Cf=17.0),
+        forcing=C.ForcingConfig(oceanmixed_ice=True, natmiter=5),
+        time=C.TimeConfig(dt=3600.0), dtype="float64",
+        accum_dtype="float64")
+
+
+def _with(cfg, **sections):
+    return cfg.replace(**{k: dataclasses.replace(getattr(cfg, k), **v)
+                          for k, v in sections.items()})
+
+
+DEDD = dict(shortwave="dEdd", R_ice=0.0, R_pnd=0.0, R_snw=1.5, dT_mlt=1.5,
+            rsnw_mlt=1500.0)
+MUSHY = dict(ktherm=2, dSdt_slow_mode=-5.0e-8)
+PONDS = dict(hs0=0.0, hs1=0.03, hp1=0.01, dpscale=1e-3, rfracmin=0.15,
+             rfracmax=1.0, pndaspect=0.8)
+
+
+def option_sets() -> dict:
+    """{name: the port's ModelConfig of the set}."""
+    gx3 = C.gx3_config(dtype="float64", accum_dtype="float64")
+    gx3 = _with(gx3, dyn=dict(ndte=NDTE)).replace(grid=_grid("open"))
+    tp1 = C.tp1_config(dtype="float64", accum_dtype="float64")
+    tp1 = _with(tp1, dyn=dict(ndte=NDTE)).replace(grid=_grid("tripole"))
+    b = _bl99()
+    return {
+        "gx3": gx3,
+        "tp1": tp1,
+        "bl99_ccsm3_tripole": _bl99("tripole"),
+        "mushy_ccsm3": _with(b, thermo=MUSHY),
+        "dedd_no_ponds": _with(b, shortwave=DEDD),
+        "iage": _with(b, tracers=dict(tr_iage=True)),
+        "FY": _with(b, tracers=dict(tr_FY=True)),
+        "lvl": _with(b, tracers=dict(tr_lvl=True)),
+        "cesm_ponds_bl99": _with(b, shortwave=DEDD,
+                                 tracers=dict(tr_pond_cesm=True, **PONDS)),
+        "cesm_ponds_mushy": _with(b, thermo=MUSHY, shortwave=DEDD,
+                                  tracers=dict(tr_pond_cesm=True, **PONDS)),
+        "topo_ponds_bl99": _with(b, shortwave=DEDD,
+                                 tracers=dict(tr_pond_topo=True, **PONDS)),
+        "topo_ponds_mushy": _with(b, thermo=MUSHY, shortwave=DEDD,
+                                  tracers=dict(tr_pond_topo=True, **PONDS)),
+        "frzpnd_cesm": _with(b, shortwave=DEDD, tracers=dict(
+            tr_lvl=True, tr_pond_lvl=True, frzpnd="cesm", **PONDS)),
+        "zerolayer": _with(b, thermo=dict(ktherm=0)),
+        "calc_tsfc_off_bl99": _with(b, thermo=dict(calc_Tsfc=False)),
+        "calc_tsfc_off_mushy": _with(b, thermo=dict(calc_Tsfc=False,
+                                                    **MUSHY)),
+    }
+
+
+def grid_arrays():
+    """(ULAT, ULON, HTN, HTE, ANGLE, KMT): the parity test mesh, whose
+    land touches the tripole seam."""
+    return U.parity_grid_arrays()
+
+
+def seed_state(arrays: dict, cfg, tr) -> dict:
+    """The initial State's arrays with the ponds, ages and first-year area
+    seeded where there is ice; zero-layer columns keep their latent
+    enthalpies."""
+    rng = np.random.default_rng(SEED)
+    trc = np.array(arrays["trcrn"])
+    has = np.asarray(arrays["aicen"]) > 0
+    u = lambda lo, hi: np.where(has, rng.uniform(lo, hi, has.shape), 0.0)
+    if tr.nt_apnd >= 0:
+        trc[:, tr.nt_apnd] = u(0.1, 0.5)
+        trc[:, tr.nt_hpnd] = u(0.02, 0.3)
+    if tr.nt_ipnd >= 0:
+        trc[:, tr.nt_ipnd] = u(0.0, 0.02)
+    if tr.nt_iage >= 0:
+        trc[:, tr.nt_iage] = u(0.0, 3e7)
+    if tr.nt_FY >= 0:
+        trc[:, tr.nt_FY] = np.where(has, 1.0, 0.0)
+    return dict(arrays, trcrn=trc)
+
+
+def coupler_fluxes(cfg) -> dict:
+    """The per-category surface fluxes of a calc_Tsfc=False set
+    (ncat, ny, nx), from a fixed generator; {} for the other sets."""
+    if cfg.thermo.calc_Tsfc:
+        return {}
+    rng = np.random.default_rng(SEED + 1)
+    shp = (cfg.ncat, NY, NX)
+    fs = rng.uniform(*CPL_FLUX["fsurf"], shp)
+    return dict(fsurfn_f=fs, fcondtopn_f=fs.copy(),
+                flatn_f=rng.uniform(*CPL_FLUX["flat"], shp),
+                fsensn_f=rng.uniform(*CPL_FLUX["fsens"], shp))
+
+
+def make_reference(name) -> dict:
+    """Run the JAX package on set ``name``: {"in/<field>": the warmed-up
+    state, "forcing/<field>", "out/<field>": the state after NSTEPS steps,
+    "diag/<field>": the last step's diagnostics}."""
+    from functools import partial
+    import jax.numpy as jnp
+    from cice5_tpu.driver.model import Model as JModel
+    from cice5_tpu.driver.step import step as jstep_fn
+    from cice5_tpu.grid import popgrid_np as jpopgrid
+
+    cfg = U.jax_config(option_sets()[name])
+    jm = JModel(cfg, grid=jpopgrid(cfg, *grid_arrays()))
+    st0 = jm.init_state()
+    arrays = seed_state({f.name: np.asarray(getattr(st0, f.name))
+                         for f in dataclasses.fields(st0)}, cfg, jm.tr)
+    st0 = st0.replace(trcrn=jnp.asarray(arrays["trcrn"]))
+    f0 = jm.forcing_at(ISTEP)
+    f0 = f0.replace(frain=jnp.full_like(f0.frain, U.RAIN), **{
+        k: jnp.asarray(v) for k, v in coupler_fluxes(cfg).items()})
+    jstep = U.jit_fast(partial(jstep_fn, cfg=jm.cfg, tr=jm.tr, topo=jm.topo,
+                               hin_max=jm.hin_max, salinz=jm.salinz))
+    s = jstep(st0, f0, jm.grid)[0]
+    out = {}
+    for f in dataclasses.fields(s):
+        v = getattr(s, f.name)
+        if v is not None:
+            out[f"in/{f.name}"] = np.asarray(v)
+    for f in dataclasses.fields(f0):
+        v = getattr(f0, f.name)
+        if v is not None:
+            out[f"forcing/{f.name}"] = np.asarray(v)
+    for _ in range(NSTEPS):
+        s, d = jstep(s, f0, jm.grid)
+    for k in STATE + STRESS + ("trcrn",):
+        out[f"out/{k}"] = np.asarray(getattr(s, k))
+    for k in DIAG:
+        out[f"diag/{k}"] = np.asarray(getattr(d, k))
+    return out
+
+
+def reference_key(name) -> str:
+    """SHA-256 of what set ``name``'s reference depends on: every source
+    file of the JAX package, the set's configuration and the recipe."""
+    import hashlib
+    import inspect
+    import json
+    import pathlib
+    from cice5_tpu_torch import grid as tgrid
+    h = hashlib.sha256()
+    root = pathlib.Path(__file__).resolve().parents[1] / "cice5_tpu"
+    for path in sorted(root.rglob("*.py")):
+        h.update(path.relative_to(root).as_posix().encode())
+        h.update(path.read_bytes())
+    h.update(json.dumps(dataclasses.asdict(option_sets()[name]),
+                        sort_keys=True, default=repr).encode())
+    for fn in (grid_arrays, U.parity_grid_arrays, tgrid.synth_global_arrays,
+               seed_state, coupler_fluxes, make_reference):
+        h.update(inspect.getsource(fn).encode())
+    h.update(repr((NY, NX, NDTE, ISTEP, NSTEPS, SEED, CPL_FLUX, U.RAIN,
+                   STATE, STRESS, DIAG)).encode())
+    return h.hexdigest()
+
+
+def load_reference(name) -> dict:
+    """The recorded arrays of set ``name`` (prefix stripped), with its key
+    under "key"."""
+    with np.load(OPTIONS_REFERENCE) as z:
+        n = len(name) + 1
+        return {k[n:]: z[k] for k in z.files if k.startswith(name + "/")}
+
+
+def part(ref: dict, prefix: str) -> dict:
+    n = len(prefix) + 1
+    return {k[n:]: v for k, v in ref.items() if k.startswith(prefix + "/")}
+
+
+if __name__ == "__main__":
+    # python tests/torch_option_sets.py [set ...]: rewrite the reference of
+    # every set, or of the sets named, from the JAX package in float64
+    import sys
+    import jax
+    jax.config.update("jax_enable_x64", True)
+    names = sys.argv[1:] or sorted(option_sets())
+    old = {}
+    if OPTIONS_REFERENCE.exists():
+        with np.load(OPTIONS_REFERENCE) as z:
+            old = {k: z[k] for k in z.files
+                   if k.split("/", 1)[0] in option_sets()}
+    for name in names:
+        old = {k: v for k, v in old.items()
+               if k.split("/", 1)[0] != name}
+        old[f"{name}/key"] = np.array(reference_key(name))
+        old.update({f"{name}/{k}": v
+                    for k, v in make_reference(name).items()})
+        print(f"recorded {name}", flush=True)
+    np.savez_compressed(OPTIONS_REFERENCE, **old)
+    print(f"wrote {OPTIONS_REFERENCE}")

@@ -116,9 +116,32 @@ toolkit. Phases (any failure exits non-zero):
    float64), and every option set of tests/test_torch_options.py small
    (24x16, float64) on the card against the CPU within 3e-8 of scale,
    with its graph rollout equal to the eager step at 0.0.
-9. Print one JSON line with every kernel (launches from the gx1-parity
-   main path, the fused kernel's from the fused path; times on the
-   gx1-parity inputs, the fused kernel's on the BL99 ones), then the card
+9. The dynamics and transport options (``dynamics_phase``) at 384x320,
+   ndte=120, float32: the gx1-parity model on a T-fold seam (tripoleT)
+   with the transport conservation and monotonicity checks
+   (``gx1_tfold``, ``Model.rollout``, 5 steps: A on the T-fold, B and C
+   once per step; the count of monotonicity violations and the
+   conservation error printed); the gx1-parity model with
+   EAP rheology (kdyn=2) and the per-category mechred diagnostics
+   (``gx1_eap``, ``Model.run``, 4 steps after 2, with a history stream of
+   the EAP and mechred fields written once and read back: B and C once
+   per step, A never; the PyTorch kernels per graph step under
+   torch.profiler); the BL99 model with upwind transport
+   (``bl99_upwind``, ``Model.rollout``, 5 steps: A once per step, B
+   never). Each with the bench.py guards, ms/step, peak device memory and
+   the graph rollout against the eager step at 0.0, one JSON line each
+   (``gx1_tfold:``, ``gx1_eap:``, ``bl99_upwind:``). Then A against
+   ``subcycle_sweep`` on inputs captured from gx1_tfold (float64 and
+   float32, ndte 1 and 120, the shared and the forced device branch, the
+   latter at 0.0), with its plan, per-subcycle cost and graph-replay time;
+   B against its plain version on the same inputs; and every dynamics
+   option set of tests/torch_option_sets.py small (24x16, float64) on the
+   card against the CPU within 3e-8 of scale, the EAP structure tensor
+   included, with its graph rollout equal to the eager step at 0.0.
+10. Print one JSON line with every kernel (launches from the gx1-parity
+   main path, the fused kernel's from the fused path, and each path's
+   launches per step; times on the gx1-parity inputs, the fused kernel's
+   on the BL99 ones; A's T-fold launches and times beside), then the card
    line, then ``{"ok": true, "device": {...}}`` as the last line.
 """
 from __future__ import annotations
@@ -419,13 +442,26 @@ def remap_args_with_band(args):
     return (geomN, geomE, mm, tmE2, hmE2, tt, par, ny, nx)
 
 
-def remap_phase(args64, args32, grid64, grid32, label):
+def _upcast(x):
+    """Floating tensors of (nested tuples of) ``x`` in float64."""
+    import torch
+    if isinstance(x, tuple):
+        return tuple(_upcast(y) for y in x)
+    return x.double() if torch.is_tensor(x) and x.is_floating_point() else x
+
+
+def remap_phase(args64, args32, grid64, grid32, label, f32_update="plain"):
     """Kernel B (remap_flux_both) against remap_flux_plain on the card:
     the fluxes, and the remapped fields after the divergence update (the
-    quantities tests/test_remap_pallas.py holds at 2e-5 in float32). Prints
-    B's plan and times one call eagerly and as a CUDA graph replay (the
-    device time without the host's launch gaps; it must equal the eager
-    call bit for bit)."""
+    quantities tests/test_remap_pallas.py holds at 2e-5 in float32). With
+    ``f32_update="accuracy"`` the float32 remapped fields are held instead
+    to the plain float32's accuracy: no farther from the float64 update of
+    the same inputs than the plain version's, beyond 2e-5 of each field's
+    scale (on the T-fold inputs the type-3 pond tracers' float32 update
+    parts from float64 by ~2e-4 of scale, kernel and plain alike; ROADMAP
+    section C). Prints B's plan and times one call eagerly and as a CUDA
+    graph replay (the device time without the host's launch gaps; it must
+    equal the eager call bit for bit)."""
     import torch
     from cice5_tpu_torch.models.transport import remap as trm
     from cice5_tpu_torch.ops import check, remap_tiles
@@ -453,14 +489,39 @@ def remap_phase(args64, args32, grid64, grid32, label):
             dict(mm=upd[0][0], tm=upd[0][1]), dict(mm=upd[1][0],
                                                    tm=upd[1][1]),
             axes={"tm": 1}))
+        accuracy = ""
+        ok_u = rel_u <= tol_upd
+        if tag == "f32":
+            a64 = _upcast(args)
+            f64 = trm.remap_flux_plain(*a64)
+            truth = trm._update(grid64, mm=a64[2][:, 2:-2, 2:-2],
+                                tm=a64[3][:, :, 2:-2, 2:-2],
+                                fn_mflx=f64[0], fn_mtflx=f64[1],
+                                fe_mflx=f64[2], fe_mtflx=f64[3],
+                                tracer_type=args[5], parent=args[6])
+            dist = [check.field_errors(
+                dict(mm=truth[0], tm=truth[1]), dict(mm=u[0], tm=u[1]),
+                axes={"tm": 1}) for u in upd]
+            # how much farther from float64 the kernel's update is than
+            # the plain one's, each field on its own scale
+            excess = max(((k, dist[1][k][1] - dist[0][k][1])
+                          for k in dist[0]), key=lambda kv: kv[1])
+            plain_acc = check.worst(dist[0])
+            accuracy = (f"; float32 update against float64: plain worst "
+                        f"{plain_acc[0]} {plain_acc[1]:.3e}, kernel farther "
+                        f"by at most {excess[1]:.3e} of scale ({excess[0]}"
+                        f"{'; bound 2e-05' if f32_update == 'accuracy' else ''})")
+            if f32_update == "accuracy":
+                ok_u = excess[1] <= tol_upd
         print(f"remap_flux_both {label} {tag}: fluxes max abs diff "
               f"{err:.3e}; worst "
               f"flux {field}: rel diff {rel:.3e} (bound {tol:.0e} x the "
               f"field's scale); worst remapped field {field_u}: rel diff "
-              f"{rel_u:.3e} (bound {tol_upd:.0e} x the field's scale); "
-              f"ice-free tiles exact zeros: {skipped}")
+              f"{rel_u:.3e} (bound {tol_upd:.0e} x the field's scale"
+              f"{', not held: accuracy below' if f32_update == 'accuracy' and tag == 'f32' else ''}); "
+              f"ice-free tiles exact zeros: {skipped}{accuracy}")
         errs[tag] = err
-        bad = bad or not (rel <= tol and rel_u <= tol_upd and skipped)
+        bad = bad or not (rel <= tol and ok_u and skipped)
     if bad:
         fail(f"remap_flux_both disagrees with remap_flux_plain ({label})")
     args = args32
@@ -1785,14 +1846,16 @@ def coupler_fluxes(cfg, seed):
 
 
 def option_path(label, m, st, nsteps, expect, drive="rollout", cm=None,
-                grid_read_s=None, nwarm=2):
-    """Drive one path of phase 9: ``nwarm`` warm-up steps (the first an
-    eager step and the capture), then ``nsteps`` timed steps through
-    ``Model.run`` (``drive="run"``), ``Model.rollout`` or the coupled
-    model ``cm`` with the launch counters set to 0 just before and read
-    just after (each kernel ``expect[name]`` launches per step), the
-    bench.py guards, and the graph rollout against the eager step at 0.0
-    (``graph_phase``). Prints the path's line and one JSON line."""
+                grid_read_s=None, nwarm=2, run_kw=None, report=None):
+    """Drive one path of phases 9 and 10: ``nwarm`` warm-up steps (the
+    first an eager step and the capture), then ``nsteps`` timed steps
+    through ``Model.run`` (``drive="run"``, with ``run_kw``),
+    ``Model.rollout`` or the coupled model ``cm`` with the launch counters
+    set to 0 just before and read just after (each kernel
+    ``expect[name]`` launches per step), the bench.py guards, and the
+    graph rollout against the eager step at 0.0 (``graph_phase``). Prints
+    the path's line and one JSON line, with ``report(model, state,
+    diag)``'s entries added. Returns the launches per step."""
     import torch
     from cice5_tpu_torch.ops import kernels
     cfg = m.cfg
@@ -1812,7 +1875,7 @@ def option_path(label, m, st, nsteps, expect, drive="rollout", cm=None,
         st, diag = cm.run(st, nsteps, start_step=nwarm)
     elif drive == "run":
         st = m.run(st, nsteps, start_step=nwarm, check_every=1,
-                   log=lambda *a: None)
+                   log=lambda *a: None, **(run_kw or {}))
         diag = None
     else:
         st, diag = m.rollout(st, f0, nsteps)
@@ -1849,8 +1912,10 @@ def option_path(label, m, st, nsteps, expect, drive="rollout", cm=None,
                 peak_memory_bytes=peak, capture_s=g.capture_seconds)
     if grid_read_s is not None:
         line["grid_read_s"] = grid_read_s
+    if report is not None:
+        line.update(report(m, st, diag))
     print(f"{label}: " + json.dumps(line), flush=True)
-    return st
+    return {k: v // nsteps for k, v in launches.items()}
 
 
 def fresh_path():
@@ -1986,7 +2051,7 @@ def small_option_configs():
     }
 
 
-def small_option_check(label, cfg):
+def small_option_check(label, cfg, extra=()):
     """One option set through the kernels on the GPU against the plain
     versions on the CPU: 24x16 float64, ndte=8, a northern-summer noon
     with rain on the ice, ponds seeded where there is ice, one warm-up
@@ -2015,12 +2080,18 @@ def small_option_check(label, cfg):
         f = f.replace(**{k: torch.as_tensor(v) for k, v in
                          coupler_fluxes(cfg, seed=11).items()})
     st, _ = mc.step(st, f)
-    ref = mc.rollout(st, f, 2)[0]
-    got = mg.rollout(st.to("cuda"), f.to("cuda"), 2)[0].to("cpu")
+    ref, ref_d = mc.rollout(st, f, 2)
+    got, got_d = mg.rollout(st.to("cuda"), f.to("cuda"), 2)
+    got = got.to("cpu")
     torch.cuda.synchronize()
+    if cfg.dyn.monotonicity_check and int(ref_d.transport_mono_bad) != \
+            int(got_d.transport_mono_bad):
+        fail(f"small {label} run: {int(got_d.transport_mono_bad)} "
+             f"monotonicity violations on the GPU, "
+             f"{int(ref_d.transport_mono_bad)} on the CPU")
     graph_against_eager(mg, st.to("cuda"), f.to("cuda"),
                         f"small float64 {label} run")
-    names = ("aicen", "vicen", "vsnon", "uvel", "vvel", "sst")
+    names = ("aicen", "vicen", "vsnon", "uvel", "vvel", "sst") + extra
     amount = lambda s: tracer_weights(tr, s.aicen, s.vicen, s.vsnon,
                                       s.trcrn) * s.trcrn
     r = {k: getattr(ref, k) for k in names}
@@ -2092,6 +2163,162 @@ def options_phase():
     fresh_path()
     for label, cfg in small_option_configs().items():
         small_option_check(label, cfg)
+
+
+def pytorch_kernels_per_step(m, st, f, nsteps=1):
+    """(PyTorch kernels, their device ms) per step of ``Model.rollout``
+    (graph replays) under torch.profiler, the hand-written kernels
+    apart."""
+    import torch
+    own = ("evp_resident", "remap_tiles", "remap_recon", "remap_flux",
+           "shortwave_dedd")
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        m.rollout(st, f, nsteps)
+        torch.cuda.synchronize()
+    n, us = 0, 0.0
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not any(k in e.name for k in own)):
+            n += 1
+            us += e.time_range.elapsed_us()
+    return n / nsteps, us / 1e3 / nsteps
+
+
+def small_dynamics_configs():
+    """{label: float64 config} of the small GPU-vs-CPU runs of the
+    dynamics and transport options (the DYN_SETS of
+    tests/torch_option_sets.py): the BL99 model on a 24x16 global mesh,
+    ndte=8."""
+    import dataclasses
+    r = dataclasses.replace
+    base = small_option_configs()["ktherm=0"]
+    base = base.replace(thermo=r(base.thermo, ktherm=1))
+    dyn = lambda **kw: base.replace(dyn=r(base.dyn, **kw))
+    seam = lambda cfg, ns: cfg.replace(grid=r(cfg.grid, ns_boundary=ns,
+                                              grid_type="tripole"))
+    return {
+        "tfold": seam(base, "tripoleT"),
+        "eap": dyn(kdyn=2),
+        "eap_mechred": seam(dyn(kdyn=2, diag_mechred=True), "tripole")
+        .replace(tracers=r(base.tracers, tr_lvl=True)),
+        "upwind": dyn(advection="upwind").replace(
+            tracers=r(base.tracers, tr_iage=True)),
+        "transport_checks": dyn(conserv_check=True, monotonicity_check=True),
+        "dyn_no_transport": dyn(advection="none"),
+    }
+
+
+def dynamics_phase():
+    """The dynamics and transport options at full width
+    (384x320, ndte=120, float32): gx1-parity on a T-fold seam with the
+    transport checks (``gx1_tfold``, ``Model.rollout``: A on the T-fold,
+    B and C once per step), gx1-parity with EAP and the per-category
+    mechred diagnostics (``gx1_eap``, ``Model.run`` with a history stream
+    of the EAP and mechred fields: B and C once per step, A never; its
+    PyTorch kernels per step), the BL99 model with upwind transport
+    (``bl99_upwind``, ``Model.rollout``: A once per step, B never); A
+    against ``subcycle_sweep`` and B against its plain version on the
+    T-fold inputs; the small float64 GPU-vs-CPU run of each dynamics
+    option set. Returns ({path: launches per step}, A's T-fold result)."""
+    import dataclasses
+    import tempfile
+    import numpy as np
+    from scipy.io import netcdf_file
+    from cice5_tpu_torch.config import bench_easy_config
+    from cice5_tpu_torch.driver.model import Model
+    from cice5_tpu_torch.grid import synth_gx1_grid
+    from cice5_tpu_torch.io import history as hist
+    from cice5_tpu_torch.profile_step import gx1_eap_config, gx1_tfold_config
+    launches = {}
+
+    def build(cfg_fn):
+        def b(dtype="float32"):
+            cfg = cfg_fn().replace(dtype=dtype, accum_dtype=dtype)
+            m = Model(cfg, grid=synth_gx1_grid(cfg, device="cuda"))
+            return m, m.init_state(), m.forcing_at(0)
+        return b
+
+    def checks(m, st, diag):
+        # the count of tracer values outside their pre-transport bounds is
+        # the reference scheme's (ice edges and the T-fold's fold rows;
+        # ROADMAP section C): printed here, and held card against CPU by
+        # the small transport_checks run below
+        bad = int(diag.transport_mono_bad)
+        err = float(diag.transport_conserv_err)
+        if not err <= 1e-5:
+            fail(f"gx1_tfold: transport conservation error {err:.3e}")
+        return dict(transport_mono_bad=bad, transport_conserv_err=err)
+
+    fresh_path()
+    m, st, _ = build(gx1_tfold_config)()
+    if m.topo.ns != "tripoleT":
+        fail("gx1_tfold: not on a T-fold seam")
+    launches["gx1_tfold"] = option_path(
+        "gx1_tfold", m, st, 5, dict(evp_sweep=1, remap_flux_both=1,
+                                    shortwave_dedd=1), report=checks)
+    del m, st
+    caps = {dt: capture(build(gx1_tfold_config), dt)
+            for dt in ("float64", "float32")}
+    if caps["float32"][1]["evp"][2].ns != "tripoleT":
+        fail("gx1_tfold: kernel A was not called on the T-fold")
+    a = evp_phase(caps["float64"][1]["evp"], caps["float32"][1]["evp"],
+                  "gx1_tfold")
+    a["eager_ms"], a["ms"] = a["ms"], evp_costs(caps["float32"][1]["evp"],
+                                                "gx1_tfold")
+    remap_phase(caps["float64"][1]["remap"], caps["float32"][1]["remap"],
+                caps["float64"][0], caps["float32"][0], "gx1_tfold",
+                f32_update="accuracy")
+    del caps
+
+    fresh_path()
+    m, st, _ = build(gx1_eap_config)()
+    names = {f.name for f in hist.EAP_FIELDS + hist.MECHRED_CAT_FIELDS}
+    fields = [f for f in hist.available_fields(m.cfg, m.tr)
+              if f.name in names]
+    if {f.name for f in fields} != names:
+        fail(f"gx1_eap: the history catalog lacks "
+             f"{names - {f.name for f in fields}}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eap_") as tmp:
+        def eap_report(m, st, diag):
+            kn, kms = pytorch_kernels_per_step(m, st, m.forcing_at(6))
+            files = sorted(os.listdir(tmp))
+            if len(files) != 1:
+                fail(f"gx1_eap: history files {files}")
+            with netcdf_file(f"{tmp}/{files[0]}", "r", mmap=False) as nc:
+                for k in names:
+                    if not np.isfinite(np.asarray(nc.variables[k][:])).all():
+                        fail(f"gx1_eap: history {k} is not finite")
+                a11 = np.asarray(nc.variables["a11"][:])
+                krdg = np.asarray(nc.variables["krdgn"][:])
+            if not (np.abs(a11 - 0.5).max() > 0.0 and krdg.max() > 1.0):
+                fail("gx1_eap: the structure tensor or the mechred stack "
+                     "did not move")
+            return dict(pytorch_kernels_per_graph_step=kn,
+                        pytorch_device_ms_per_graph_step=kms,
+                        history_fields=sorted(names),
+                        a11_range=[float(a11.min()), float(a11.max())])
+
+        launches["gx1_eap"] = option_path(
+            "gx1_eap", m, st, 4, dict(remap_flux_both=1, shortwave_dedd=1),
+            drive="run", report=eap_report, run_kw=dict(
+                history=hist.HistoryStream(fields, freq="1", freq_n=4),
+                history_dir=tmp))
+    del m, st
+
+    fresh_path()
+    cfg = bench_easy_config()
+    m = Model(cfg.replace(dyn=dataclasses.replace(cfg.dyn,
+                                                  advection="upwind")))
+    launches["bl99_upwind"] = option_path(
+        "bl99_upwind", m, m.init_state(ice_mask=m.grid.tmask), 5,
+        dict(evp_sweep=1))
+    del m
+    fresh_path()
+    for label, cfg in small_dynamics_configs().items():
+        small_option_check(label, cfg,
+                           ("a11n", "a12n") if cfg.dyn.kdyn == 2 else ())
+    return launches, a
 
 
 def main():
@@ -2166,15 +2393,21 @@ def main():
                               shortwave_dedd=10, evp_fused=0,
                               remap_flux_edge=0))
     gx1_peak = torch.cuda.max_memory_allocated()
-    main_path("BL99+CCSM3", build_bl99, 5,
-              dict(evp_sweep=5, remap_flux_both=5, shortwave_dedd=0,
-                   evp_fused=0, remap_flux_edge=0))
+    bl99 = main_path("BL99+CCSM3", build_bl99, 5,
+                     dict(evp_sweep=5, remap_flux_both=5, shortwave_dedd=0,
+                          evp_fused=0, remap_flux_edge=0))
     fused = main_path("BL99+CCSM3 fused EVP", build_bl99_fused, 5,
                       dict(evp_sweep=0, remap_flux_both=5, shortwave_dedd=0,
                            evp_fused=60, remap_flux_edge=0))
     run_phase()
     auscom_025_phase(gx1_peak)
     options_phase()
+    by_path, a_tfold = dynamics_phase()
+    by_path.update({"gx1-parity": {k: v // 10 for k, v in launches.items()},
+                    "BL99+CCSM3": {k: v // 5 for k, v in bl99.items()},
+                    "BL99+CCSM3 fused EVP": {k: v // 5
+                                             for k, v in fused.items()}})
+    per_path = lambda name: {p: v.get(name, 0) for p, v in by_path.items()}
 
     line = {"kernels": [
         dict(name="evp_sweep", route="cuda",
@@ -2182,32 +2415,41 @@ def main():
              replaces="cice5_tpu/ops/pallas/evp_resident.py:35",
              launches=launches["evp_sweep"], max_abs_err=a["err"],
              ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
-             bound_by=a["bound_by"], library_ms=None),
+             bound_by=a["bound_by"], library_ms=None,
+             launches_per_step_by_path=per_path("evp_sweep"),
+             tfold=dict(launches=by_path["gx1_tfold"]["evp_sweep"] * 5,
+                        max_abs_err=a_tfold["err"], ms=a_tfold["ms"],
+                        plain_ms=a_tfold["plain_ms"],
+                        bound_ms=a_tfold["bound_ms"])),
         dict(name="remap_flux_both", route="cuda",
              source="cice5_tpu_torch/csrc/remap_tiles.cu",
              replaces="cice5_tpu/ops/pallas/remap_flux.py:163",
              launches=launches["remap_flux_both"], max_abs_err=b["err"],
              ms=b["ms"], plain_ms=b["plain_ms"], bound_ms=b["bound_ms"],
-             bound_by=b["bound_by"], library_ms=None),
+             bound_by=b["bound_by"], library_ms=None,
+             launches_per_step_by_path=per_path("remap_flux_both")),
         dict(name="shortwave_dedd", route="cuda",
              source="cice5_tpu_torch/csrc/shortwave_dedd.cu",
              replaces="cice5_tpu/ops/pallas/dedd_fused.py:51",
              launches=launches["shortwave_dedd"], max_abs_err=c["err"],
              ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
-             bound_by=c["bound_by"], library_ms=None),
+             bound_by=c["bound_by"], library_ms=None,
+             launches_per_step_by_path=per_path("shortwave_dedd")),
         dict(name="evp_fused", route="cuda",
              source="cice5_tpu_torch/csrc/evp_resident.cu",
              replaces="cice5_tpu/ops/pallas/evp_fused.py:49",
              launches=fused["evp_fused"], max_abs_err=d["err"],
              ms=d["ms"], plain_ms=d["plain_ms"], bound_ms=d["bound_ms"],
-             bound_by=d["bound_by"], library_ms=None),
+             bound_by=d["bound_by"], library_ms=None,
+             launches_per_step_by_path=per_path("evp_fused")),
         # no main path calls the single-edge kernel (0 launches on each)
         dict(name="remap_flux_edge", route="cuda",
              source="cice5_tpu_torch/csrc/remap_flux_edge.cu",
              replaces="cice5_tpu/ops/pallas/remap_flux.py:75",
              launches=launches["remap_flux_edge"], max_abs_err=e["err"],
              ms=e["ms"], plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
-             bound_by=e["bound_by"], library_ms=None),
+             bound_by=e["bound_by"], library_ms=None,
+             launches_per_step_by_path=per_path("remap_flux_edge")),
     ]}
     print(json.dumps(line))
     print(card)

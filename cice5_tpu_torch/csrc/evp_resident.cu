@@ -9,17 +9,20 @@
 // function (for an open or closed north-south boundary), so one kernel
 // serves both entries:
 //   evp_sweep_<type>: all ndte subcycles, in place on (u, v, stress), for
-//     cyclic, open or closed boundaries and the tripole U-fold of a north
-//     seam;
+//     cyclic, open or closed boundaries and the tripole U-fold or T-fold
+//     of a north seam;
 //   evp_fused_<type>: one chunk of K subcycles from (u, v, stress) into
 //     separate outputs, for an open or closed north-south boundary (the
 //     caller swaps its tensors between chunks).
 // Each subcycle (ice_dyn_evp.F90:336-410) is
 //   1. the NE-corner ghost ring of (u, v) by index arithmetic (cyclic wrap
 //      or zero fill per boundary, parallel/halo.py:extend), with the
-//      tripole U-fold: the top row is read symmetrized with its fold image,
-//      0.5*(f(ny-1,i) - f(ny-1,nx-2-i)), and the ghost row is
-//      -f(ny-2, nx-2-i), both mod nx; the carried u and v keep their values;
+//      tripole fold (fold mode 1, the U-fold): the top row is read
+//      symmetrized with its fold image, 0.5*(f(ny-1,i) - f(ny-1,nx-2-i)),
+//      and the ghost row is -f(ny-2, nx-2-i), both mod nx; the carried u
+//      and v keep their values; or (fold mode 2, the T-fold, where a U
+//      point is off the fold: offsets (0, 1), no degenerate row) the ghost
+//      row is -f(ny-2, nx-1-i) and the top row is read as it is;
 //   2. the stress kernel on the (ny+1, nx+1) region (evp.py:stress_kernel);
 //   3. stepu at every U point (models/dynamics/shared.py:stepu).
 //
@@ -151,19 +154,21 @@ __host__ __device__ inline size_t smem_values(const Plan& pl) {
 
 // Where the value of a (ny, nx) U-point field at (j, i), j in [-1, ny],
 // i in [-1, nx], comes from: the ghost ring of halo.extend (x first, then
-// full rows in y) and the tripole U-fold. Returns how to combine f[a] and
-// f[b] (ghost_value); integer work only, so a caller can issue the loads
-// of several points together.
+// full rows in y) and the tripole fold (fold mode 1: U-fold, 2: T-fold).
+// Returns how to combine f[a] and f[b] (ghost_value); integer work only,
+// so a caller can issue the loads of several points together.
 enum Ghost { G_ZERO = 0, G_SELF = 1, G_NEG = 2, G_SYM = 3 };
+enum Fold { F_NONE = 0, F_U = 1, F_T = 2 };
 
 __device__ __forceinline__ int ghost_ref(int j, int i, int ny, int nx,
                                          int cyc_x, int cyc_y, int fold,
                                          int& a, int& b) {
   a = b = 0;
   if (fold && j == ny) {
-    // the fold ghost row, extended cyclically in x: -f(ny-2, nx-2-i)
+    // the fold ghost row, extended cyclically in x: -f(ny-2, nx-2-i) on
+    // the U-fold, -f(ny-2, nx-1-i) on the T-fold
     const int ii = i < 0 ? i + nx : (i >= nx ? i - nx : i);
-    int src = nx - 2 - ii;
+    int src = (fold == F_U ? nx - 2 : nx - 1) - ii;
     src = src < 0 ? src + nx : src;
     a = b = (ny - 2) * nx + src;
     return G_NEG;
@@ -177,8 +182,8 @@ __device__ __forceinline__ int ghost_ref(int j, int i, int ny, int nx,
     j = j < 0 ? j + ny : j - ny;
   }
   a = b = j * nx + i;
-  if (fold && j == ny - 1) {
-    // the top row symmetrized with its fold image
+  if (fold == F_U && j == ny - 1) {
+    // the U-fold's top row symmetrized with its fold image
     int src = nx - 2 - i;
     src = src < 0 ? src + nx : src;
     b = j * nx + src;
@@ -320,7 +325,8 @@ __global__ void __launch_bounds__(Threads<T>::n, 1)
       const Tile tl = tile_of(pl, ny, nx, t);
       const int W = tl.tx + 2, H = tl.ty + 2;
       const int wr = tl.tx + 1, nr = (tl.ty + 1) * wr, nu = tl.ty * tl.tx;
-      const bool fold_top = S.fold && tl.j0 + tl.ty == ny;
+      // a U-fold tile on the seam: its top row is symmetrized
+      const bool fold_top = S.fold == F_U && tl.j0 + tl.ty == ny;
       T* st = BR == DEVICE ? S.tile_stress + (size_t)t * 12 * NR : sst;
       if (BR == DEVICE) __syncthreads();   // the previous tile is done
 
@@ -574,7 +580,7 @@ int run(Sweep<T> S, const int* plan, void* stream) {
   S.pl.txm = plan[3];
   S.pl.branch = plan[4];
   S.pl.blocks = plan[5];
-  if (S.nsub < 1 || S.pl.ntj < 1 || S.pl.nti < 1 || S.pl.ntj > S.ny ||
+  if (S.nsub < 1 || S.fold < F_NONE || S.fold > F_T || S.pl.ntj < 1 || S.pl.nti < 1 || S.pl.ntj > S.ny ||
       S.pl.nti > S.nx || S.pl.tym < (S.ny + S.pl.ntj - 1) / S.pl.ntj ||
       S.pl.txm < (S.nx + S.pl.nti - 1) / S.pl.nti ||
       (S.pl.tym + 1) * (S.pl.txm + 1) > PLANE)
@@ -630,7 +636,8 @@ Sweep<T> make(int ny, int nx, int nsub, int cyc_x, int cyc_y, int fold,
 extern "C" {
 
 // ndte subcycles in place on (u, v, stress); cyc_x/cyc_y: cyclic
-// boundaries, fold: the tripole U-fold of a north seam. plan: the 6 ints
+// boundaries, fold: the tripole fold of a north seam (0 none, 1 U-fold,
+// 2 T-fold). plan: the 6 ints
 // of TilePlan.as_ints; scratch: TilePlan.scratch_values values; sync: one
 // zeroed counter.
 int evp_sweep_f32(int ny, int nx, int ndte, int cyc_x, int cyc_y, int fold,

@@ -43,42 +43,42 @@ _LATER = "a later slice of the port"
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for every option outside the port so far,
     naming the slice that brings it. The port runs the rectangular,
-    column, POP displaced-pole and tripole (U-fold), lat-lon and CPOM
-    grids; zero-layer, BL99 or mushy thermodynamics, with the surface
-    temperature solved or the coupler's fluxes prescribed
-    (calc_Tsfc=False); CCSM3 or delta-Eddington shortwave; the iage, FY
-    and level-ice tracers and the CESM, level-ice or topographic ponds
-    (frzpnd 'hlid' or 'cesm'); EVP dynamics with remap transport and
-    ridging, or the fused EVP sweep off a tripole seam; and the
-    coupled-mode options formdrag, highfreq, coupled_radiation and
-    fbot_xfer_type="Cdn_ocn". Each option is held against the JAX step
-    on its own (tests/test_torch_options.py). Nothing is silently
-    approximated."""
+    column, POP displaced-pole and tripole grids, on a U-fold (tripole)
+    or T-fold (tripoleT) seam, lat-lon and CPOM grids; zero-layer, BL99
+    or mushy thermodynamics, with the surface temperature solved or the
+    coupler's fluxes prescribed (calc_Tsfc=False); CCSM3 or
+    delta-Eddington shortwave; the iage, FY and level-ice tracers and the
+    CESM, level-ice or topographic ponds (frzpnd 'hlid' or 'cesm'); EVP
+    (kdyn=1) or EAP (kdyn=2) dynamics with remap, upwind or no transport
+    and ridging, the fused EVP sweep off a tripole seam, the transport
+    conservation and monotonicity checks and the per-category mechred
+    diagnostics; and the coupled-mode options formdrag, highfreq,
+    coupled_radiation and fbot_xfer_type="Cdn_ocn". Each option is held
+    against the JAX step on its own (tests/test_torch_options.py). Nothing
+    is silently approximated."""
     g, th, dy, tc = cfg.grid, cfg.thermo, cfg.dyn, cfg.tracers
+    later = "is not ported yet: it comes with"
     checks = [
         (g.grid_type not in ("rectangular", "column", "displaced_pole",
                              "tripole", "latlon", "cpom"),
-         f"grid_type={g.grid_type!r}", _LATER),
-        (g.ns_boundary == "tripoleT" or g.ew_boundary in ("tripole",
-                                                          "tripoleT"),
-         "the tripoleT (T-fold) seam", _LATER),
-        (g.compact_columns == "on", "compact_columns='on'", _LATER),
+         f"grid_type={g.grid_type!r} {later} {_LATER}"),
+        (g.ew_boundary in ("tripole", "tripoleT"),
+         f"ew_boundary={g.ew_boundary!r}: a tripole fold is a north seam, "
+         "and no slice of the port brings it as an east-west boundary"),
+        (g.compact_columns == "on",
+         "compact_columns='on' is not ported: the JAX package measured "
+         "column packing a loss (cice5_tpu/driver/model.py:130-141), so no "
+         "slice of the port brings it"),
         (tc.tr_aero or tc.tr_brine or tc.skl_bgc,
-         "the aerosol, brine and BGC tracers", _LATER),
-        (dy.kdyn == 2, "kdyn=2 (EAP)", _LATER),
-        (dy.advection == "upwind", "advection='upwind'", _LATER),
-        (dy.kdyn >= 1 and dy.advection == "none",
-         "dynamics without transport", _LATER),
-        (dy.evp_algorithm == "chunked", "evp_algorithm='chunked'",
-         "the multi-GPU slice of the port"),
-        (dy.conserv_check or dy.monotonicity_check,
-         "the transport conservation/monotonicity checks", _LATER),
-        (dy.diag_mechred, "diag_mechred", _LATER),
+         f"the aerosol, brine and BGC tracers {later} the tracer slice of "
+         "the port"),
+        (dy.evp_algorithm == "chunked",
+         f"evp_algorithm='chunked' {later} the multi-GPU slice of the "
+         "port"),
     ]
-    for bad, what, where in checks:
+    for bad, what in checks:
         if bad:
-            raise NotImplementedError(f"{what} is not ported yet: it comes "
-                                      f"with {where}")
+            raise NotImplementedError(what)
     fused = dy.evp_algorithm == "pallas" and g.ns_boundary not in (
         "tripole", "tripoleT")
     if fused and g.ns_boundary == "cyclic":
@@ -104,6 +104,12 @@ def check_supported(cfg: ModelConfig) -> None:
     if tc.tr_pond_lvl and tc.frzpnd not in ("hlid", "cesm"):
         raise ValueError(f"frzpnd={tc.frzpnd!r}: the level-pond refreezing "
                          "is 'hlid' or 'cesm' (ice_meltpond_lvl.F90)")
+    if dy.kdyn not in (0, 1, 2):
+        raise ValueError(f"kdyn={dy.kdyn}: 0 (no dynamics), 1 (EVP) or 2 "
+                         "(EAP)")
+    if dy.advection not in ("remap", "upwind", "none"):
+        raise ValueError(f"advection={dy.advection!r}: 'remap', 'upwind' "
+                         "or 'none'")
     if dy.yield_curve != "ellipse":
         raise NotImplementedError(
             f"yield_curve={dy.yield_curve!r}: only 'ellipse' exists "

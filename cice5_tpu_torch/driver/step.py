@@ -1,14 +1,16 @@
 """One model time step (PyTorch port of ``cice5_tpu/driver/step.py``,
-without the aerosol, brine and BGC tracers, EAP, upwind transport and the
-conservation checks, which come with later slices).
+without the aerosol, brine and BGC tracers, which come with a later
+slice).
 
 ice_step_mod.F90 and the standalone driver loop (CICE_RunMod.F90:107-267):
 radiation (CCSM3 or delta-Eddington), form drag, per-category vertical
 thermodynamics (zero-layer, BL99 or mushy; the coupler's surface fluxes
 with calc_Tsfc=False), the ice age, first-year area and the CESM,
 level-ice and topographic pond tracers, ITD evolution (linear remap,
-frazil, lateral melt, cleanup), EVP dynamics + remap transport +
-ridging, the slab ocean, and the flux aggregation for diagnostics, as one
+frazil, lateral melt, cleanup), EVP or EAP dynamics + remap or upwind
+transport (or none) + ridging, with the optional transport and ITD
+conservation checks and the per-category mechred diagnostics, the slab
+ocean, and the flux aggregation for diagnostics, as one
 function ``step(state, forcing, grid, ...) -> (state, diag)``.
 
 Categories are an explicit leading batch axis: per-category fields are
@@ -33,6 +35,7 @@ from cice5_tpu_torch.grid import Grid
 from cice5_tpu_torch.models import atmo, ocean
 from cice5_tpu_torch.models.formdrag import neutral_drag_coeffs
 from cice5_tpu_torch.models.dynamics import shared as dyn
+from cice5_tpu_torch.models.dynamics.eap import eap
 from cice5_tpu_torch.models.dynamics.evp import evp
 from cice5_tpu_torch.models.dynamics.ridge import ridge_ice
 from cice5_tpu_torch.models.dynamics.strength import (strength_hibler,
@@ -43,6 +46,7 @@ from cice5_tpu_torch.models.radiation.ccsm3 import (AbsorbedSolar, Albedos,
 from cice5_tpu_torch.models.thermo import itd, vertical
 from cice5_tpu_torch.models.tracers import ponds, simple
 from cice5_tpu_torch.models.transport.remap import transport_remap
+from cice5_tpu_torch.models.transport.upwind import transport_upwind
 from cice5_tpu_torch.ops.evp_fused import evp_fused
 from cice5_tpu_torch.parallel import Topology, global_min, global_sum
 from cice5_tpu_torch.state import State, TracerRegistry
@@ -88,6 +92,8 @@ class StepDiag(NamedTuple):
     therm_converged: torch.Tensor
     ferr_max: torch.Tensor
     fpond: torch.Tensor         # net meltwater flux into ponds (m/step)
+    transport_conserv_err: torch.Tensor  # 0 unless conserv_check (0-d)
+    transport_mono_bad: torch.Tensor     # 0 unless monotonicity_check
     fsurfn_ai: torch.Tensor
     flatn_ai: torch.Tensor
     fsensn_ai: torch.Tensor
@@ -108,6 +114,12 @@ class StepDiag(NamedTuple):
     strtlty: torch.Tensor
     strcorx: torch.Tensor
     strcory: torch.Tensor
+    e11: torch.Tensor           # strain-rate tensor, EAP diagnostics
+    e12: torch.Tensor           # (zero under EVP; ice_dyn_eap.F90:1278)
+    e22: torch.Tensor
+    yieldstress11: torch.Tensor  # anisotropic yield-stress tensor
+    yieldstress12: torch.Tensor  # (ice_dyn_eap.F90:1330-1339)
+    yieldstress22: torch.Tensor
     albice: torch.Tensor
     albsno: torch.Tensor
     albpnd: torch.Tensor        # broadband pond albedo (dEdd only)
@@ -126,12 +138,18 @@ class StepDiag(NamedTuple):
     # .F90 f_drag/f_Cdn_atm/f_Cdn_ocn); (len(DRAG_KEYS), ny, nx) when
     # cfg.forcing.formdrag else (0, ny, nx)
     drag: torch.Tensor
+    # per-category mechred diagnostics stacked in RDGN_KEYS order
+    # (ice_history_mechred.F90); (9, ncat, ny, nx) when
+    # cfg.dyn.diag_mechred else (0, ncat, ny, nx)
+    rdgn: torch.Tensor
 
 
 DRAG_KEYS = ("Cdn_atm", "Cdn_ocn", "Cdn_atm_skin", "Cdn_atm_floe",
              "Cdn_atm_pond", "Cdn_atm_rdg", "Cdn_ocn_skin", "Cdn_ocn_floe",
              "Cdn_ocn_keel", "hfreebd", "hdraft", "hridge", "distrdg",
              "hkeel", "dkeel", "lfloe", "dfloe")
+RDGN_KEYS = ("dardg1ndt", "dardg2ndt", "dvirdgndt", "araftn", "vraftn",
+             "aparticn", "krdgn", "aredistn", "vredistn")
 
 
 # the smallest ocean-cell spacing of each grid, read from the device once
@@ -462,10 +480,21 @@ def _column_physics(aicen, vicen, vsnon, trcrn, strocnxT, strocnyT,
         fpond = fpond + _pond_volume(trcrn, aicen)
 
     # step_therm2: ITD evolution
+    itd_bad = None
     if cfg.kitd == 1:
+        if cfg.dyn.conserv_check:
+            pre_sums = itd.itd_conservation_sums(tr, nilyr, nslyr, aicen,
+                                                 vicen, vsnon, trcrn)
         aicen, vicen, vsnon, trcrn = itd.linear_itd(
             tr, hin_max, nslyr, aicen_init=aicen0, vicen_init=vicen0,
             aicen=aicen, vicen=vicen, vsnon=vsnon, trcrn=trcrn)
+        if cfg.dyn.conserv_check:
+            # the reference's l_stop abort on a linear_itd conservation
+            # violation (ice_therm_itd.F90:783-860), counted into the
+            # step's state_bad
+            itd_bad = itd.itd_conservation_check(
+                pre_sums, itd.itd_conservation_sums(tr, nilyr, nslyr, aicen,
+                                                    vicen, vsnon, trcrn))
 
     agg1 = itd.aggregate(tr, aicen, vicen, vsnon, trcrn)
     nir = itd.add_new_ice(dt, tr, hin_max, nilyr, aicen=aicen, vicen=vicen,
@@ -512,7 +541,7 @@ def _column_physics(aicen, vicen, vsnon, trcrn, strocnxT, strocnyT,
 
     stout = dict(aicen=aicen, vicen=vicen, vsnon=vsnon, trcrn=trcrn)
     sc = dict(therm_converged=tres.converged.all(), ferr_max=tres.ferr.max(),
-              niter_thermo=tres.niter)
+              niter_thermo=tres.niter, itd_bad=itd_bad)
     return stout, dg, sc
 
 
@@ -552,6 +581,7 @@ def step(state: State, forcing: Forcing, grid: Grid, cfg: ModelConfig,
     uvel, vvel = state.uvel, state.vvel
     stressp, stressm, stress12 = state.stressp, state.stressm, state.stress12
     iceumask = state.iceumask
+    a11n, a12n = state.a11n, state.a12n
     strocnxT, strocnyT = state.strocnxT, state.strocnyT
     z2 = lambda: torch.zeros((ny, nx), **kw)
     divu, shear_d, opening_d = z2(), z2(), z2()
@@ -559,6 +589,12 @@ def step(state: State, forcing: Forcing, grid: Grid, cfg: ModelConfig,
     strength_d, prs_sig_d = z2(), z2()
     strintx_d, strinty_d, strtltx_d, strtlty_d = z2(), z2(), z2(), z2()
     strcorx_d, strcory_d = z2(), z2()
+    e11_d, e12_d, e22_d = z2(), z2(), z2()
+    ys11_d, ys12_d, ys22_d = z2(), z2(), z2()
+    rdgn_d = torch.zeros((9 if cfg.dyn.diag_mechred else 0, cfg.ncat, ny,
+                          nx), **kw)
+    conserv_err = torch.zeros((), **kw)
+    mono_bad = torch.zeros((), dtype=torch.int32, device=kw["device"])
     niter_ridge = torch.zeros((), dtype=torch.int64, device=kw["device"])
 
     def _mean_age(an, tc):
@@ -598,19 +634,27 @@ def step(state: State, forcing: Forcing, grid: Grid, cfg: ModelConfig,
                                            Pstar=cfg.dyn.Pstar,
                                            Cstar=cfg.dyn.Cstar)
             strength_d = strength
-            # the fused subcycle sweep where the JAX step takes it
-            # (cice5_tpu/driver/step.py:1010-1014): not on a tripole seam
-            evp_fn = evp
-            if (cfg.dyn.evp_algorithm == "pallas"
+            dyn_kw = dict(aice=agg.aice, vice=agg.vice, vsno=agg.vsno,
+                          strength=strength, strairxT=dg["strairxT"],
+                          strairyT=dg["strairyT"], uocn=forcing.uocn,
+                          vocn=forcing.vocn, uvel=uvel, vvel=vvel,
+                          stressp=stressp, stressm=stressm,
+                          stress12=stress12, iceumask=iceumask,
+                          Cw=dg["Cw_ocn"])
+            if cfg.dyn.kdyn == 2:
+                er = eap(dt_dyn, p, grid, topo, a11n=a11n, a12n=a12n,
+                         **dyn_kw)
+                ev = er.evp
+                a11n, a12n = er.a11n, er.a12n
+                e11_d, e12_d, e22_d = er.e11, er.e12, er.e22
+                ys11_d, ys12_d, ys22_d = er.ys11, er.ys12, er.ys22
+            elif (cfg.dyn.evp_algorithm == "pallas"
                     and topo.ns not in ("tripole", "tripoleT")):
-                evp_fn = evp_fused
-            ev = evp_fn(dt_dyn, p, grid, topo, aice=agg.aice, vice=agg.vice,
-                        vsno=agg.vsno, strength=strength,
-                        strairxT=dg["strairxT"], strairyT=dg["strairyT"],
-                        uocn=forcing.uocn, vocn=forcing.vocn, uvel=uvel,
-                        vvel=vvel, stressp=stressp, stressm=stressm,
-                        stress12=stress12, iceumask=iceumask,
-                        Cw=dg["Cw_ocn"])
+                # the fused subcycle sweep where the JAX step takes it
+                # (cice5_tpu/driver/step.py:1010-1014): not on a seam
+                ev = evp_fused(dt_dyn, p, grid, topo, **dyn_kw)
+            else:
+                ev = evp(dt_dyn, p, grid, topo, **dyn_kw)
             uvel, vvel = ev.uvel, ev.vvel
             prs_sig_d = ev.prs_sig
             strintx_d, strinty_d = ev.strintx, ev.strinty
@@ -622,10 +666,23 @@ def step(state: State, forcing: Forcing, grid: Grid, cfg: ModelConfig,
             strocnxT, strocnyT = ev.strocnxT, ev.strocnyT
             divu, shear_d = ev.divu, ev.shear
 
-            if cfg.dyn.advection == "remap":
-                aicen, vicen, vsnon, trcrn = transport_remap(
+            if cfg.dyn.advection == "upwind":
+                aice0_t = torch.clamp(1.0 - aicen.sum(0), min=0.0) * grid.hm
+                aicen, vicen, vsnon, trcrn, _ = transport_upwind(
                     dt_dyn, grid, topo, tr, uvel=uvel, vvel=vvel,
-                    aicen=aicen, vicen=vicen, vsnon=vsnon, trcrn=trcrn)
+                    aicen=aicen, vicen=vicen, vsnon=vsnon, trcrn=trcrn,
+                    aice0=aice0_t)
+            elif cfg.dyn.advection == "remap":
+                chk = (cfg.dyn.conserv_check, cfg.dyn.monotonicity_check)
+                out = transport_remap(
+                    dt_dyn, grid, topo, tr, uvel=uvel, vvel=vvel,
+                    aicen=aicen, vicen=vicen, vsnon=vsnon, trcrn=trcrn,
+                    conserv_check=chk[0], monotonicity_check=chk[1])
+                aicen, vicen, vsnon, trcrn = out[:4]
+                if any(chk):
+                    conserv_err = torch.maximum(conserv_err,
+                                                out[4].conserv_err)
+                    mono_bad = mono_bad + out[4].mono_violations
 
             aice0_r = torch.clamp(1.0 - aicen.sum(0), min=0.0) * grid.hm
             rr = ridge_ice(dt_dyn, tr, hin_max, nilyr, nslyr, aicen=aicen,
@@ -635,7 +692,8 @@ def step(state: State, forcing: Forcing, grid: Grid, cfg: ModelConfig,
                            krdg_partic=cfg.dyn.krdg_partic,
                            krdg_redist=cfg.dyn.krdg_redist,
                            mu_rdg=cfg.dyn.mu_rdg, ndtd=cfg.time.ndtd,
-                           tr_pond_topo=cfg.tracers.tr_pond_topo)
+                           tr_pond_topo=cfg.tracers.tr_pond_topo,
+                           cat_diags=cfg.dyn.diag_mechred)
             aicen, vicen, vsnon, trcrn = rr.aicen, rr.vicen, rr.vsnon, rr.trcrn
             niter_ridge += rr.niter
             fresh = fresh + rr.fresh
@@ -644,6 +702,8 @@ def step(state: State, forcing: Forcing, grid: Grid, cfg: ModelConfig,
             dardg2dt = dardg2dt + rr.dardg2dt
             dvirdgdt = dvirdgdt + rr.dvirdgdt
             opening_d = opening_d + rr.opening
+            if cfg.dyn.diag_mechred:
+                rdgn_d = rdgn_d + rr.catdiag
 
             cl2 = itd.cleanup_itd(dt_dyn, tr, hin_max, nilyr, nslyr,
                                   aicen=aicen, vicen=vicen, vsnon=vsnon,
@@ -736,6 +796,8 @@ def step(state: State, forcing: Forcing, grid: Grid, cfg: ModelConfig,
                  + _nbad(uvel, -5.0, 5.0) + _nbad(vvel, -5.0, 5.0)
                  + _nbad(trcrn[:, tr.nt_Tsfc], -100.0, Tsfc_tol,
                          mask=aicen > ct.puny))
+    if sc["itd_bad"] is not None:
+        state_bad = state_bad + global_sum(sc["itd_bad"], topo)
     if cfg.thermo.ktherm == 0:
         # zero-layer enthalpies after every ITD operation
         # (ice_itd.F90:2428 zerolayer_check, from cleanup_itd when
@@ -746,8 +808,9 @@ def step(state: State, forcing: Forcing, grid: Grid, cfg: ModelConfig,
 
     new_state = state.replace(
         aicen=aicen, vicen=vicen, vsnon=vsnon, trcrn=trcrn,
-        uvel=uvel, vvel=vvel, stressp=stressp, stressm=stressm,
-        stress12=stress12, iceumask=iceumask, strocnxT=strocnxT,
+        uvel=uvel, vvel=vvel, a11n=a11n, a12n=a12n, stressp=stressp,
+        stressm=stressm, stress12=stress12, iceumask=iceumask,
+        strocnxT=strocnxT,
         strocnyT=strocnyT, frzmlt=frzmlt_out, scale_factor=scale_factor,
         rad_prev=rad_prev, rad_alb=rad_alb,
         sst=sst_new, mlt_onset=mlt_onset, frz_onset=frz_onset)
@@ -766,7 +829,9 @@ def step(state: State, forcing: Forcing, grid: Grid, cfg: ModelConfig,
         alvdr=alvdr, alvdf=alvdf, alidr=alidr, alidf=alidf,
         Tsfc=aggf.trcr[tr.nt_Tsfc],
         therm_converged=sc["therm_converged"], ferr_max=sc["ferr_max"],
-        fpond=fpond, fsurfn_ai=dg["fsurfn_ai"], flatn_ai=dg["flatn_ai"],
+        fpond=fpond, transport_conserv_err=conserv_err,
+        transport_mono_bad=mono_bad,
+        fsurfn_ai=dg["fsurfn_ai"], flatn_ai=dg["flatn_ai"],
         fsensn_ai=dg["fsensn_ai"], fmelttn_ai=dg["fmelttn_ai"],
         snowfracn=dg["snowfracn"], fcondtopn_ai=dg["fcondtopn_ai"],
         fsurf=dg["fsurf"], fcondtop=dg["fcondtop"],
@@ -775,11 +840,13 @@ def step(state: State, forcing: Forcing, grid: Grid, cfg: ModelConfig,
         strintx=strintx_d, strinty=strinty_d,
         strtltx=strtltx_d, strtlty=strtlty_d,
         strcorx=strcorx_d, strcory=strcory_d,
+        e11=e11_d, e12=e12_d, e22=e22_d,
+        yieldstress11=ys11_d, yieldstress12=ys12_d, yieldstress22=ys22_d,
         albice=dg["albice"], albsno=dg["albsno"], albpnd=dg["albpnd"],
         dsnow=dg["dsnow"], fswint=dg["fswint"],
         daidtt=daidtt, dvidtt=dvidtt, daidtd=daidtd, dvidtd=dvidtd,
         dagedtt=dagedtt, dagedtd=dagedtd,
         opening=opening_d,
         niter_thermo=sc["niter_thermo"], niter_ridge=niter_ridge,
-        drag=dg["drag"])
+        drag=dg["drag"], rdgn=rdgn_d)
     return new_state, diag

@@ -188,6 +188,21 @@ TRACER_MEAN_FIELDS = [
 
 # per-category fields (a3Dc class; f_aicen/f_vicen/... flags,
 # ice_history_shared.F90:248-260 + pond/mechred category fields)
+# EAP structure tensor + strain/yield tensors (f_a11/f_a12/f_e11/
+# f_yieldstress11..., ice_history.F90 eap block)
+EAP_FIELDS = [
+    HistField("a11", "1", "structure tensor component a11",
+              instantaneous=True),
+    HistField("a12", "1", "structure tensor component a12",
+              instantaneous=True),
+    HistField("e11", "1/s", "strain-rate tensor component e11"),
+    HistField("e12", "1/s", "strain-rate tensor component e12"),
+    HistField("e22", "1/s", "strain-rate tensor component e22"),
+    HistField("yieldstress11", "N/m", "yield stress tensor component 11"),
+    HistField("yieldstress12", "N/m", "yield stress tensor component 12"),
+    HistField("yieldstress22", "N/m", "yield stress tensor component 22"),
+]
+
 CAT_FIELDS = [
     HistField("aicen", "1", "ice area, categories", dims="3Dc"),
     HistField("vicen", "m", "ice volume, categories", dims="3Dc"),
@@ -249,6 +264,28 @@ POND_FIELDS = [
     HistField("apeff", "1", "radiation-effective pond fraction of ice"),
     HistField("apeff_ai", "1", "radiation-effective pond fraction of cell"),
     HistField("apeffn", "1", "radiation-effective pond fraction, "
+              "categories", dims="3Dc"),
+]
+
+# per-category mechanical-redistribution diagnostics (3Dc; with
+# cfg.dyn.diag_mechred and the level-ice tracers: f_dardg1ndt ...
+# f_vredistn, ice_history_mechred.F90), in driver.step.RDGN_KEYS order
+MECHRED_CAT_FIELDS = [
+    HistField("dardg1ndt", "1/s", "ridging area rate, categories",
+              dims="3Dc"),
+    HistField("dardg2ndt", "1/s", "ridge area formation rate, categories",
+              dims="3Dc"),
+    HistField("dvirdgndt", "m/s", "ridging volume rate, categories",
+              dims="3Dc"),
+    HistField("araftn", "1", "rafted ice area, categories", dims="3Dc"),
+    HistField("vraftn", "m", "rafted ice volume, categories", dims="3Dc"),
+    HistField("aparticn", "1", "ridging participation function, categories",
+              dims="3Dc"),
+    HistField("krdgn", "1", "mean ridge thickness over thickness of "
+              "ridging ice, categories", dims="3Dc"),
+    HistField("aredistn", "1", "ridge area redistribution function, "
+              "categories", dims="3Dc"),
+    HistField("vredistn", "m", "ridge volume redistribution function, "
               "categories", dims="3Dc"),
 ]
 
@@ -366,6 +403,8 @@ def available_fields(cfg=None, tr=None, include_3d=True) -> list:
         fields += [f for f in TRACER_MEAN_FIELDS
                    if (f.name != "iage" or tr.nt_iage >= 0)
                    and (f.name != "FY" or tr.nt_FY >= 0)]
+    if cfg is not None and cfg.dyn.kdyn == 2:
+        fields += EAP_FIELDS
     if has_lvl:
         fields += MECHRED_FIELDS
     if has_pond:
@@ -381,6 +420,8 @@ def available_fields(cfg=None, tr=None, include_3d=True) -> list:
             fields.append(f)
         fields += [f for f in VERT_FIELDS
                    if cfg is None or f.dims != "4Ds" or cfg.nslyr >= 1]
+    if cfg is not None and cfg.dyn.diag_mechred and has_lvl:
+        fields += MECHRED_CAT_FIELDS
     if cfg is not None and cfg.forcing.formdrag:
         fields += [f for f in DRAG_FIELDS if f.name not in
                    {g.name for g in fields}]
@@ -393,18 +434,12 @@ def _check_ported(cfg=None, tr=None):
     """Raise for a configuration whose history fields come with physics
     the port does not have yet: the JAX catalog would list them, and the
     port does not drop them silently."""
-    what = []
     if tr is not None and (tr.nt_aero >= 0 or tr.nt_fbri >= 0
                            or tr.bgc_names):
-        what.append("the aerosol, brine and skeletal-BGC fields")
-    if cfg is not None and cfg.dyn.kdyn == 2:
-        what.append("the EAP fields (kdyn=2)")
-    if cfg is not None and cfg.dyn.diag_mechred:
-        what.append("the per-category mechred fields (diag_mechred)")
-    if what:
         raise NotImplementedError(
-            f"history: {', '.join(what)} are not ported yet: they come "
-            "with their physics in a later slice of the port")
+            "history: the aerosol, brine and skeletal-BGC fields are not "
+            "ported yet: they come with their physics in a later slice of "
+            "the port")
 
 
 class HistoryStreams:
@@ -621,11 +656,12 @@ def diag_to_values(diag, state, grid, tr=None, forcing=None,
     """Map a StepDiag + state into the standard history field names
     (+ mechred/pond/category/vertical fields when the tracer registry is
     given, + forcing fields when forcing is given, + the form-drag fields
-    when the diag holds their stack): the JAX package's keys
-    and values. The strain-rate and yield-stress tensors (EAP) and the
-    algal growth rates (BGC) are zeros, as the JAX step fills them under
-    EVP and without BGC; the state's a11n/a12n give a11/a12. Elementwise
-    tensor expressions: nothing is read back to the host."""
+    when the diag holds their stack, + the per-category mechred fields
+    under diag_mechred): the JAX package's keys and values. The state's
+    a11n/a12n give a11/a12 and the step's EAP diagnostics the strain-rate
+    and yield-stress tensors (zeros under EVP, as the JAX step fills
+    them). Elementwise tensor expressions: nothing is read back to the
+    host."""
     _check_ported(tr=tr)
     aice = diag.aice
     has_ice = aice > ct.puny
@@ -661,11 +697,15 @@ def diag_to_values(diag, state, grid, tr=None, forcing=None,
     if diag.drag.shape[0]:
         from cice5_tpu_torch.driver.step import DRAG_KEYS
         stacks.update({k: diag.drag[i] for i, k in enumerate(DRAG_KEYS)})
+    if diag.rdgn.shape[0]:
+        from cice5_tpu_torch.driver.step import RDGN_KEYS
+        stacks.update({k: diag.rdgn[i] for i, k in enumerate(RDGN_KEYS)})
     zero = torch.zeros_like(aice)
     eap = {"a11": state.a11n[0], "a12": state.a12n[0],
-           "e11": zero, "e12": zero, "e22": zero,
-           "yieldstress11": zero, "yieldstress12": zero,
-           "yieldstress22": zero}
+           "e11": diag.e11, "e12": diag.e12, "e22": diag.e22,
+           "yieldstress11": diag.yieldstress11,
+           "yieldstress12": diag.yieldstress12,
+           "yieldstress22": diag.yieldstress22}
     return extra | eap | stacks | {
         "opening": diag.opening * secday * 100.0,
         "aice": aice, "hi": diag.vice, "hs": diag.vsno, "Tsfc": diag.Tsfc,

@@ -272,7 +272,11 @@ _METRIC_FOLD = {"cxp": ("cxm", -1.0), "cxm": ("cxp", -1.0),
 
 def _region_metrics(grid, topo, names):
     """Ghost-extended region metrics, with the fold-partner ghosts of the
-    one-sided coefficients on a tripole seam."""
+    one-sided coefficients on a tripole seam. On the T-fold a T point lies
+    on the fold, and the ghost row of a one-sided coefficient is the
+    partner's fold image of the top row, the top row kept as it is
+    (``halo.extend`` with ``fold_partner``); the JAX package raises there
+    (its ``extend`` takes no partner on an on-fold staggering)."""
     out = {}
     tri = topo.ns in ("tripole", "tripoleT")
     for k in names:
@@ -288,8 +292,11 @@ def _region_metrics(grid, topo, names):
 
 def _extend_stress(stress0, topo):
     """Seed the (12, ny+1, nx+1)-region ghost ring of the stress state; on
-    a tripole seam the north ghost row holds the folded partner-corner
-    component (ice_HaloUpdate_stress, mpi/ice_boundary.F90:5564)."""
+    a U-fold seam the north ghost row holds the folded partner-corner
+    component (ice_HaloUpdate_stress, mpi/ice_boundary.F90:5564). On the
+    T-fold the JAX package seeds the plain CENTER fold, without the
+    partner permutation (cice5_tpu/models/dynamics/evp.py:299-316), and so
+    does the port."""
     E1 = extend(stress0, topo)
     if topo.ns != "tripole":
         return E1[:, 1:, 1:]
@@ -351,6 +358,12 @@ def kernel_args(*, uvel, vvel, stressR, maskR, strengthR, gR, icem_u,
                 cw_plane=cw_plane, Cw=0.0 if cw_plane else float(Cw))
 
 
+def fold_mode(topo: Topology) -> int:
+    """The EVP kernels' fold mode of a north seam: 0 none, 1 the U-fold
+    (``tripole``), 2 the T-fold (``tripoleT``)."""
+    return {"tripole": 1, "tripoleT": 2}.get(topo.ns, 0)
+
+
 def evp_sweep(p: dyn.EVPParams, ndte: int, topo: Topology, *, uvel, vvel,
               stressR, maskR, strengthR, gR, icem_u, aiu, uocn, vocn,
               waterx, watery, forcex, forcey, umassdti, fm, uarear,
@@ -370,13 +383,9 @@ def evp_sweep(p: dyn.EVPParams, ndte: int, topo: Topology, *, uvel, vvel,
             aiu=aiu, uocn=uocn, vocn=vocn, waterx=waterx, watery=watery,
             forcex=forcex, forcey=forcey, umassdti=umassdti, fm=fm,
             uarear=uarear, uvel_init=uvel_init, vvel_init=vvel_init, Cw=Cw)
-    if topo.ns == "tripoleT":
-        raise NotImplementedError(
-            "evp_sweep: the T-fold (tripoleT) seam in the CUDA kernel comes "
-            "with a later slice of the port")
     out = kernels.evp_sweep(
         ndte=ndte, cyc_x=topo.ew == "cyclic", cyc_y=topo.ns == "cyclic",
-        fold=topo.ns == "tripole", p=p, **kernel_args(
+        fold=fold_mode(topo), p=p, **kernel_args(
             uvel=uvel, vvel=vvel, stressR=stressR, maskR=maskR,
             strengthR=strengthR, gR=gR, icem_u=icem_u, aiu=aiu, uocn=uocn,
             vocn=vocn, waterx=waterx, watery=watery, forcex=forcex,

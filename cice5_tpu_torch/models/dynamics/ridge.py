@@ -106,6 +106,10 @@ class RidgeResult(NamedTuple):
     asum_err: torch.Tensor   # |asum - 1| after the final iteration
     niter: torch.Tensor      # iterations taken (0-d int64; normally 1-2)
     dfpond: torch.Tensor     # topo-pond water lost with ridged area (m)
+    catdiag: torch.Tensor    # per-category mechred diagnostics (9, ncat,
+    # *B) in driver.step.RDGN_KEYS order when cat_diags, else (0, ncat,
+    # *B): dardg1ndt, dardg2ndt, dvirdgndt (rates), araftn, vraftn,
+    # aparticn, krdgn, aredistn, vredistn (ice_history_mechred.F90)
 
 
 def _chain_root_and_parents(tr: TracerRegistry, it):
@@ -120,7 +124,7 @@ def _chain_root_and_parents(tr: TracerRegistry, it):
 def ridge_ice(dt, tr: TracerRegistry, hin_max, nilyr, nslyr, *, aicen,
               vicen, vsnon, trcrn, aice0, rdg_conv, rdg_shear,
               krdg_partic=1, krdg_redist=1, mu_rdg=4.0,
-              ndtd=1, tr_pond_topo=False) -> RidgeResult:
+              ndtd=1, tr_pond_topo=False, cat_diags=False) -> RidgeResult:
     """Full ridging driver (ice_mechred.F90:101-757 ridge_ice), in
     conserved-amount space: amounts are built once, transferred by every
     iteration, and turned back into tracer values once at the end."""
@@ -157,7 +161,8 @@ def ridge_ice(dt, tr: TracerRegistry, hin_max, nilyr, nslyr, *, aicen,
              aice0=aice0, closing_net=closing_net, opning=opning,
              done=torch.zeros(B, dtype=torch.bool, device=aicen.device),
              ardg1=z, ardg2=z, virdg=z, aopen=z, msnow_mlt=z, esnow_mlt=z,
-             mpond=z)
+             mpond=z, catdiag=torch.zeros(((9 if cat_diags else 0), ncat) + B,
+                                          **kw))
     pond_slot = tr.nt_hpnd if tr_pond_topo and tr.nt_hpnd >= 0 else None
     qs0, qs1 = tr.nt_qsno, tr.nt_qsno + nslyr
     eps_sum = 8.0 * torch.finfo(aicen.dtype).eps
@@ -209,6 +214,13 @@ def ridge_ice(dt, tr: TracerRegistry, hin_max, nilyr, nslyr, *, aicen,
         def acc(lst, i, val):
             lst[i] = val if lst[i] is None else lst[i] + val
 
+        if cat_diags:
+            # per-donor ridged amounts, rafting, and redistribution into
+            # each receiver (ice_mechred.F90:671, :1227)
+            cd = {k: [None] * ncat for k in ("ardg1", "ardg2", "virdg",
+                                             "araft", "vraft", "reda",
+                                             "redv")}
+
         for n in range(ncat):
             ridging = ((a_init[n] > ct.puny) & (r.apartic[n] > 0.0)
                        & (closing_gross > 0.0))
@@ -229,6 +241,17 @@ def ridge_ice(dt, tr: TracerRegistry, hin_max, nilyr, nslyr, *, aicen,
             msnow = msnow + ct.rhos * vsrdgn * (1.0 - FSNOWRDG)
             esnow = esnow + (1.0 - FSNOWRDG) / nslyr * afrac \
                 * atrcrn[n, qs0:qs1].sum(0)
+
+            if cat_diags:
+                # rafting where hrmin takes the 2h branch (hi <= maxraft)
+                hi_n = torch.where(a_init[n] > ct.puny,
+                                   v_init[n] / torch.clamp(a_init[n],
+                                                           min=ct.puny), 0.0)
+                mraft = (hi_n <= MAXRAFT).to(hi_n.dtype)
+                for k, val in (("ardg1", ardg1n), ("ardg2", ardg2n),
+                               ("virdg", virdgn), ("araft", mraft * ardg2n),
+                               ("vraft", mraft * virdgn)):
+                    cd[k][n] = val
 
             # donor side: a fraction afrac of every amount leaves
             acc(d_atrcr, n, (-afrac)[None] * atrcrn[n])
@@ -279,6 +302,9 @@ def ridge_ice(dt, tr: TracerRegistry, hin_max, nilyr, nslyr, *, aicen,
                 coeff = torch.stack([z if cls is None else frac[cls]
                                      for cls in share])
                 acc(d_atrcr, nr, coeff * atrcrn[n])
+                if cat_diags:
+                    acc(cd["reda"], nr, farea * ardg2n)
+                    acc(cd["redv"], nr, fvol * virdgn)
 
         stk = lambda lst, zz: torch.stack([d if d is not None else zz
                                            for d in lst])
@@ -286,6 +312,19 @@ def ridge_ice(dt, tr: TracerRegistry, hin_max, nilyr, nslyr, *, aicen,
         vicen = vicen + stk(d_vicen, z)
         vsnon = vsnon + stk(d_vsnon, z)
         atrcrn = atrcrn + stk(d_atrcr, torch.zeros((tr.ntrcr,) + B, **kw))
+        catdiag = c["catdiag"]
+        if cat_diags:
+            sums = torch.stack([stk(cd[k], z) for k in (
+                "ardg1", "ardg2", "virdg", "araft", "vraft")])
+            # participation and ridge thickness ratio of the last pass
+            # that ran (ice_mechred.F90:397); a pass with go False keeps
+            # them, so the loop stays over-run invariant
+            catdiag = torch.cat([
+                catdiag[:5] + sums,
+                torch.where(go, r.apartic, catdiag[5])[None],
+                torch.where(go, r.krdg, catdiag[6])[None],
+                catdiag[7:9] + torch.stack([stk(cd["reda"], z),
+                                            stk(cd["redv"], z)])])
 
         # convergence check (ridge_check, ice_mechred.F90:2040-2093),
         # scale-aware for float32
@@ -299,7 +338,7 @@ def ridge_ice(dt, tr: TracerRegistry, hin_max, nilyr, nslyr, *, aicen,
             opning=torch.where(ok, 0.0, torch.clamp(divadv, min=0.0)),
             done=c["done"] | ok, ardg1=ardg1_d, ardg2=ardg2_d,
             virdg=virdg_d, aopen=aopen, msnow_mlt=msnow, esnow_mlt=esnow,
-            mpond=mpond)
+            mpond=mpond, catdiag=catdiag)
 
     # the first pass always runs (ridge_ice's loop is a do-while)
     c = while_loop(body, pending, body(c, torch.ones(
@@ -317,4 +356,6 @@ def ridge_ice(dt, tr: TracerRegistry, hin_max, nilyr, nslyr, *, aicen,
         dvirdgdt=c["virdg"] * dti, opening=c["aopen"] * dti,
         fresh=c["msnow_mlt"] * dti_th, fhocn=c["esnow_mlt"] * dti_th,
         asum_err=torch.abs(asum_f - 1.0), niter=c["niter"],
-        dfpond=c["mpond"])
+        dfpond=c["mpond"],
+        catdiag=(torch.cat([c["catdiag"][:3] * dti, c["catdiag"][3:]])
+                 if cat_diags else c["catdiag"]))

@@ -159,6 +159,42 @@ def zerolayer_check(tr: TracerRegistry, nilyr, nslyr, aicen, vicen, vsnon,
     return (bad_i | bad_s).sum().to(torch.int32)
 
 
+def column_conservation_check(x1, x2, max_err):
+    """Per-cell conservation check |x2 - x1| <= max_err
+    (ice_itd.F90:1299 column_conservation_check), the reference's l_stop
+    abort as a count: returns (nbad 0-d int32, max_abs_err). The
+    reference's tolerance is for float64; a term of the dtype's rounding
+    of the column sums is added (16 eps |x1|)."""
+    err = torch.abs(x2 - x1)
+    tol = max_err + 16.0 * torch.finfo(x1.dtype).eps * torch.abs(x1)
+    return (err > tol).sum().to(torch.int32), err.max()
+
+
+def itd_conservation_sums(tr: TracerRegistry, nilyr, nslyr, aicen, vicen,
+                          vsnon, trcrn):
+    """Column sums of the five fields linear_itd checks for conservation:
+    vice, vsno, eice, esno, sice (ice_therm_itd.F90:700-860); eicen =
+    sum_k qice_k * vicen/nilyr per category, likewise esnon and sicen."""
+    eicen = trcrn[:, tr.nt_qice:tr.nt_qice + nilyr].sum(1) * vicen / nilyr
+    esnon = trcrn[:, tr.nt_qsno:tr.nt_qsno + nslyr].sum(1) * vsnon / nslyr
+    sicen = trcrn[:, tr.nt_sice:tr.nt_sice + nilyr].sum(1) * vicen / nilyr
+    return (vicen.sum(0), vsnon.sum(0), eicen.sum(0), esnon.sum(0),
+            sicen.sum(0))
+
+
+def itd_conservation_check(pre, post):
+    """The five linear_itd column sums against the reference's per-field
+    tolerances (ice_therm_itd.F90:783-860: puny for volumes and salt,
+    puny*Lfresh*rho for energies). Returns the count of failing (cell,
+    field) pairs, 0-d int32, 0 when conserved."""
+    tols = (ct.puny, ct.puny, ct.puny * ct.Lfresh * ct.rhoi,
+            ct.puny * ct.Lfresh * ct.rhos, ct.puny)
+    nbad = torch.zeros((), dtype=torch.int32, device=pre[0].device)
+    for x1, x2, tol in zip(pre, post, tols):
+        nbad = nbad + column_conservation_check(x1, x2, tol)[0]
+    return nbad
+
+
 def _pond_volume_per_cat(tr: TracerRegistry, aicen, trcrn):
     """Per-category topo-pond water volume aicen*apnd*hpnd (m)
     (ice_itd.F90:1910-1913)."""

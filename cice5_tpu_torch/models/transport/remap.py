@@ -25,7 +25,8 @@ import torch
 from cice5_tpu_torch import constants as ct
 from cice5_tpu_torch.constants import FieldLoc, FieldType
 from cice5_tpu_torch.ops import kernels
-from cice5_tpu_torch.parallel import Topology, extend, extend_wide
+from cice5_tpu_torch.parallel import (Topology, extend, extend_wide,
+                                      global_sum, shifted)
 from cice5_tpu_torch.state import (DEP_AICE, DEP_TRCR, DEP_VICE,
                                    TracerRegistry)
 
@@ -700,11 +701,25 @@ def tracer_table(tr: TracerRegistry):
     return tracer_type, parent, order, inv
 
 
+class TransportChecks(NamedTuple):
+    conserv_err: torch.Tensor      # max relative global-sum drift (0-d)
+    mono_violations: torch.Tensor  # count of monotone-bound violations
+
+
 def transport_remap(dt, grid, topo: Topology, tr: TracerRegistry, *, uvel,
-                    vvel, aicen, vicen, vsnon, trcrn):
+                    vvel, aicen, vicen, vsnon, trcrn, conserv_check=False,
+                    monotonicity_check=False):
     """Full-state incremental remapping (transport_remap :198-630 +
     state_to_tracers/tracers_to_state): mass field = aicen per category,
-    tracers = [hice, hsno, trcrn...] in class-sorted order."""
+    tracers = [hice, hsno, trcrn...] in class-sorted order.
+
+    conserv_check / monotonicity_check (l_conservation_check /
+    l_monotonicity_check, ice_transport_driver.F90:257-259): when either
+    is on, a ``TransportChecks`` is returned as a fifth output: the
+    relative global area/volume conservation error (global_conservation
+    :1011) and the count of monotone-bound violations
+    (local_max_min/check_monotonicity :1084, :1244). They wrap the
+    kernel's fluxes; every sum is a plain reduction (no atomics)."""
     tracer_type, parent, order, inv = tracer_table(tr)
     safe_a = torch.clamp(aicen, min=ct.puny)
     has = aicen > 0.0
@@ -714,6 +729,9 @@ def transport_remap(dt, grid, topo: Topology, tr: TracerRegistry, *, uvel,
     tm = torch.stack([src(i) for i in order], dim=1)
 
     geom = remap_geometry(dt, grid, topo, uvel=uvel, vvel=vvel)
+    if monotonicity_check:
+        tmin, tmax = monotonicity_bounds(tm, (aicen > 0.0).to(aicen.dtype),
+                                         tracer_type, parent, topo)
     mm_new, tm_new = remap_fields_batch(grid, topo, geom, mm=aicen, tm=tm,
                                         tracer_type=tracer_type,
                                         parent=parent)
@@ -722,4 +740,82 @@ def transport_remap(dt, grid, topo: Topology, tr: TracerRegistry, *, uvel,
     hsno_n = tm_new[:, inv[1]]
     trcrn_n = torch.stack([tm_new[:, inv[2 + it]] for it in range(tr.ntrcr)],
                           dim=1)
-    return aicen_n, aicen_n * hice_n, aicen_n * hsno_n, trcrn_n
+    vicen_n, vsnon_n = aicen_n * hice_n, aicen_n * hsno_n
+    if not (conserv_check or monotonicity_check):
+        return aicen_n, vicen_n, vsnon_n, trcrn_n
+    err = torch.zeros((), dtype=aicen.dtype, device=aicen.device)
+    nbad = torch.zeros((), dtype=torch.int32, device=aicen.device)
+    if conserv_check:
+        for m0, m1 in ((aicen, aicen_n), (vicen, vicen_n),
+                       (vsnon, vsnon_n)):
+            s0 = global_conservation(m0.sum(0), grid.tarea, topo)
+            s1 = global_conservation(m1.sum(0), grid.tarea, topo)
+            err = torch.maximum(err, torch.abs(s1 - s0)
+                                / torch.clamp(torch.abs(s0), min=1.0))
+    if monotonicity_check:
+        bad = check_monotonicity(tmin, tmax, mm_new, tm_new, tracer_type,
+                                 parent)
+        nbad = global_sum(bad.to(torch.int32), topo).to(torch.int32)
+    return aicen_n, vicen_n, vsnon_n, trcrn_n, TransportChecks(
+        conserv_err=err, mono_violations=nbad)
+
+
+def monotonicity_bounds(tm, aimask, tracer_type, parent, topo: Topology):
+    """Local pre-transport tracer min/max over the 9-point neighbourhood
+    (ice_transport_driver.F90:1084-1190 local_max_min), over neighbours
+    that carry the tracer (mass/parent mask): the monotone limits the
+    remapped values must respect. tm: (..., ntrace, ny, nx); aimask:
+    (..., ny, nx), 1.0 where mass > 0. Returns (tmin, tmax)."""
+    masks = []
+    for nt in range(tm.shape[-3]):
+        if tracer_type[nt] == 1:
+            masks.append(aimask)
+        else:
+            masks.append(aimask * (torch.abs(tm[..., parent[nt], :, :])
+                                   > ct.puny))
+    pm = torch.stack(masks, dim=-3)
+    tmE = extend(tm, topo)
+    pmE = extend(pm, topo)
+    big = 1.0e30
+    tmin = torch.where(pm > 0.0, tm, big)
+    tmax = torch.where(pm > 0.0, tm, -big)
+    for dj in (-1, 0, 1):
+        for di in (-1, 0, 1):
+            if di == 0 and dj == 0:
+                continue
+            v = shifted(tmE, di, dj)
+            m = shifted(pmE, di, dj) > 0.0
+            tmin = torch.minimum(tmin, torch.where(m, v, big))
+            tmax = torch.maximum(tmax, torch.where(m, v, -big))
+    return tmin, tmax
+
+
+def check_monotonicity(tmin, tmax, mm_new, tm_new, tracer_type, parent):
+    """Monotonicity violations after remap
+    (ice_transport_driver.F90:1244-1330 check_monotonicity): new tracer
+    values outside the pre-transport neighbourhood bounds. tm_new:
+    (..., ntrace, ny, nx), mm_new (..., ny, nx). Returns a bool violation
+    mask of tm_new's shape (all False when the scheme is monotone). The
+    bound tolerance sits above float32's rounding of the remap itself."""
+    eps_tol = max(ct.puny, 50.0 * torch.finfo(tm_new.dtype).eps)
+    out = []
+    for nt in range(tm_new.shape[-3]):
+        lc = mm_new > ct.puny
+        if tracer_type[nt] >= 2:
+            lc = lc & (torch.abs(tm_new[..., parent[nt], :, :]) > ct.puny)
+        if tracer_type[nt] == 3:
+            lc = lc & (torch.abs(tm_new[..., parent[parent[nt]], :, :])
+                       > ct.puny)
+        span = torch.maximum(torch.abs(tmin[..., nt, :, :]),
+                             torch.abs(tmax[..., nt, :, :]))
+        tol = eps_tol * (1.0 + span)
+        out.append(lc & ((tm_new[..., nt, :, :] < tmin[..., nt, :, :] - tol)
+                         | (tm_new[..., nt, :, :]
+                            > tmax[..., nt, :, :] + tol)))
+    return torch.stack(out, dim=-3)
+
+
+def global_conservation(mm, tarea, topo: Topology):
+    """Global mass integral for the conservation check
+    (ice_transport_driver.F90:1011-1082 global_conservation)."""
+    return global_sum(mm * tarea, topo)

@@ -109,7 +109,7 @@ def evp_on_plan(p, ndte, topo, plan, *, kchunk=None, **kw):
     if kchunk is None:
         u, v, s, d, si = kernels.evp_sweep(
             ndte=ndte, cyc_x=topo.ew == "cyclic", cyc_y=topo.ns == "cyclic",
-            fold=topo.ns == "tripole", p=p, plan=plan, **args)
+            fold=evp.fold_mode(topo), p=p, plan=plan, **args)
     else:
         state = {k: args.pop(k) for k in ("u", "v", "stress")}
         for _ in range(ndte // kchunk):

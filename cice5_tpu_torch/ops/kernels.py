@@ -336,10 +336,11 @@ def _plan_args(plan: TilePlan, dtype, device):
 
 def evp_sweep(*, ndte: int, cyc_x: bool, cyc_y: bool, u, v, stress, maskR,
               strengthR, gR, uin, cw_plane: bool, Cw: float, p,
-              fold: bool = False, plan: TilePlan | None = None):
+              fold: int = 0, plan: TilePlan | None = None):
     """Launch the ``evp_sweep`` entry of csrc/evp_resident.cu: ``ndte`` EVP
-    subcycles in one cooperative launch; ``fold`` is the tripole U-fold of
-    a north seam; ``plan`` (default: ``evp_plan``'s) the tiles and branch.
+    subcycles in one cooperative launch; ``fold`` is the tripole fold of a
+    north seam (0 none, 1 the U-fold, 2 the T-fold: ``evp.fold_mode``);
+    ``plan`` (default: ``evp_plan``'s) the tiles and branch.
 
     u, v: (ny, nx); stress: (12, ny+1, nx+1); maskR/strengthR:
     (ny+1, nx+1) (mask as 0/1 floats); gR: (10, ny+1, nx+1) in
@@ -351,6 +352,8 @@ def evp_sweep(*, ndte: int, cyc_x: bool, cyc_y: bool, u, v, stress, maskR,
     nyr, nxr = ny + 1, nx + 1
     if ndte < 1:
         raise ValueError("evp_sweep needs ndte >= 1")
+    if fold not in (0, 1, 2):
+        raise ValueError(f"fold={fold!r}: 0 (none), 1 (U-fold) or 2 (T-fold)")
     if fold and ny < 2:
         raise ValueError("the tripole fold needs ny >= 2")
     plan_i, scratch, sync = _plan_args(evp_plan(ny, nx, dtype, device, plan),

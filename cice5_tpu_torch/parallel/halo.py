@@ -75,10 +75,10 @@ def _top_sym(f, ioff: int, sign: float):
     sym = 0.5 * (top + sign * _fold_map(top, ioff))
     if ioff == -1:
         nx = top.shape[-1]
-        selfmask = torch.zeros(nx, dtype=torch.bool, device=f.device)
-        selfmask[0] = True
+        col = torch.arange(nx, device=f.device)
+        selfmask = col == 0
         if nx % 2 == 0:
-            selfmask[nx // 2] = True
+            selfmask = selfmask | (col == nx // 2)
         sym = torch.where(selfmask, top, sym)
     return sym
 
@@ -148,8 +148,10 @@ def extend(f: torch.Tensor, topo: Topology,
     row from ``fold_sign * fold(fold_partner)`` instead of the field
     itself. The 180-degree fold maps one-sided metric coefficients onto
     their partners (ghost cyp = -cym of the image cell, cxp = -cxm,
-    dxhy/dyhx negate; ice_grid.F90:356-367). Only non-degenerate
-    staggerings take a partner."""
+    dxhy/dyhx negate; ice_grid.F90:356-367). On a degenerate (on-fold)
+    staggering the ghost row is the partner's image of the top row and
+    the field's own top row is kept as it is (the T-fold's CENTER metrics
+    of the EVP region); the JAX package's ``extend`` raises there."""
     return extend_wide(f, topo, 1, loc=loc, kind=kind,
                        fold_partner=fold_partner, fold_sign=fold_sign)
 
@@ -165,9 +167,6 @@ def extend_wide(f: torch.Tensor, topo: Topology, W: int,
     _check(topo)
     tghost = None
     if topo.ns in _TRIPOLE:
-        if fold_partner is not None and _fold_spec(topo, loc, kind)[3]:
-            raise NotImplementedError(
-                "fold_partner on a degenerate (on-fold) staggering")
         tghost, top_sym = _tripole_ghost_wide(
             f, topo, loc, kind, W, fold_partner=fold_partner,
             fold_sign=fold_sign)

@@ -6,7 +6,10 @@
 Runs the BL99 + CCSM3 configuration (``bench_easy``, the default), the
 gx1-parity configuration (``gx1_parity``: mushy thermo, dEdd, tracers,
 tripole seam, on ``synth_gx1_grid``), the same with topographic ponds
-(``gx1_topo``), CICE's gx3 test configuration (``gx3``: 116x100, nilyr=7,
+(``gx1_topo``), on a T-fold seam with the transport conservation and
+monotonicity checks (``gx1_tfold``), with EAP rheology and the
+per-category mechred diagnostics (``gx1_eap``), the BL99 model with
+upwind transport (``bl99_upwind``), CICE's gx3 test configuration (``gx3``: 116x100, nilyr=7,
 open north, on ``synth_gx1_grid``'s mesh at that shape, the arrays that
 chip_smoke writes to its gx3 grid files) or the ACCESS-OM 0.25-degree one
 (``auscom_025``: the gx1-parity physics at 1080x1440 with the coupled
@@ -31,7 +34,8 @@ where the step does (not on the tripole seam). Prints one JSON line with
   hand-written kernel and for all other (PyTorch) kernels, the device
   busy share of the wall time and the host syncs
   (``aten::_local_scalar_dense``) per step; for ``graph`` also the graph
-  replays and loop flag reads per step;
+  replays and loop flag reads per step, the graphs of the step's program
+  and the host seconds their capture took;
 - the thermo solver's passes (BL99 or mushy Picard, both stages) and the
   ridging passes of the last step.
 
@@ -55,7 +59,8 @@ from cice5_tpu_torch.grid import synth_gx1_grid
 
 PHASES = {"_column_physics": "column_physics",
           "strength_rothrock": "strength", "evp": "evp", "evp_fused": "evp",
-          "transport_remap": "transport", "ridge_ice": "ridging",
+          "eap": "eap", "transport_remap": "transport",
+          "transport_upwind": "transport", "ridge_ice": "ridging",
           "ocean_mixed_layer": "ocean"}
 # inside _column_physics: reported apart, not added to phase_ms
 COLUMN_PHASES = {"_step_radiation": "radiation",
@@ -68,6 +73,39 @@ OWN_KERNELS = {"evp_resident": "evp_sweep",
                "remap_recon": "remap_flux_edge",
                "remap_flux": "remap_flux_edge",
                "shortwave_dedd": "shortwave_dedd"}
+
+
+def _with(cfg, **sections):
+    return cfg.replace(**{k: dataclasses.replace(getattr(cfg, k), **v)
+                          for k, v in sections.items()})
+
+
+def gx1_tfold_config():
+    """gx1-parity on a T-fold seam with the transport conservation and
+    monotonicity checks (chip_smoke's ``gx1_tfold`` path)."""
+    cfg = gx1_parity_config()
+    return _with(cfg, grid=dict(ns_boundary="tripoleT"),
+                 dyn=dict(conserv_check=True, monotonicity_check=True))
+
+
+def gx1_eap_config():
+    """gx1-parity with EAP rheology and the per-category mechred
+    diagnostics (chip_smoke's ``gx1_eap`` path)."""
+    return _with(gx1_parity_config(), dyn=dict(kdyn=2, diag_mechred=True))
+
+
+CONFIGS = {
+    "bench_easy": bench_easy_config,
+    "gx1_parity": gx1_parity_config,
+    "gx1_topo": lambda: _with(gx1_parity_config(), tracers=dict(
+        tr_pond_lvl=False, tr_pond_topo=True)),
+    "gx1_tfold": gx1_tfold_config,
+    "gx1_eap": gx1_eap_config,
+    "bl99_upwind": lambda: _with(bench_easy_config(),
+                                 dyn=dict(advection="upwind")),
+    "gx3": gx3_config,
+    "auscom_025": lambda: auscom_025_config(coupled_radiation=True),
+}
 
 
 def _timed_phases(totals, column, coupled_radiation=False):
@@ -107,8 +145,7 @@ def _timed_phases(totals, column, coupled_radiation=False):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--config", choices=("bench_easy", "gx1_parity",
-                                         "gx1_topo", "gx3", "auscom_025"),
+    ap.add_argument("--config", choices=tuple(CONFIGS),
                     default="bench_easy")
     ap.add_argument("--evp-algorithm", choices=("auto", "pallas"),
                     default="auto")
@@ -119,13 +156,7 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
 
-    topo = lambda c: c.replace(tracers=dataclasses.replace(
-        c.tracers, tr_pond_lvl=False, tr_pond_topo=True))
-    cfg = {"gx1_parity": gx1_parity_config,
-           "gx1_topo": lambda: topo(gx1_parity_config()),
-           "gx3": gx3_config,
-           "auscom_025": lambda: auscom_025_config(coupled_radiation=True),
-           "bench_easy": bench_easy_config}[args.config]()
+    cfg = CONFIGS[args.config]()
     args.ny = args.ny or cfg.grid.ny
     args.nx = args.nx or cfg.grid.nx
     cfg = cfg.replace(
@@ -204,7 +235,7 @@ def main(argv=None):
     graph_out.update(
         replays_per_step=(g.replays - replays) / (2 * args.steps),
         flag_reads_per_step=(g.flag_reads - reads) / (2 * args.steps),
-        graphs_captured=len(g.program))
+        graphs_captured=len(g.program), capture_seconds=g.capture_seconds)
     out = dict(
         config=args.config, evp_algorithm=args.evp_algorithm,
         grid=[args.ny, args.nx], steps=args.steps,

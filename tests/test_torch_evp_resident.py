@@ -122,22 +122,24 @@ def test_kernel_plan_must_fit_the_grid():
 def _window_maps(j0, j1, i0, i1, ny, nx, cyc_x, cyc_y, fold):
     """The kernel's ghost_ref for the window of rows j0-1..j1 and columns
     i0-1..i1, point by point: (kind, a, b) with kind 0 zero, 1 f[a], 2
-    -f[a] (the fold ghost row), 3 0.5*(f[a] + -f[b]) (the fold's
-    symmetrized top row; ghost_value), a and b flat indices of (ny, nx)."""
+    -f[a] (the fold ghost row), 3 0.5*(f[a] + -f[b]) (the U-fold's
+    symmetrized top row; ghost_value), a and b flat indices of (ny, nx).
+    fold: 0 none, 1 the U-fold, 2 the T-fold (``evp.fold_mode``)."""
     kind, ia, ib = [], [], []
     for j in range(j0 - 1, j1 + 1):
         for i in range(i0 - 1, i1 + 1):
             k, a, b = 0, 0, 0
             if fold and j == ny:
                 ii = i + nx if i < 0 else (i - nx if i >= nx else i)
-                k, a = 2, (ny - 2) * nx + (nx - 2 - ii) % nx
+                src = (nx - 2 if fold == 1 else nx - 1) - ii
+                k, a = 2, (ny - 2) * nx + src % nx
             else:
                 ok, jj, ii = True, j % ny, i % nx
                 if i < 0 or i >= nx:
                     ok = cyc_x
                 if ok and (j < 0 or j >= ny):
                     ok = cyc_y
-                if ok and fold and jj == ny - 1:
+                if ok and fold == 1 and jj == ny - 1:
                     k, a, b = 3, jj * nx + ii, jj * nx + (nx - 2 - ii) % nx
                 elif ok:
                     k, a = 1, jj * nx + ii
@@ -164,7 +166,7 @@ def tiled_sweep(p, ndte, topo, plan, *, uvel, vvel, stressR, maskR,
     points into the next ones; the diagnostics and the stress come from
     the owners."""
     ny, nx = uvel.shape
-    flags = (topo.ew == "cyclic", topo.ns == "cyclic", topo.ns == "tripole")
+    flags = (topo.ew == "cyclic", topo.ns == "cyclic", tevp.fold_mode(topo))
     cw_plane = torch.is_tensor(Cw) and Cw.dim() > 0
     tiles = [plan.tile(t) for t in range(plan.ntiles)]
     maps = [_window_maps(*tl, ny, nx, *flags) for tl in tiles]
@@ -250,11 +252,14 @@ def _flat(out):
     ("cyclic", "cyclic", 5, None, False),
     ("closed", "closed", 7, "device", False),
     ("cyclic", "tripole", 6, None, True),
-    ("cyclic", "tripole", 9, "device", False)])
+    ("cyclic", "tripole", 9, "device", False),
+    ("cyclic", "tripoleT", 6, None, True),
+    ("cyclic", "tripoleT", 9, "device", False)])
 def test_tiled_schedule_equals_subcycle_sweep(dtype, ew, ns, n_sm, branch,
                                               cw_plane):
     """Bit for bit on a 37x53 grid cut into ragged tiles (a few blocks'
-    worth, or the device branch's 2x2 tiles of at most 30x32), ndte=3."""
+    worth, or the device branch's 2x2 tiles of at most 30x32), ndte=3;
+    the U-fold and the T-fold seams included."""
     p, topo, kw = _sweep_inputs(37, 53, ew, ns, dtype, cw_plane=cw_plane)
     tdtype = kw["uvel"].dtype
     plan = tile_plan(37, 53, tdtype, n_sm, H100["smem_optin"], branch)
@@ -363,3 +368,34 @@ def test_tiled_schedule_device_branch_with_fold_and_cw_plane(dtype):
     assert not torch.equal(const[0], ref[0])
     # the seam rows move
     assert float(ref[0][-2:].abs().max()) > 0.0
+
+
+def test_tiled_schedule_matches_jax_sweep_resident_on_the_tfold():
+    """The T-fold seam: the kernel's schedule against the Pallas kernel it
+    replaces (interpret mode, on a T-fold topology) on the port's sweep
+    inputs of a 16x32 T-fold grid with a random stress, and bit for bit
+    against the port's plain sweep; the T-fold ghost row differs from the
+    U-fold's."""
+    ndte = 3
+    p, topo, kw = _sweep_inputs(16, 32, "cyclic", "tripoleT", "float64",
+                                seed=5)
+    jkw = {k: ({kk: jnp.asarray(vv.numpy()) for kk, vv in v.items()}
+               if isinstance(v, dict) else
+               v if isinstance(v, float) else jnp.asarray(v.numpy()))
+           for k, v in kw.items()}
+    jp = jdyn.EVPParams(**dataclasses.asdict(p))
+    ref = sweep_resident(jp, ndte, JTopology(ew="cyclic", ns="tripoleT"),
+                         **jkw, interpret=True)
+    plan = tile_plan(16, 32, torch.float64, 6, H100["smem_optin"])
+    got = tiled_sweep(p, ndte, topo, plan, **kw)
+    plain = tevp.subcycle_sweep(p, ndte, topo, **kw)
+    for name, a, b, c in zip(("u", "v", "stress", "divu", "shear",
+                              "rdg_conv", "rdg_shear", "prs_sig", "strintx",
+                              "strinty"),
+                             _flat(ref), _flat(got), _flat(plain)):
+        assert torch.equal(b, c), name
+        assert_close(a, b, 1e-11, name, floor=1e-12)
+    ufold = tevp.subcycle_sweep(p, ndte, Topology(ew="cyclic", ns="tripole"),
+                                **kw)
+    assert not torch.equal(ufold[0][-2:], plain[0][-2:])
+    assert float(plain[0][-2:].abs().max()) > 0.0

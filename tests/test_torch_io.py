@@ -322,19 +322,35 @@ def test_icefields_mapping_matches_jax():
     assert tun == jun and "f_made_up" in tun and "f_aero" in tun
 
 
-@pytest.mark.parametrize("what", ["tr_aero", "tr_brine", "skl_bgc",
-                                  "diag_mechred", "kdyn"])
+@pytest.mark.parametrize("what", ["tr_aero", "tr_brine", "skl_bgc"])
 def test_catalog_raises_for_physics_not_ported(what):
     cfg = bench_easy_config(ny=8, nx=8, ndte=2)
     r = dataclasses.replace
     cfg = {"tr_aero": cfg.replace(tracers=r(cfg.tracers, tr_aero=True,
                                             n_aero=1)),
            "tr_brine": cfg.replace(tracers=r(cfg.tracers, tr_brine=True)),
-           "skl_bgc": cfg.replace(tracers=r(cfg.tracers, skl_bgc=True)),
-           "diag_mechred": cfg.replace(dyn=r(cfg.dyn, diag_mechred=True)),
-           "kdyn": cfg.replace(dyn=r(cfg.dyn, kdyn=2))}[what]
+           "skl_bgc": cfg.replace(tracers=r(cfg.tracers, skl_bgc=True))}[what]
     with pytest.raises(NotImplementedError, match="not ported"):
         thist.available_fields(cfg, build_tracer_registry(cfg))
+
+
+@pytest.mark.parametrize("what", ["diag_mechred", "kdyn"])
+def test_catalog_of_the_dynamics_options_matches_jax(what):
+    """The per-category mechred fields (diag_mechred with the level-ice
+    tracers) and the EAP fields (kdyn=2): the JAX package's catalog."""
+    cfg = bench_easy_config(ny=8, nx=8, ndte=2)
+    r = dataclasses.replace
+    cfg = {"diag_mechred": cfg.replace(dyn=r(cfg.dyn, diag_mechred=True),
+                                       tracers=r(cfg.tracers, tr_lvl=True)),
+           "kdyn": cfg.replace(dyn=r(cfg.dyn, kdyn=2))}[what]
+    jcfg = U.jax_config(cfg)
+    got = thist.available_fields(cfg, build_tracer_registry(cfg))
+    ref = jhist.available_fields(jcfg, jbuild(jcfg))
+    assert [dataclasses.astuple(f) for f in got] == \
+        [dataclasses.astuple(f) for f in ref]
+    names = {f.name for f in got}
+    assert ({"dardg1ndt", "vredistn"} if what == "diag_mechred"
+            else {"a11", "yieldstress22"}) <= names
 
 
 def _port_values(case, k):

@@ -47,18 +47,20 @@ def _captured(device, dtype, ndte=8, ew="cyclic", ns="open"):
     return check.capture_kernel_args(m, st, f)[1]
 
 
-def _parity_model(device, dtype, ndte=8):
+def _parity_model(device, dtype, ndte=8, ns="tripole"):
     cfg = gx1_parity_config(dtype=dtype, accum_dtype=dtype)
-    cfg = cfg.replace(grid=dataclasses.replace(cfg.grid, ny=24, nx=16),
+    cfg = cfg.replace(grid=dataclasses.replace(cfg.grid, ny=24, nx=16,
+                                               ns_boundary=ns),
                       dyn=dataclasses.replace(cfg.dyn, ndte=ndte))
     grid = popgrid_np(cfg, *parity_grid_arrays(), device=device)
     return Model(cfg, grid=grid, device=device)
 
 
-def _captured_parity(device, dtype, ndte=8):
+def _captured_parity(device, dtype, ndte=8, ns="tripole"):
     """Kernel arguments in the second step of the 24x16 gx1-parity model
-    on a tripole grid with land on the seam, at a northern-summer noon."""
-    m = _parity_model(device, dtype, ndte)
+    on a tripole grid (U-fold, or ``ns="tripoleT"`` the T-fold) with land
+    on the seam, at a northern-summer noon."""
+    m = _parity_model(device, dtype, ndte, ns)
     st = m.init_state()
     f = m.forcing_at(PARITY_ISTEP)
     st, _ = m.step(st, f)
@@ -269,6 +271,22 @@ def test_evp_kernel_on_the_tripole_matches_plain(cuda_device, dtype, ndte,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype,ndte,tol", [("float64", 1, 1e-12),
+                                            ("float64", 12, 3e-8),
+                                            ("float32", 12, 1e-5)])
+def test_evp_kernel_on_the_tfold_matches_plain(cuda_device, dtype, ndte,
+                                               tol):
+    """Kernel A with the T-fold of the north seam (fold mode 2), and
+    kernel B on the same step's T-fold inputs."""
+    got = _captured_parity(cuda_device, dtype, ndte=ndte, ns="tripoleT")
+    topo = got["evp"][2]
+    assert topo.ns == "tripoleT" and tevp.fold_mode(topo) == 2
+    assert _evp_rel(got) <= tol
+    assert _remap_rel(got["remap"]) <= (1e-12 if dtype == "float64"
+                                        else 1e-5)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [("float64", 1e-12),
                                        ("float32", 1e-5)])
 def test_remap_kernel_with_pond_chains_matches_plain(cuda_device, dtype,
@@ -354,14 +372,17 @@ def _plan(kw, branch):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("branch", ["auto", "shared", "device"])
-@pytest.mark.parametrize("model", ["bl99", "tripole"])
+@pytest.mark.parametrize("model", ["bl99", "tripole", "tfold"])
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_evp_sweep_kernel_branches_equal_plain(cuda_device, branch, model,
                                                dtype):
     """Kernel A in each branch of its tile plan equals subcycle_sweep bit
-    for bit, on the BL99 grid and on the tripole seam with land on it."""
-    got = (_captured if model == "bl99" else _captured_parity)(
-        cuda_device, dtype, ndte=12)
+    for bit, on the BL99 grid and on the U-fold and T-fold seams with land
+    on them."""
+    got = (_captured(cuda_device, dtype, ndte=12) if model == "bl99" else
+           _captured_parity(cuda_device, dtype, ndte=12,
+                            ns="tripoleT" if model == "tfold"
+                            else "tripole"))
     p, nd, topo, kw = got["evp"]
     ref = check.evp_outputs(tevp.subcycle_sweep(p, nd, topo, **kw))
     out = check.evp_outputs(check.evp_on_plan(p, nd, topo, _plan(kw, branch),

@@ -339,8 +339,9 @@ def test_overrides_and_unknown_entries_match_jax(tmp_path):
 
 
 @pytest.mark.parametrize("text,what", [
-    ("&dynamics_nml\n advection = 'upwind'\n/\n", "upwind"),
-    ("&dynamics_nml\n kdyn = 2\n/\n", "EAP"),
+    ("&zbgc_nml\n skl_bgc = .true.\n/\n", "BGC"),
+    ("&tracer_nml\n tr_brine = .true.\n tr_aero = .true.\n/\n",
+     "tracer slice"),
     ("&tracer_nml\n tr_brine = .true.\n/\n", "brine"),
     ("&tracer_nml\n tr_aero = .true.\n/\n", "aerosol"),
 ])

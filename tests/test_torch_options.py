@@ -8,7 +8,11 @@ and lvl alone, CESM and topographic ponds under BL99 and mushy thermo,
 the CESM refreezing of level ponds, zero-layer thermo, and the coupler's
 surface fluxes (calc_Tsfc=False) under BL99 and under mushy thermo, which
 solves its own surface and ignores them (ice_therm_vertical.F90:316-343,
-tests/test_calc_tsfc_off.py:104): the port copies that.
+tests/test_calc_tsfc_off.py:104): the port copies that. And the
+dynamics and transport options (``O.DYN_SETS``): the T-fold seam, EAP
+alone and with the mechred diagnostics, upwind transport, the transport
+checks, dynamics without transport (their extra outputs:
+tests/test_torch_dyn_options.py).
 
 Each runs two steps of the port's ``Model`` on the 24x16 mesh, ndte=8,
 from the state the JAX package warmed up by one step, with rain on the
@@ -273,7 +277,7 @@ def test_recorded_reference_matches_its_inputs(name):
 @pytest.mark.parametrize("name", SETS)
 def test_recorded_reference_is_current(name):
     """The recorded reference is what the JAX package computes now."""
-    new = O.make_reference(name)
+    new = O.record(name)
     old = O.load_reference(name)
     old.pop("key")
     assert sorted(new) == sorted(old)

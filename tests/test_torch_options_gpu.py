@@ -9,12 +9,14 @@ JAX, so on the GPU machine it runs without the repository's conftest:
 For every set (gx3's and tp1's physics, BL99 + CCSM3 on a tripole seam,
 mushy without dEdd, dEdd without ponds, iage, FY and lvl alone, CESM and
 topographic ponds under BL99 and mushy, the CESM pond refreezing,
-zero-layer thermo, calc_Tsfc=False under BL99 and mushy), from the
-recorded warmed-up state in float64: two steps through the kernels on the
-card within 3e-8 of each field's scale of the plain versions on the CPU
+zero-layer thermo, calc_Tsfc=False under BL99 and mushy; the T-fold
+seam, EAP alone and with the mechred diagnostics, upwind transport, the
+transport checks, dynamics without transport), from the recorded
+warmed-up state in float64: two steps through the kernels on the card
+within 3e-8 of each field's scale of the plain versions on the CPU
 (tracers as conserved amounts, stresses 1e-5), the graph rollout equal to
-the eager step at 0.0, and kernels A and B (and C where the set runs
-dEdd) launched once per step.
+the eager step at 0.0, and kernel A (EVP sets), B (remap sets) and C
+(dEdd sets) launched once per step.
 """
 import dataclasses
 
@@ -51,11 +53,14 @@ def test_set_on_the_card_matches_the_cpu(cuda_device, name):
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     dedd = mc.cfg.shortwave.shortwave == "dEdd"
-    assert counts == dict(evp_sweep=O.NSTEPS, remap_flux_both=O.NSTEPS,
+    evp = mc.cfg.dyn.kdyn == 1           # EAP has no hand-written kernel
+    remap = mc.cfg.dyn.advection == "remap"
+    assert counts == dict(evp_sweep=O.NSTEPS if evp else 0,
+                          remap_flux_both=O.NSTEPS if remap else 0,
                           shortwave_dedd=O.NSTEPS if dedd else 0,
                           evp_fused=0, remap_flux_edge=0)
     sg = sg.to("cpu")
-    for k in O.STATE:
+    for k in O.STATE + (O.DYN_STATE if name in O.DYN_SETS else ()):
         assert_close(getattr(sc, k), getattr(sg, k), 3e-8, k, floor=1.0)
     for k in O.STRESS:
         assert_close(getattr(sc, k), getattr(sg, k), 1e-5, k, floor=1.0)

@@ -78,22 +78,13 @@ def _unsupported():
     base = tconfig.rect_config(ny=8, nx=8)
     r = dataclasses.replace
     return {
-        "tripole": base.replace(grid=r(base.grid, ns_boundary="tripoleT")),
         "mushy": base.replace(thermo=r(base.thermo, ktherm=2),
                               tracers=r(base.tracers, tr_brine=True)),
         "skl_bgc": base.replace(tracers=r(base.tracers, skl_bgc=True)),
         "aero": base.replace(tracers=r(base.tracers, tr_aero=True,
                                        n_aero=1)),
-        "eap": base.replace(dyn=r(base.dyn, kdyn=2)),
-        "upwind": base.replace(dyn=r(base.dyn, advection="upwind")),
         "chunked": base.replace(dyn=r(base.dyn, evp_algorithm="chunked")),
         "compact": base.replace(grid=r(base.grid, compact_columns="on")),
-        "conserv_check": base.replace(dyn=r(base.dyn, conserv_check=True)),
-        "monotonicity_check": base.replace(
-            dyn=r(base.dyn, monotonicity_check=True)),
-        "diag_mechred": base.replace(dyn=r(base.dyn, diag_mechred=True)),
-        "dynamics_without_transport": base.replace(
-            dyn=r(base.dyn, advection="none")),
         "grid_type_unknown": base.replace(grid=r(base.grid,
                                                  grid_type="bipolar")),
     }
@@ -166,6 +157,17 @@ def _ported():
         "parity_topo_ponds": tconfig.gx1_parity_config(
             tracers=r(parity.tracers, tr_pond_lvl=False,
                       tr_pond_topo=True)),
+        # the dynamics and transport options, each on its own
+        # (tests/torch_option_sets.py holds each against JAX)
+        "tripole": base.replace(grid=r(base.grid, ns_boundary="tripoleT")),
+        "eap": base.replace(dyn=r(base.dyn, kdyn=2)),
+        "upwind": base.replace(dyn=r(base.dyn, advection="upwind")),
+        "conserv_check": base.replace(dyn=r(base.dyn, conserv_check=True)),
+        "monotonicity_check": base.replace(
+            dyn=r(base.dyn, monotonicity_check=True)),
+        "diag_mechred": base.replace(dyn=r(base.dyn, diag_mechred=True)),
+        "dynamics_without_transport": base.replace(
+            dyn=r(base.dyn, advection="none")),
     }
 
 

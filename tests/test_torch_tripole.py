@@ -92,10 +92,21 @@ def test_fold_partner_matches(ns, W):
         if W == 1:
             _eq(jhalo.extend(jnp.asarray(f), jhalo.Topology(ns=ns), **kw),
                 halo.extend(torch.as_tensor(f), halo.Topology(ns=ns), **tkw))
+    # an on-fold staggering: the JAX package takes no partner there; the
+    # port's ghost row is the partner's fold image of the source row and
+    # the field's own top row stays as it is (the T-fold's EVP metrics)
+    dloc = "NECORNER" if ns == "tripole" else "CENTER"
     with pytest.raises(NotImplementedError):
-        halo.extend(torch.as_tensor(f), halo.Topology(ns=ns),
-                    loc=FieldLoc["NECORNER" if ns == "tripole" else "CENTER"],
-                    fold_partner=torch.as_tensor(p))
+        jhalo.extend(jnp.asarray(f), jhalo.Topology(ns=ns), loc=JLoc[dloc],
+                     fold_partner=jnp.asarray(p), fold_sign=-1.0)
+    got = halo.extend(torch.as_tensor(f), halo.Topology(ns=ns),
+                      loc=FieldLoc[dloc], fold_partner=torch.as_tensor(p),
+                      fold_sign=-1.0)
+    ioff, joff = (1, 1) if ns == "tripole" else (-1, 0)
+    src = p[-1 - joff]
+    ghost = -src[(10 - 1 - np.arange(10) - ioff) % 10]
+    np.testing.assert_array_equal(got[-1, 1:-1].numpy(), ghost)
+    np.testing.assert_array_equal(got[1:-1, 1:-1].numpy(), f)
 
 
 @pytest.mark.parametrize("W", [1, 2])

@@ -7,14 +7,21 @@ gx3's and tp1's physics on a displaced-pole and a tripole grid, the BL99
 ponds, each of iage, FY and lvl alone, CESM and topographic ponds under
 BL99 and mushy thermo, the CESM refreezing of level ponds, zero-layer
 thermo, and the coupler's surface fluxes (calc_Tsfc=False) under BL99
-and mushy thermo. All run on the 24x16 synthetic global mesh of
+and mushy thermo; and the dynamics and transport options (``DYN_SETS``):
+the BL99 model on a T-fold seam, EAP rheology alone and with the
+per-category mechred diagnostics on a U-fold seam, upwind transport,
+the transport conservation and monotonicity checks, and dynamics without
+transport. All run on the 24x16 synthetic global mesh of
 test_torch_parity_step.py, ndte=8, float64, with rain on the ice (a
 pond's "no fresh water" branch then never rests on rounding noise).
 
 The reference is the JAX package's step: the initial state with ponds
 and ages seeded from a fixed generator, one warm-up step, then two steps,
 recorded in OPTIONS_REFERENCE under a SHA-256 of what it depends on (one
-jitted JAX step costs 20-60 s to compile on a CPU):
+jitted JAX step costs 20-60 s to compile on a CPU). The dynamics sets
+also record the EAP structure tensor, the EAP, check and mechred
+diagnostics, and run the JAX step with the port's T-fold metric ghosts
+(``tfold_region_metrics``: the JAX package's own raise there):
 ``JAX_PLATFORMS=cpu PYTHONPATH=.:tests python tests/torch_option_sets.py
 [set ...]`` rewrites it (every set, or the sets named). Importing this
 module imports no JAX, so the GPU tests read the same states.
@@ -53,10 +60,10 @@ DIAG_FLAGS = ("state_bad", "therm_converged")
 
 def _grid(ns):
     """The grid section: the test mesh with an open north (displaced
-    pole) or a tripole seam."""
+    pole) or a tripole seam (U-fold "tripole" or T-fold "tripoleT")."""
     return C.GridConfig(nx=NX, ny=NY, ew_boundary="cyclic", ns_boundary=ns,
-                        grid_type="tripole" if ns == "tripole"
-                        else "displaced_pole")
+                        grid_type="displaced_pole" if ns == "open"
+                        else "tripole")
 
 
 def _bl99(ns="open") -> C.ModelConfig:
@@ -112,7 +119,40 @@ def option_sets() -> dict:
         "calc_tsfc_off_bl99": _with(b, thermo=dict(calc_Tsfc=False)),
         "calc_tsfc_off_mushy": _with(b, thermo=dict(calc_Tsfc=False,
                                                     **MUSHY)),
+        **dyn_option_sets(),
     }
+
+
+# the extra fields the dynamics sets record (make_reference_dyn)
+DYN_STATE = ("a11n", "a12n")
+DYN_DIAG = ("e11", "e12", "e22", "yieldstress11", "yieldstress12",
+            "yieldstress22", "rdgn", "transport_conserv_err",
+            "transport_mono_bad")
+
+
+def dyn_option_sets() -> dict:
+    """{name: ModelConfig} of the dynamics and transport options, each on
+    the BL99 model."""
+    b = _bl99()
+    return {
+        # the reference runs the JAX package's Pallas remap kernel (in
+        # interpret mode), which the port's kernel B replaces: on the
+        # T-fold its fold row differs from the XLA remap's (ROADMAP C)
+        "tfold": _with(_bl99("tripoleT"), dyn=dict(remap_kernel="pallas")),
+        "eap": _with(b, dyn=dict(kdyn=2)),
+        "eap_mechred": _with(_bl99("tripole"),
+                             dyn=dict(kdyn=2, diag_mechred=True),
+                             tracers=dict(tr_lvl=True)),
+        "upwind": _with(b, dyn=dict(advection="upwind"),
+                        tracers=dict(tr_iage=True)),
+        "transport_checks": _with(b, dyn=dict(conserv_check=True,
+                                              monotonicity_check=True),
+                                  tracers=dict(tr_iage=True)),
+        "dyn_no_transport": _with(b, dyn=dict(advection="none")),
+    }
+
+
+DYN_SETS = tuple(dyn_option_sets())
 
 
 def grid_arrays():
@@ -194,6 +234,63 @@ def make_reference(name) -> dict:
     return out
 
 
+def tfold_region_metrics(jevp_module):
+    """The JAX package's ``_region_metrics`` with the T-fold ghosts the
+    port defines (``cice5_tpu_torch/models/dynamics/evp.py``): on
+    ``tripoleT`` the ghost row of a one-sided coefficient is the partner's
+    fold image of the top row, sign flipped, the top row as it is; the
+    JAX package's ``extend`` raises there (no partner on an on-fold
+    staggering). Every other topology and metric as the JAX package."""
+    import jax.numpy as jnp
+    from cice5_tpu.parallel import Topology as JTopology, extend as jextend
+    orig = jevp_module._region_metrics
+
+    def region_metrics(grid, topo, names):
+        if topo.ns != "tripoleT":
+            return orig(grid, topo, names)
+        out = orig(grid, topo, [k for k in names
+                                if k not in jevp_module._METRIC_FOLD])
+        for k in names:
+            if k not in jevp_module._METRIC_FOLD:
+                continue
+            pname, sgn = jevp_module._METRIC_FOLD[k]
+            E = jextend(getattr(grid, k), JTopology(ew=topo.ew, ns="open"))
+            # ghost(i) = sgn * partner(ny-1, (nx - i) mod nx)
+            g = sgn * jnp.roll(getattr(grid, pname)[-1, ::-1], 1)
+            E = E.at[-1].set(jnp.concatenate([g[-1:], g, g[:1]]))
+            out[k] = E[1:, 1:]
+        return {k: out[k] for k in names}
+    return region_metrics
+
+
+def make_reference_dyn(name) -> dict:
+    """``make_reference`` of a dynamics set: the same recipe with
+    DYN_STATE and DYN_DIAG recorded too, run with the T-fold metric ghosts
+    of ``tfold_region_metrics`` and the Pallas remap kernel in interpret
+    mode (the CPU has no TPU)."""
+    global STATE, DIAG
+    from functools import partial
+    from cice5_tpu.models.dynamics import eap as jeap, evp as jevp
+    from cice5_tpu.models.transport import remap as jremap
+    saved = (STATE, DIAG, jevp._region_metrics, jeap._region_metrics,
+             jremap.remap_fields_batch)
+    patched = tfold_region_metrics(jevp)
+    STATE, DIAG = STATE + DYN_STATE, DIAG + DYN_DIAG
+    jevp._region_metrics = jeap._region_metrics = patched
+    jremap.remap_fields_batch = partial(saved[-1], interpret=True)
+    try:
+        return make_reference(name)
+    finally:
+        (STATE, DIAG, jevp._region_metrics, jeap._region_metrics,
+         jremap.remap_fields_batch) = saved
+
+
+def record(name) -> dict:
+    """The reference of any set, as ``__main__`` records it."""
+    return (make_reference_dyn(name) if name in DYN_SETS
+            else make_reference(name))
+
+
 def reference_key(name) -> str:
     """SHA-256 of what set ``name``'s reference depends on: every source
     file of the JAX package, the set's configuration and the recipe."""
@@ -214,6 +311,10 @@ def reference_key(name) -> str:
         h.update(inspect.getsource(fn).encode())
     h.update(repr((NY, NX, NDTE, ISTEP, NSTEPS, SEED, CPL_FLUX, U.RAIN,
                    STATE, STRESS, DIAG)).encode())
+    if name in DYN_SETS:
+        for fn in (tfold_region_metrics, make_reference_dyn):
+            h.update(inspect.getsource(fn).encode())
+        h.update(repr((DYN_STATE, DYN_DIAG)).encode())
     return h.hexdigest()
 
 
@@ -246,8 +347,7 @@ if __name__ == "__main__":
         old = {k: v for k, v in old.items()
                if k.split("/", 1)[0] != name}
         old[f"{name}/key"] = np.array(reference_key(name))
-        old.update({f"{name}/{k}": v
-                    for k, v in make_reference(name).items()})
+        old.update({f"{name}/{k}": v for k, v in record(name).items()})
         print(f"recorded {name}", flush=True)
     np.savez_compressed(OPTIONS_REFERENCE, **old)
     print(f"wrote {OPTIONS_REFERENCE}")

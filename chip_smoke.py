@@ -135,14 +135,35 @@ toolkit. Phases (any failure exits non-zero):
    float32, ndte 1 and 120, the shared and the forced device branch, the
    latter at 0.0), with its plan, per-subcycle cost and graph-replay time;
    B against its plain version on the same inputs; and every dynamics
-   option set of tests/torch_option_sets.py small (24x16, float64) on the
+   option set of ``cice5_tpu_torch/small_sets.py`` (24x16, float64) on the
    card against the CPU within 3e-8 of scale, the EAP structure tensor
-   included, with its graph rollout equal to the eager step at 0.0.
-10. Print one JSON line with every kernel (launches from the gx1-parity
+   included (EAP on the T-fold seam too), with its graph rollout equal to
+   the eager step at 0.0.
+10. The aerosol, brine and skeletal-BGC tracers (``tracer_phase``): the
+   gx1-parity model with n_aero=3, the brine height and the nine BGC
+   tracers (``gx1_bgc``, 384x320, float32, ndte=120, 39 tracers) through
+   ``Model.run``, 4 steps after 2, with a history stream of the aerosol,
+   brine and BGC fields written once and read back (the bio-grid fields
+   on nilyr+2 levels): A, B and C once per step, the bench.py guards,
+   every tracer finite, the aerosol and BGC concentrations >= 0 (to
+   puny), the brine height ratio in (0, MAXHBR], primary production and
+   an aerosol flux to the ocean, the PyTorch kernels per graph step, and
+   the graph rollout against the eager step at 0.0; 4 more steps of
+   ``Model.run`` with the ms per step split by part (graph replay, state
+   check, history values, accumulation and file, the rest); one
+   ``gx1_bgc:`` JSON line. Then B against its plain version on the
+   gx1_bgc inputs (the 39-tracer table, float64 and float32) with its
+   plan, time and bound, and each tracer set of
+   ``cice5_tpu_torch/small_sets.py`` (24x16, float64) on the card against
+   the CPU within 3e-8 of scale, first_ice
+   and the aerosol and BGC fluxes included, with its graph rollout equal
+   to the eager step at 0.0.
+11. Print one JSON line with every kernel (launches from the gx1-parity
    main path, the fused kernel's from the fused path, and each path's
    launches per step; times on the gx1-parity inputs, the fused kernel's
-   on the BL99 ones; A's T-fold launches and times beside), then the card
-   line, then ``{"ok": true, "device": {...}}`` as the last line.
+   on the BL99 ones; A's T-fold and B's gx1_bgc launches and times
+   beside), then the card line, then ``{"ok": true, "device": {...}}``
+   as the last line.
 """
 from __future__ import annotations
 
@@ -2051,13 +2072,14 @@ def small_option_configs():
     }
 
 
-def small_option_check(label, cfg, extra=()):
+def small_option_check(label, cfg, extra=(), diag_extra=()):
     """One option set through the kernels on the GPU against the plain
     versions on the CPU: 24x16 float64, ndte=8, a northern-summer noon
     with rain on the ice, ponds seeded where there is ice, one warm-up
     step on the CPU, then two steps on each device, within 3e-8 of each
-    field's scale (tracers as conserved amounts); and on the GPU the graph
-    rollout against the eager step at 0.0."""
+    field's scale (tracers as conserved amounts; the StepDiag fields
+    ``diag_extra`` each entry of its leading axis on its own scale); and
+    on the GPU the graph rollout against the eager step at 0.0."""
     import torch
     from cice5_tpu_torch.driver.model import Model
     from cice5_tpu_torch.models.thermo.itd import tracer_weights
@@ -2097,8 +2119,12 @@ def small_option_check(label, cfg, extra=()):
     r = {k: getattr(ref, k) for k in names}
     g = {k: getattr(got, k) for k in names}
     r["trcrn_amount"], g["trcrn_amount"] = amount(ref), amount(got)
-    field, rel, err = check.worst(check.field_errors(
-        r, g, axes={"trcrn_amount": 1}))
+    axes = {"trcrn_amount": 1}
+    for k in diag_extra:
+        r[k], g[k] = getattr(ref_d, k), getattr(got_d, k).to("cpu")
+        if r[k].dim() == 3:
+            axes[k] = 0
+    field, rel, err = check.worst(check.field_errors(r, g, axes=axes))
     live = ""
     if tr.nt_apnd >= 0:
         vol = (got.trcrn[:, tr.nt_apnd] * got.trcrn[:, tr.nt_hpnd]
@@ -2185,30 +2211,6 @@ def pytorch_kernels_per_step(m, st, f, nsteps=1):
     return n / nsteps, us / 1e3 / nsteps
 
 
-def small_dynamics_configs():
-    """{label: float64 config} of the small GPU-vs-CPU runs of the
-    dynamics and transport options (the DYN_SETS of
-    tests/torch_option_sets.py): the BL99 model on a 24x16 global mesh,
-    ndte=8."""
-    import dataclasses
-    r = dataclasses.replace
-    base = small_option_configs()["ktherm=0"]
-    base = base.replace(thermo=r(base.thermo, ktherm=1))
-    dyn = lambda **kw: base.replace(dyn=r(base.dyn, **kw))
-    seam = lambda cfg, ns: cfg.replace(grid=r(cfg.grid, ns_boundary=ns,
-                                              grid_type="tripole"))
-    return {
-        "tfold": seam(base, "tripoleT"),
-        "eap": dyn(kdyn=2),
-        "eap_mechred": seam(dyn(kdyn=2, diag_mechred=True), "tripole")
-        .replace(tracers=r(base.tracers, tr_lvl=True)),
-        "upwind": dyn(advection="upwind").replace(
-            tracers=r(base.tracers, tr_iage=True)),
-        "transport_checks": dyn(conserv_check=True, monotonicity_check=True),
-        "dyn_no_transport": dyn(advection="none"),
-    }
-
-
 def dynamics_phase():
     """The dynamics and transport options at full width
     (384x320, ndte=120, float32): gx1-parity on a T-fold seam with the
@@ -2230,6 +2232,7 @@ def dynamics_phase():
     from cice5_tpu_torch.grid import synth_gx1_grid
     from cice5_tpu_torch.io import history as hist
     from cice5_tpu_torch.profile_step import gx1_eap_config, gx1_tfold_config
+    from cice5_tpu_torch import small_sets
     launches = {}
 
     def build(cfg_fn):
@@ -2315,10 +2318,132 @@ def dynamics_phase():
         dict(evp_sweep=1))
     del m
     fresh_path()
-    for label, cfg in small_dynamics_configs().items():
+    for label, cfg in small_sets.dyn_option_sets().items():
         small_option_check(label, cfg,
-                           ("a11n", "a12n") if cfg.dyn.kdyn == 2 else ())
+                           small_sets.DYN_STATE if cfg.dyn.kdyn == 2 else ())
     return launches, a
+
+
+def tracer_health(m, st, label):
+    """The tracer guards of the gx1_bgc path: every tracer finite, the
+    aerosol and BGC concentrations >= 0 (to puny, as
+    tests/test_aerosol.py holds the JAX package's), the brine height
+    ratio in (0, MAXHBR] where there is ice. Returns their ranges."""
+    import torch
+    from cice5_tpu_torch import constants as ct
+    from cice5_tpu_torch.models.tracers import brine
+    tr, t = m.tr, st.trcrn
+    if not bool(torch.isfinite(t).all()):
+        fail(f"{label}: a tracer is not finite")
+    aero = t[:, tr.nt_aero:tr.nt_aero + 4 * tr.n_aero]
+    bgc = t[:, tr.nt_bgc[0]:tr.nt_bgc[0] + tr.nbtrcr]
+    fbri = t[:, tr.nt_fbri][st.aicen > ct.puny]
+    out = dict(aero_min=float(aero.min()), aero_max=float(aero.max()),
+               bgc_min=float(bgc.min()), bgc_max=float(bgc.max()),
+               fbri_range=[float(fbri.min()), float(fbri.max())])
+    if not (out["aero_min"] >= -ct.puny and out["bgc_min"] >= -ct.puny):
+        fail(f"{label}: negative aerosol or BGC concentration {out}")
+    if not (out["fbri_range"][0] > 0.0
+            and out["fbri_range"][1] <= brine.MAXHBR):
+        fail(f"{label}: brine height ratio outside (0, {brine.MAXHBR}]: "
+             f"{out['fbri_range']}")
+    return out
+
+
+def tracer_phase():
+    """The aerosol, brine and skeletal-BGC tracers at full width: the
+    gx1-parity model with n_aero=3, the brine height and the nine BGC
+    tracers (``gx1_bgc``, 384x320, float32, ndte=120, 39 tracers) through
+    ``Model.run`` with a history stream of the aerosol, brine and BGC
+    fields (A, B and C once per step; the tracer guards; the PyTorch
+    kernels per graph step); B against its plain version on the gx1_bgc
+    inputs (the 39-tracer table, float64 and float32); the small float64
+    GPU-vs-CPU run of each tracer set, the tracer fluxes included.
+    Returns ({path: launches per step}, B's result)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from scipy.io import netcdf_file
+    from cice5_tpu_torch.driver.model import Model
+    from cice5_tpu_torch.grid import synth_gx1_grid
+    from cice5_tpu_torch.io import history as hist
+    from cice5_tpu_torch import small_sets
+    from cice5_tpu_torch.profile_step import gx1_bgc_config, run_split
+
+    def build(dtype="float32"):
+        cfg = gx1_bgc_config().replace(dtype=dtype, accum_dtype=dtype)
+        m = Model(cfg, grid=synth_gx1_grid(cfg, device="cuda"))
+        return m, m.init_state(), m.forcing_at(0)
+
+    fresh_path()
+    m, st, _ = build()
+    if m.tr.ntrcr != 39:
+        fail(f"gx1_bgc: {m.tr.ntrcr} tracers, expected 39")
+    names = {f.name for f in hist.BGC_FIELDS + hist.BGC_3DB_FIELDS
+             + hist.aero_fields(m.tr.n_aero)
+             + hist.skl_bgc_fields(m.tr.bgc_names)}
+    fields = [f for f in hist.available_fields(m.cfg, m.tr)
+              if f.name in names]
+    if {f.name for f in fields} != names:
+        fail(f"gx1_bgc: the history catalog lacks "
+             f"{names - {f.name for f in fields}}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bgc_") as tmp:
+        def bgc_report(m, st, diag):
+            out = tracer_health(m, st, "gx1_bgc")
+            _, d = m.step(st, m.forcing_at(6))
+            for k in small_sets.TRACER_DIAG:
+                if not bool(torch.isfinite(getattr(d, k)).all()):
+                    fail(f"gx1_bgc: StepDiag.{k} is not finite")
+            if not (float(d.PP_net.max()) > 0.0
+                    and float(d.faero_ocn.abs().max()) > 0.0):
+                fail("gx1_bgc: no primary production or no aerosol flux "
+                     "to the ocean")
+            kn, kms = pytorch_kernels_per_step(m, st, m.forcing_at(6))
+            files = sorted(os.listdir(tmp))
+            if len(files) != 1:
+                fail(f"gx1_bgc: history files {files}")
+            with netcdf_file(f"{tmp}/{files[0]}", "r", mmap=False) as nc:
+                for k in names:
+                    if not np.isfinite(np.asarray(nc.variables[k][:])).all():
+                        fail(f"gx1_bgc: history {k} is not finite")
+                nkbio = nc.dimensions["nkbio"]
+            if nkbio != m.cfg.nilyr + 2:
+                fail(f"gx1_bgc: {nkbio} bio-grid levels in the history")
+            # the same run again, its ms per step split by part
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_split_") as t2:
+                _, split = run_split(
+                    m, st, 4, start_step=6, check_every=1,
+                    log=lambda *a: None, history_dir=t2,
+                    history=hist.HistoryStream(fields, freq="1", freq_n=4))
+            print(f"gx1_bgc Model.run split on {card_line()} (ms per step, "
+                  f"each part synchronized): {json.dumps(split)}", flush=True)
+            return dict(out, ntrcr=m.tr.ntrcr, run_split_ms=split,
+                        PP_net_max=float(d.PP_net.max()),
+                        faero_ocn_max=float(d.faero_ocn.abs().max()),
+                        flux_bio_max=float(d.flux_bio.abs().max()),
+                        pytorch_kernels_per_graph_step=kn,
+                        pytorch_device_ms_per_graph_step=kms,
+                        history_fields=len(names))
+
+        launches = {"gx1_bgc": option_path(
+            "gx1_bgc", m, st, 4, dict(evp_sweep=1, remap_flux_both=1,
+                                      shortwave_dedd=1),
+            drive="run", report=bgc_report, run_kw=dict(
+                history=hist.HistoryStream(fields, freq="1", freq_n=4),
+                history_dir=tmp))}
+    del m, st
+    caps = {dt: capture(build, dt) for dt in ("float64", "float32")}
+    ntrace = caps["float32"][1]["remap"][3].shape[1]
+    print(f"remap_flux_both gx1_bgc: {ntrace} remapped tracer fields "
+          f"(mass-weighted table of the 39-tracer registry)", flush=True)
+    b = remap_phase(caps["float64"][1]["remap"], caps["float32"][1]["remap"],
+                    caps["float64"][0], caps["float32"][0], "gx1_bgc")
+    del caps
+    fresh_path()
+    for label, cfg in small_sets.tracer_option_sets().items():
+        small_option_check(label, cfg, small_sets.TRACER_STATE,
+                           small_sets.TRACER_DIAG)
+    return launches, b
 
 
 def main():
@@ -2403,6 +2528,8 @@ def main():
     auscom_025_phase(gx1_peak)
     options_phase()
     by_path, a_tfold = dynamics_phase()
+    bgc_launches, b_bgc = tracer_phase()
+    by_path.update(bgc_launches)
     by_path.update({"gx1-parity": {k: v // 10 for k, v in launches.items()},
                     "BL99+CCSM3": {k: v // 5 for k, v in bl99.items()},
                     "BL99+CCSM3 fused EVP": {k: v // 5
@@ -2427,7 +2554,12 @@ def main():
              launches=launches["remap_flux_both"], max_abs_err=b["err"],
              ms=b["ms"], plain_ms=b["plain_ms"], bound_ms=b["bound_ms"],
              bound_by=b["bound_by"], library_ms=None,
-             launches_per_step_by_path=per_path("remap_flux_both")),
+             launches_per_step_by_path=per_path("remap_flux_both"),
+             gx1_bgc=dict(launches=by_path["gx1_bgc"]["remap_flux_both"]
+                          * 4, max_abs_err=b_bgc["err"], ms=b_bgc["ms"],
+                          plain_ms=b_bgc["plain_ms"],
+                          bound_ms=b_bgc["bound_ms"],
+                          bound_by=b_bgc["bound_by"])),
         dict(name="shortwave_dedd", route="cuda",
              source="cice5_tpu_torch/csrc/shortwave_dedd.cu",
              replaces="cice5_tpu/ops/pallas/dedd_fused.py:51",

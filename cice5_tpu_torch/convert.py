@@ -61,7 +61,9 @@ def grid_from_arrays(arrays: dict, *, device, dtype=None) -> Grid:
 def forcing_from_arrays(arrays: dict, *, device,
                         dtype=None) -> Forcing:
     """Port Forcing from a dict of NumPy arrays keyed by field name; the
-    optional fields may be missing or None."""
+    optional fields (the coupler's fluxes, the aerosol deposition
+    ``faero_atm`` and the ocean BGC ``ocean_bio``) may be missing or None,
+    and are carried when given."""
     return _build(Forcing, arrays, device, dtype)
 
 

@@ -29,6 +29,7 @@ from cice5_tpu_torch.io import history as hist_mod
 from cice5_tpu_torch.io import restart as restart_mod
 from cice5_tpu_torch.models.radiation.orbital import shr_orb_params
 from cice5_tpu_torch.models.restoring import edge_mask, restore_ice
+from cice5_tpu_torch.models.tracers.aerosol import KSCAV
 from cice5_tpu_torch.models.thermo import itd, shared as thshared
 from cice5_tpu_torch.parallel import Topology
 from cice5_tpu_torch.state import State, build_tracer_registry, zeros_state
@@ -47,15 +48,19 @@ def check_supported(cfg: ModelConfig) -> None:
     or T-fold (tripoleT) seam, lat-lon and CPOM grids; zero-layer, BL99
     or mushy thermodynamics, with the surface temperature solved or the
     coupler's fluxes prescribed (calc_Tsfc=False); CCSM3 or
-    delta-Eddington shortwave; the iage, FY and level-ice tracers and the
-    CESM, level-ice or topographic ponds (frzpnd 'hlid' or 'cesm'); EVP
-    (kdyn=1) or EAP (kdyn=2) dynamics with remap, upwind or no transport
+    delta-Eddington shortwave; the iage, FY, level-ice and aerosol
+    tracers, the CESM, level-ice or topographic ponds (frzpnd 'hlid' or
+    'cesm'), the dynamic brine height and the skeletal-layer BGC (either
+    bgc_flux_type, any subset of its tracers); EVP (kdyn=1) or EAP
+    (kdyn=2) dynamics, on either seam, with remap, upwind or no transport
     and ridging, the fused EVP sweep off a tripole seam, the transport
     conservation and monotonicity checks and the per-category mechred
     diagnostics; and the coupled-mode options formdrag, highfreq,
     coupled_radiation and fbot_xfer_type="Cdn_ocn". Each option is held
-    against the JAX step on its own (tests/test_torch_options.py). Nothing
-    is silently approximated."""
+    against the JAX step on its own (tests/test_torch_options.py). It
+    refuses chunked EVP (the multi-GPU slice), compact_columns (not
+    ported) and a tripole east-west boundary. Nothing is silently
+    approximated."""
     g, th, dy, tc = cfg.grid, cfg.thermo, cfg.dyn, cfg.tracers
     later = "is not ported yet: it comes with"
     checks = [
@@ -69,9 +74,6 @@ def check_supported(cfg: ModelConfig) -> None:
          "compact_columns='on' is not ported: the JAX package measured "
          "column packing a loss (cice5_tpu/driver/model.py:130-141), so no "
          "slice of the port brings it"),
-        (tc.tr_aero or tc.tr_brine or tc.skl_bgc,
-         f"the aerosol, brine and BGC tracers {later} the tracer slice of "
-         "the port"),
         (dy.evp_algorithm == "chunked",
          f"evp_algorithm='chunked' {later} the multi-GPU slice of the "
          "port"),
@@ -110,6 +112,12 @@ def check_supported(cfg: ModelConfig) -> None:
     if dy.advection not in ("remap", "upwind", "none"):
         raise ValueError(f"advection={dy.advection!r}: 'remap', 'upwind' "
                          "or 'none'")
+    if tc.skl_bgc and tc.bgc_flux_type not in ("Jin2006", "constant"):
+        raise ValueError(f"bgc_flux_type={tc.bgc_flux_type!r}: 'Jin2006' "
+                         "or 'constant' (ice_algae.F90:356-408)")
+    if tc.tr_aero and tc.n_aero > len(KSCAV):
+        raise ValueError(f"n_aero={tc.n_aero}: at most {len(KSCAV)} "
+                         "species (ice_domain_size.F90 max_aero)")
     if dy.yield_curve != "ellipse":
         raise NotImplementedError(
             f"yield_curve={dy.yield_curve!r}: only 'ellipse' exists "
@@ -183,6 +191,8 @@ def init_state(cfg: ModelConfig, grid: Grid, tr, hin_max, salinz,
     if tr.nt_alvl >= 0:
         trcrn[:, tr.nt_alvl] = torch.where(msk[None], 1.0, 0.0)
         trcrn[:, tr.nt_vlvl] = torch.where(msk[None], 1.0, 0.0)
+    if tr.nt_fbri >= 0:
+        trcrn[:, tr.nt_fbri] = 1.0
     sst0 = torch.full(grid.shape, Tf, **kw) if sst is None else sst
     return st.replace(aicen=aicen, vicen=vicen, vsnon=vsnon, trcrn=trcrn,
                       sst=sst0 * tmask.to(cfg.xp_dtype))

@@ -1,13 +1,13 @@
-"""One model time step (PyTorch port of ``cice5_tpu/driver/step.py``,
-without the aerosol, brine and BGC tracers, which come with a later
-slice).
+"""One model time step (PyTorch port of ``cice5_tpu/driver/step.py``).
 
 ice_step_mod.F90 and the standalone driver loop (CICE_RunMod.F90:107-267):
 radiation (CCSM3 or delta-Eddington), form drag, per-category vertical
 thermodynamics (zero-layer, BL99 or mushy; the coupler's surface fluxes
-with calc_Tsfc=False), the ice age, first-year area and the CESM,
-level-ice and topographic pond tracers, ITD evolution (linear remap,
-frazil, lateral melt, cleanup), EVP or EAP dynamics + remap or upwind
+with calc_Tsfc=False), the ice age, first-year area, aerosol and the CESM,
+level-ice and topographic pond tracers, the dynamic brine height and the
+skeletal-layer biogeochemistry (CICE_RunMod.F90:179), ITD evolution
+(linear remap, frazil, lateral melt, cleanup, with the aerosol and BGC
+loads they remove sent to the ocean), EVP or EAP dynamics + remap or upwind
 transport (or none) + ridging, with the optional transport and ITD
 conservation checks and the per-category mechred diagnostics, the slab
 ocean, and the flux aggregation for diagnostics, as one
@@ -44,7 +44,8 @@ from cice5_tpu_torch.models.radiation import dedd
 from cice5_tpu_torch.models.radiation.ccsm3 import (AbsorbedSolar, Albedos,
                                                    shortwave_ccsm3)
 from cice5_tpu_torch.models.thermo import itd, vertical
-from cice5_tpu_torch.models.tracers import ponds, simple
+from cice5_tpu_torch.models.tracers import aerosol, algae, brine, ponds
+from cice5_tpu_torch.models.tracers import simple
 from cice5_tpu_torch.models.transport.remap import transport_remap
 from cice5_tpu_torch.models.transport.upwind import transport_upwind
 from cice5_tpu_torch.ops.evp_fused import evp_fused
@@ -131,6 +132,12 @@ class StepDiag(NamedTuple):
     dvidtd: torch.Tensor
     dagedtt: torch.Tensor       # age tendency from thermo (s/s)
     dagedtd: torch.Tensor       # age tendency from dynamics (s/s)
+    faero_ocn: torch.Tensor     # (n_aero, ny, nx) aerosol flux to the
+    # ocean (kg/m^2/s); (0, ny, nx) when tr_aero is off
+    flux_bio: torch.Tensor      # (nbtrcr, ny, nx) BGC flux to the ocean
+    # (mmol/m^2/s); (0, ny, nx) when skl_bgc is off
+    PP_net: torch.Tensor        # net primary production (mg C/m^2/s)
+    grow_net: torch.Tensor      # net specific algal growth (1/s)
     opening: torch.Tensor
     niter_thermo: torch.Tensor  # BL99 or mushy Picard passes (0-d int64)
     niter_ridge: torch.Tensor   # ridging passes (0-d int64)
@@ -274,23 +281,105 @@ def prefill_radiation(state: State, forcing: Forcing, cfg: ModelConfig,
                          scale_factor=scale_factor)
 
 
+def _aerosol(dt, trcrn, tres, aicen0, vicen0, vsnon0, forcing: Forcing,
+             tr: TracerRegistry, nilyr, nslyr):
+    """The aerosol column update of every category (ice_step_mod.F90:
+    576-600 -> update_aerosol), in place on ``trcrn``. aicen0/vicen0/
+    vsnon0: the state before thermo. Returns the flux to the ocean summed
+    over the categories (n_aero, ny, nx)."""
+    na, a0 = tr.n_aero, tr.nt_aero
+    ncat, B = trcrn.shape[0], tuple(trcrn.shape[2:])
+    # (ncat, na, 4, ...) -> the snow and ice pairs (na, 2, ncat, ...)
+    blk = trcrn[:, a0:a0 + 4 * na].reshape((ncat, na, 4) + B).movedim(0, 2)
+    faero_atm = forcing.faero_atm
+    if faero_atm is None:
+        faero_atm = aerosol.faero_default(na, B, dtype=trcrn.dtype,
+                                          device=trcrn.device)
+    ares = aerosol.update_aerosol(
+        dt, meltt=tres.meltt, melts=tres.melts, meltb=tres.meltb,
+        congel=tres.congel, snoice=tres.snoice, fsnow=forcing.fsnow[None],
+        aerosno=blk[:, 0:2], aeroice=blk[:, 2:4], aice_old=aicen0,
+        vice_old=vicen0, vsno_old=vsnon0, aicen=tres.aicen,
+        vicen=tres.vicen, vsnon=tres.vsnon, faero_atm=faero_atm[:, None],
+        nilyr=nilyr, nslyr=nslyr)
+    trcrn[:, a0:a0 + 4 * na] = torch.cat(
+        [ares.aerosno, ares.aeroice], dim=1).movedim(2, 0).reshape(
+        (ncat, 4 * na) + B)
+    return ares.faero_ocn.sum(1)
+
+
+def _brine_bgc(dt, trcrn, tres, absr, aicen0, vicen0, first_ice, sst,
+               forcing: Forcing, cfg: ModelConfig, tr: TracerRegistry,
+               ob_flat):
+    """The brine height and skeletal-BGC updates (CICE_RunMod.F90:179;
+    ice_brine.F90, ice_algae.F90), in place on ``trcrn``. aicen0/vicen0:
+    the state before thermo; ob_flat: the ocean BGC concentrations.
+    Returns (first_ice after the update, flux_bio, PP_net, grow_net), the
+    last three None without skl_bgc."""
+    tcfg = cfg.tracers
+    nilyr = cfg.nilyr
+    aicen = tres.aicen
+    dtype = trcrn.dtype
+    had = aicen0 > ct.puny
+    hin_old = torch.where(had, vicen0 / torch.clamp(aicen0, min=ct.puny),
+                          0.0)
+    first_ice = torch.where(had, first_ice, 1.0)
+    if tcfg.tr_brine:
+        pf = brine.preflushing_changes(
+            aicen=aicen, vicen=tres.vicen, vsnon=tres.vsnon,
+            meltb=tres.meltb, meltt=tres.meltt, congel=tres.congel,
+            snoice=tres.snoice, hice_old=hin_old,
+            fbri=torch.where(had, trcrn[:, tr.nt_fbri], 1.0),
+            first_ice=first_ice)
+        ms = brine.compute_microS_mushy(
+            trcrn[:, tr.nt_sice:tr.nt_sice + nilyr].movedim(1, -1),
+            trcrn[:, tr.nt_qice:tr.nt_qice + nilyr].movedim(1, -1),
+            pf.hin_old, pf.hbr_old, forcing.sss.expand_as(aicen),
+            sst.expand_as(aicen), nblyr=nilyr)
+        hb = brine.update_hbrine(
+            dt, meltb=tres.meltb, meltt=tres.meltt, melts=tres.melts,
+            hin=pf.hin, hsn=pf.hsn, hin_old=pf.hin_old,
+            hbr_old=torch.minimum(pf.hbr_old, brine.MAXHBR * pf.hin_old),
+            dhS_top=pf.dhbr_top, dhS_bottom=pf.dhbr_bot, kperm=ms.kperm,
+            zphi_min=ms.zphi_min)
+        trcrn[:, tr.nt_fbri] = torch.where(aicen > ct.puny, hb.fbri,
+                                           pf.fbri)
+    flux_bio = PP_net = grow_net = None
+    if tcfg.skl_bgc:
+        b0, nb = tr.nt_bgc[0], tr.nbtrcr
+        sk = algae.skl_biogeochemistry(
+            dt, tr, conc=trcrn[:, b0:b0 + nb].movedim(1, 0),
+            ocean_bio=ob_flat[:, None], aicen=aicen, meltb=tres.meltb,
+            congel=tres.congel, fswthru=absr.fswthru, first_ice=first_ice,
+            flux_type=tcfg.bgc_flux_type)
+        trcrn[:, b0:b0 + nb] = sk.conc.movedim(0, 1)
+        # merged to cell means (ice_zbgc.F90:770-840)
+        flux_bio = (sk.flux_bio * aicen[None]).sum(1)
+        iN = tr.bgc_names.index("N")
+        PP_net = (sk.conc[iN] * algae.PHI_SK * sk.grow_N
+                  * (1.0 - algae.FR_RESP) * algae.R_C2N * algae.R_gC2molC
+                  * aicen).sum(0)
+        grow_net = (sk.grow_N * algae.PHI_SK * aicen).sum(0)
+    return ((~(aicen > ct.puny)).to(dtype), flux_bio, PP_net, grow_net)
+
+
 def _column_physics(aicen, vicen, vsnon, trcrn, strocnxT, strocnyT,
                     forcing: Forcing, *, sst, frzmlt, tmask, ULAT, salinz,
                     cfg: ModelConfig, tr: TracerRegistry, hin_max,
-                    uice_T=None, vice_T=None, scale_factor=None,
+                    first_ice, uice_T=None, vice_T=None, scale_factor=None,
                     rad_prev=None, rad_alb=None):
     """Pre-dynamics column physics: form drag, radiation (or, in the
     coupled ordering, last step's rescaled), ABL + vertical thermo, the
-    age/FY/pond tracers and the step_therm2 ITD evolution
-    (ice_step_mod.F90 step_therm1/2). uice_T/vice_T: the ice velocity on
-    the T grid (highfreq); scale_factor/rad_prev/rad_alb: the coupled
-    ordering's radiation memory. Returns (state dict, diagnostics dict,
-    scalars dict)."""
+    age/FY/aerosol/pond tracers, the brine height and skeletal BGC, and
+    the step_therm2 ITD evolution (ice_step_mod.F90 step_therm1/2).
+    uice_T/vice_T: the ice velocity on the T grid (highfreq);
+    scale_factor/rad_prev/rad_alb: the coupled ordering's radiation
+    memory. Returns (state dict, diagnostics dict, scalars dict)."""
     dt = cfg.time.dt
     nilyr, nslyr = cfg.nilyr, cfg.nslyr
     tcfg = cfg.tracers
     mushy_on = cfg.thermo.ktherm == 2
-    aicen0, vicen0 = aicen, vicen
+    aicen0, vicen0, vsnon0 = aicen, vicen, vsnon
     Tsfcn = trcrn[:, tr.nt_Tsfc]
     zqin = _layers(trcrn, tr.nt_qice, nilyr)
     zSin = _layers(trcrn, tr.nt_sice, nilyr)
@@ -432,6 +521,9 @@ def _column_physics(aicen, vicen, vsnon, trcrn, strocnxT, strocnyT,
     if tcfg.tr_FY:
         trcrn[:, tr.nt_FY] = simple.update_FYarea(
             dt, forcing.yday, trcrn[:, tr.nt_FY], aicen, (ULAT >= 0.0)[None])
+    if tr.n_aero:
+        dg["faero_ocn"] = _aerosol(dt, trcrn, tres, aicen0, vicen0, vsnon0,
+                                   forcing, tr, nilyr, nslyr)
     fpond = torch.zeros_like(aice)      # pond water volume change (m)
     if tcfg.tr_pond:
         def _pond_volume(tc, an):
@@ -479,6 +571,21 @@ def _column_physics(aicen, vicen, vsnon, trcrn, strocnxT, strocnyT,
             trcrn[:, tr.nt_ipnd] = pr.ipnd
         fpond = fpond + _pond_volume(trcrn, aicen)
 
+    # brine height and skeletal BGC (CICE_RunMod.F90:179)
+    ob_flat = None
+    if tcfg.skl_bgc:
+        ob_flat = forcing.ocean_bio
+        if ob_flat is None:
+            ob_flat = algae.default_ocean_bio(tr, aice.shape,
+                                              dtype=aice.dtype,
+                                              device=aice.device)
+    if tcfg.tr_brine or tcfg.skl_bgc:
+        first_ice, flux_bio, PP_net, grow_net = _brine_bgc(
+            dt, trcrn, tres, absr, aicen0, vicen0, first_ice, sst, forcing,
+            cfg, tr, ob_flat)
+        if tcfg.skl_bgc:
+            dg.update(flux_bio=flux_bio, PP_net=PP_net, grow_net=grow_net)
+
     # step_therm2: ITD evolution
     itd_bad = None
     if cfg.kitd == 1:
@@ -506,11 +613,17 @@ def _column_physics(aicen, vicen, vsnon, trcrn, strocnxT, strocnyT,
                           ktherm=cfg.thermo.ktherm, sss=forcing.sss,
                           phi_init=cfg.thermo.phi_init,
                           dSin0_frazil=cfg.thermo.dSin0_frazil,
-                          hfrazilmin=cfg.thermo.hfrazilmin)
+                          hfrazilmin=cfg.thermo.hfrazilmin,
+                          tr_brine=tcfg.tr_brine, ocean_bio=ob_flat,
+                          initbio_frac=tcfg.initbio_frac)
     aicen, vicen, trcrn = nir.aicen, nir.vicen, nir.trcrn
     dg["frazil"] = nir.frazil
     dg["fresh"] = dg["fresh"] + nir.dfresh
     dg["fsalt"] = dg["fsalt"] + nir.dfsalt
+    if tcfg.skl_bgc:
+        # frazil BGC uptake from the ocean (add_new_ice_bgc,
+        # ice_zbgc.F90:988-999)
+        dg["flux_bio"] = dg["flux_bio"] + nir.flux_bio
 
     lm = itd.lateral_melt(dt, tr, nilyr, nslyr, aicen=aicen, vicen=vicen,
                           vsnon=vsnon, trcrn=trcrn, rside=rside,
@@ -533,13 +646,24 @@ def _column_physics(aicen, vicen, vsnon, trcrn, strocnxT, strocnyT,
         # (ice_itd.F90:1741-1750, ice_therm_itd.F90:1146-1212)
         fpond = fpond - lm.dfpond - cl.dfpond
     dg["fpond"] = fpond
+    # the aerosol and BGC loads of the melted and zapped ice
+    # (ice_itd.F90:1741-1750, ice_therm_itd.F90:1146-1212)
+    if tr.n_aero:
+        dg["faero_ocn"] = dg["faero_ocn"] + lm.dfaero + cl.dfaero
+    if tcfg.skl_bgc:
+        dg["flux_bio"] = dg["flux_bio"] + lm.dflux_bio + cl.dflux_bio
+    if tcfg.tr_brine or tcfg.skl_bgc:
+        # zapped categories restart as first ice, so brine and BGC re-seed
+        # (ice_itd.F90:2013-2017)
+        first_ice = torch.where(cl.zapped, 1.0, first_ice)
 
     # land mask enforcement
     aicen = torch.where(tmask[None], aicen, 0.0)
     vicen = torch.where(tmask[None], vicen, 0.0)
     vsnon = torch.where(tmask[None], vsnon, 0.0)
 
-    stout = dict(aicen=aicen, vicen=vicen, vsnon=vsnon, trcrn=trcrn)
+    stout = dict(aicen=aicen, vicen=vicen, vsnon=vsnon, trcrn=trcrn,
+                 first_ice=first_ice)
     sc = dict(therm_converged=tres.converged.all(), ferr_max=tres.ferr.max(),
               niter_thermo=tres.niter, itd_bad=itd_bad)
     return stout, dg, sc
@@ -570,12 +694,16 @@ def step(state: State, forcing: Forcing, grid: Grid, cfg: ModelConfig,
         state.aicen, state.vicen, state.vsnon, state.trcrn, state.strocnxT,
         state.strocnyT, forcing, sst=sst, frzmlt=frzmlt, tmask=tmask,
         ULAT=grid.ULAT, salinz=salinz, cfg=cfg, tr=tr, hin_max=hin_max,
-        uice_T=uice_T, vice_T=vice_T, scale_factor=state.scale_factor,
+        first_ice=state.first_ice, uice_T=uice_T, vice_T=vice_T,
+        scale_factor=state.scale_factor,
         rad_prev=state.rad_prev, rad_alb=state.rad_alb)
     aicen, vicen, vsnon = stout["aicen"], stout["vicen"], stout["vsnon"]
-    trcrn = stout["trcrn"]
+    trcrn, first_ice = stout["trcrn"], stout["first_ice"]
     fresh, fsalt, fhocn = dg["fresh"], dg["fsalt"], dg["fhocn"]
     fpond = dg["fpond"]
+    tcfg = cfg.tracers
+    faero_ocn = dg.get("faero_ocn", torch.zeros((0, ny, nx), **kw))
+    flux_bio = dg.get("flux_bio", torch.zeros((0, ny, nx), **kw))
 
     # dynamics: EVP + transport + ridging
     uvel, vvel = state.uvel, state.vvel
@@ -718,6 +846,14 @@ def step(state: State, forcing: Forcing, grid: Grid, cfg: ModelConfig,
                 # ridged and zapped topo-pond water
                 # (ice_mechred.F90:707-718)
                 fpond = fpond - rr.dfpond - cl2.dfpond
+            # the ridged and zapped aerosol and BGC loads
+            # (ice_mechred.F90:1704-1711, ice_itd.F90:1741-1750)
+            if tr.n_aero:
+                faero_ocn = faero_ocn + rr.faero_ocn + cl2.dfaero
+            if tcfg.skl_bgc:
+                flux_bio = flux_bio + rr.dflux_bio + cl2.dflux_bio
+            if tcfg.tr_brine or tcfg.skl_bgc:
+                first_ice = torch.where(cl2.zapped, 1.0, first_ice)
 
     # coupling prep: slab ocean update
     aggf = itd.aggregate(tr, aicen, vicen, vsnon, trcrn)
@@ -808,6 +944,7 @@ def step(state: State, forcing: Forcing, grid: Grid, cfg: ModelConfig,
 
     new_state = state.replace(
         aicen=aicen, vicen=vicen, vsnon=vsnon, trcrn=trcrn,
+        first_ice=first_ice,
         uvel=uvel, vvel=vvel, a11n=a11n, a12n=a12n, stressp=stressp,
         stressm=stressm, stress12=stress12, iceumask=iceumask,
         strocnxT=strocnxT,
@@ -846,6 +983,9 @@ def step(state: State, forcing: Forcing, grid: Grid, cfg: ModelConfig,
         dsnow=dg["dsnow"], fswint=dg["fswint"],
         daidtt=daidtt, dvidtt=dvidtt, daidtd=daidtd, dvidtd=dvidtd,
         dagedtt=dagedtt, dagedtd=dagedtd,
+        faero_ocn=faero_ocn, flux_bio=flux_bio,
+        PP_net=dg.get("PP_net", torch.zeros((ny, nx), **kw)),
+        grow_net=dg.get("grow_net", torch.zeros((ny, nx), **kw)),
         opening=opening_d,
         niter_thermo=sc["niter_thermo"], niter_ridge=niter_ridge,
         drag=dg["drag"], rdgn=rdgn_d)

@@ -47,13 +47,18 @@ class Forcing:
     hmix: torch.Tensor      # mixed layer depth (m)
     yday: torch.Tensor      # fractional day of year (0-d)
     coszen: torch.Tensor    # cosine solar zenith angle
-    # coupler-prescribed surface fluxes, aerosol deposition and ocean BGC:
-    # options of later slices, always None here
+    # the coupler's per-category surface fluxes (ncat, ny, nx) of
+    # calc_Tsfc=False
     fsurfn_f: torch.Tensor | None = None
     fcondtopn_f: torch.Tensor | None = None
     flatn_f: torch.Tensor | None = None
     fsensn_f: torch.Tensor | None = None
+    # atmospheric aerosol deposition (n_aero, ny, nx), faero_data
+    # (ice_aerosol.F90:71); None: the faero_default constants
     faero_atm: torch.Tensor | None = None
+    # ocean biogeochemical concentrations (nbtrcr, ny, nx) in the
+    # registry's order, get_forcing_bgc (ice_algae.F90:46); None: the
+    # default_ocean_bio constants
     ocean_bio: torch.Tensor | None = None
 
 

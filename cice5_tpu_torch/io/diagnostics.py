@@ -5,9 +5,9 @@ ice_diagnostics.F90 runtime_diags (:103) + total_energy/total_salt
 (:1038/:1124): hemispheric area/extent/volume/energy sums, printed every
 diagfreq steps. ``compute_diags`` stays on the device and returns 0-d
 tensors; ``format_diags``, ``check_state`` and the point dumps read the
-device on the host, between steps, never inside a captured step.
-The brine and BGC point diagnostics (``hbrine_diags``, ``bgc_diags``) come
-with those tracers.
+device on the host, between steps, never inside a captured step; so do
+the brine and skeletal-BGC point diagnostics (``hbrine_diags``,
+``bgc_diags``).
 """
 from __future__ import annotations
 
@@ -158,3 +158,65 @@ def print_points_state(state, grid, tr, nilyr, nslyr, latpnts, lonpnts,
         blocks.append(print_state(state, grid, tr, nilyr, nslyr, j, i,
                                   label=f"{label} pnt({lat},{lon})"))
     return "\n".join(blocks)
+
+
+def hbrine_diags(state, grid, tr, nilyr, latpnts, lonpnts,
+                 darcy_V=None) -> str:
+    """Dynamic-brine-height point diagnostics (hbrine_diags,
+    ice_brine.F90:730-828): cell-mean and category-1 brine fraction
+    hbri/hice, the Darcy velocity (when given) and the salinity profile at
+    each diagnostic point."""
+    if tr.nt_fbri < 0:
+        return "hbrine_diags: brine-height tracer inactive"
+    aicen = _g(state.aicen)
+    vicen = _g(state.vicen)
+    trcrn = _g(state.trcrn)
+    dv = None if darcy_V is None else _g(darcy_V)
+    lines = []
+    for lat, lon in zip(latpnts, lonpnts):
+        j, i = nearest_point(grid, lat, lon)
+        a = aicen[:, j, i]
+        v = vicen[:, j, i]
+        fbri = trcrn[:, tr.nt_fbri, j, i]
+        vice = v.sum()
+        # hbrine/hice ratios (the reference's phinS/phinS1)
+        phinS = (fbri * v).sum() / vice if vice > 0 else 0.0
+        phinS1 = fbri[0] if a[0] > 0 else 0.0
+        sin = trcrn[:, tr.nt_sice:tr.nt_sice + nilyr, j, i]
+        smean = (sin * v[:, None]).sum(0) / vice if vice > 0 else sin[0] * 0
+        lines.append(
+            f"hbrine pnt({lat},{lon}) (j,i)=({j},{i}): "
+            f"hbri/hi cell {phinS:.4f} cat1 {phinS1:.4f}"
+            + (f" darcy_V {dv[j, i]:.3e} m/s" if dv is not None else "")
+            + " | Sin " + " ".join(f"{s:.3f}" for s in smean))
+    return "\n".join(lines)
+
+
+def bgc_diags(state, grid, tr, latpnts, lonpnts, ocean_bio=None,
+              flux_bio=None) -> str:
+    """Skeletal-BGC point diagnostics (bgc_diags, ice_algae.F90:937-1132):
+    the area-mean skeletal concentration of each tracer and, when given,
+    its ocean concentration and ice-ocean flux at each diagnostic point
+    (``ocean_bio``/``flux_bio``: tracer name -> (ny, nx) array or
+    tensor)."""
+    if not tr.nt_bgc:
+        return "bgc_diags: skeletal BGC inactive"
+    aicen = _g(state.aicen)
+    trcrn = _g(state.trcrn)
+    lines = []
+    for lat, lon in zip(latpnts, lonpnts):
+        j, i = nearest_point(grid, lat, lon)
+        a = aicen[:, j, i]
+        asum = max(a.sum(), 1e-30)
+        parts = []
+        for name, slot in zip(tr.bgc_names, tr.nt_bgc):
+            conc = (trcrn[:, slot, j, i] * a).sum() / asum
+            s = f"{name} {conc:.4e}"
+            if ocean_bio is not None:
+                s += f"/{_g(ocean_bio[name])[j, i]:.4e}"
+            if flux_bio is not None:
+                s += f" flux {_g(flux_bio[name])[j, i]:.3e}"
+            parts.append(s)
+        lines.append(f"bgc pnt({lat},{lon}) (j,i)=({j},{i}): "
+                     + " | ".join(parts))
+    return "\n".join(lines)

@@ -11,10 +11,11 @@ The registry is a plain list of HistField descriptors; a stream
 accumulates on the device, one stacked buffer per dims class, and copies
 to the host only when it writes (``averages``), as classic netCDF-3 via
 scipy with CF-style time/units/cell coordinates: the JAX package's files,
-variable for variable. The aerosol, brine, skeletal-BGC, per-category
-mechred and EAP field sets come with their physics: a configuration that
-has them raises here. The asynchronous native writer
-(``use_async``) comes in a later slice and raises too.
+variable for variable, with the EAP, per-category mechred, form-drag,
+pond, aerosol, brine and skeletal-BGC field sets of the configurations
+that have them (the brine structure on the bio grid is the ``3Db``
+class). The asynchronous native writer (``use_async``) comes in a later
+slice and raises.
 """
 from __future__ import annotations
 
@@ -39,9 +40,10 @@ class HistField:
     cell_measure: str = "area: tarea"
     scale: float = 1.0          # unit conversion on output (cmday etc.)
     instantaneous: bool = False
-    # "2D" (ny,nx) | "3Dc" (ncat,ny,nx) | "4Di" (nilyr,ncat,ny,nx) |
-    # "4Ds" (nslyr,ncat,ny,nx) — the a2D/a3Dc/a4Di/a4Ds accumulation
-    # classes of ice_history_shared.F90:138-139,741,805
+    # "2D" (ny,nx) | "3Dc" (ncat,ny,nx) | "3Db" (nblyr+2,ny,nx) |
+    # "4Di" (nilyr,ncat,ny,nx) | "4Ds" (nslyr,ncat,ny,nx) — the a2D/a3Dc/
+    # a3Db/a4Di/a4Ds accumulation classes of
+    # ice_history_shared.F90:137-139,741,805
     dims: str = "2D"
 
 
@@ -320,6 +322,84 @@ DRAG_FIELDS = [
     HistField("dfloe", "m", "mean floe spacing", instantaneous=True),
 ]
 
+# BGC field set (ice_history_bgc.F90)
+BGC_FIELDS = [
+    HistField("PP_net", "mg C/m^2/s", "net primary production"),
+    HistField("grow_net", "1/s", "net specific algal growth"),
+    HistField("fbri", "1", "brine height ratio"),
+    HistField("hbri", "m", "brine volume per grid area (f_hbri)"),
+]
+
+# brine vertical structure on the bio grid (nblyr+2 levels) — the a3Db
+# accumulation class (ice_history_shared.F90:137-139; f_bTin/f_bphi,
+# ice_history_bgc.F90)
+BGC_3DB_FIELDS = [
+    HistField("bTizn", "C", "ice internal temperature on the bio grid",
+              dims="3Db"),
+    HistField("bphizn", "1", "porosity on the bio grid", dims="3Db"),
+]
+
+
+def aero_fields(n_aero: int) -> list:
+    """Aerosol history fields (ice_history_bgc.F90 f_faero_atm/f_faero_ocn
+    /f_aero/f_aeron): per-species deposition + ocean fluxes, cell-mean
+    mass concentrations in the 4 layers, and per-category (3Dc) snow/ice
+    loads."""
+    out = []
+    for it in range(n_aero):
+        s = f"{it + 1:03d}"
+        out += [
+            HistField(f"faero_atm{s}", "kg/m^2/s",
+                      f"aerosol {it + 1} deposition rate",
+                      instantaneous=True),
+            HistField(f"faero_ocn{s}", "kg/m^2/s",
+                      f"aerosol {it + 1} flux to ocean"),
+            HistField(f"aerosnossl{s}", "kg/kg",
+                      f"aerosol {it + 1} concentration, snow surface"),
+            HistField(f"aerosnoint{s}", "kg/kg",
+                      f"aerosol {it + 1} concentration, snow interior"),
+            HistField(f"aeroicessl{s}", "kg/kg",
+                      f"aerosol {it + 1} concentration, ice surface"),
+            HistField(f"aeroiceint{s}", "kg/kg",
+                      f"aerosol {it + 1} concentration, ice interior"),
+            HistField(f"aerosnon{s}", "kg/m^2",
+                      f"aerosol {it + 1} snow mass, categories",
+                      dims="3Dc"),
+            HistField(f"aeroicen{s}", "kg/m^2",
+                      f"aerosol {it + 1} ice mass, categories",
+                      dims="3Dc"),
+        ]
+    return out
+
+
+# ocean-mixed-layer concentration fields per skl tracer (f_bgc_Nit_ml,
+# f_bgc_Am_ml, f_bgc_Sil_ml, f_bgc_DMSP_ml, f_bgc_DMS_ml)
+_ML_NAMES = {"NO": "Nit_ml", "NH": "Am_ml", "Sil": "Sil_ml",
+             "DMSPd": "DMSP_ml", "DMS": "DMS_ml", "N": "N_ml"}
+# ocean-flux fields per skl tracer (f_fNO/f_fNO_ai/f_fNH/.../f_fN/f_fSil)
+_FLUX_NAMES = {"N": "fN", "NO": "fNO", "NH": "fNH", "Sil": "fSil"}
+
+
+def skl_bgc_fields(bgc_names) -> list:
+    """Skeletal-BGC history fields (ice_history_bgc.F90): skeletal-layer
+    concentrations (f_bgc_*_sk), mixed-layer concentrations (f_bgc_*_ml),
+    and ice-ocean fluxes (f_f* / f_f*_ai)."""
+    out = []
+    for nm in bgc_names:
+        out.append(HistField(f"bgc_{nm}_sk", "mmol/m^3",
+                             f"skeletal-layer {nm} concentration"))
+        if nm in _ML_NAMES:
+            out.append(HistField(f"bgc_{_ML_NAMES[nm]}", "mmol/m^3",
+                                 f"mixed-layer {nm} concentration",
+                                 instantaneous=True))
+        if nm in _FLUX_NAMES:
+            f = _FLUX_NAMES[nm]
+            out.append(HistField(f, "mmol/m^2/s",
+                                 f"{nm} flux ice to ocean"))
+            out.append(HistField(f"{f}_ai", "mmol/m^2/s",
+                                 f"{nm} flux ice to ocean (*aice)"))
+    return out
+
 MAX_NSTRM = 5     # ice_domain_size.F90:50
 
 # f_* flags that select static grid/coordinate variables — these are
@@ -361,6 +441,12 @@ def fields_for_icefields(icefields: dict, cfg=None, tr=None) -> tuple:
     catalog = {f.name.lower(): f for f in available_fields(cfg, tr)}
     grid_lc = {g.lower() for g in GRID_FLAGS}
     rename_lc = {k.lower(): v for k, v in _FLAG_RENAME.items()}
+    per_species = {"f_aero": ("aerosnossl{s}", "aerosnoint{s}",
+                              "aeroicessl{s}", "aeroiceint{s}"),
+                   "f_aeron": ("aerosnon{s}", "aeroicen{s}"),
+                   "f_faero_atm": ("faero_atm{s}",),
+                   "f_faero_ocn": ("faero_ocn{s}",)}
+    na = tr.n_aero if tr is not None else 0
     want: list = []
     unmapped: list = []
     for flag, val in icefields.items():
@@ -373,7 +459,10 @@ def fields_for_icefields(icefields: dict, cfg=None, tr=None) -> tuple:
             continue
         if flag in grid_lc:
             continue
-        if flag in rename_lc:
+        if flag in per_species:
+            names = [t.format(s=f"{k + 1:03d}") for t in per_species[flag]
+                     for k in range(na)]
+        elif flag in rename_lc:
             names = list(rename_lc[flag])
         else:
             names = [flag[2:]]
@@ -394,7 +483,6 @@ def fields_for_icefields(icefields: dict, cfg=None, tr=None) -> tuple:
 def available_fields(cfg=None, tr=None, include_3d=True) -> list:
     """The full field catalog available for a given configuration (the
     f_* availability filtering of init_hist, ice_history.F90:55-460)."""
-    _check_ported(cfg, tr)
     fields = list(STANDARD_FIELDS)
     has_pond = tr is not None and tr.nt_apnd >= 0
     has_lvl = tr is not None and tr.nt_alvl >= 0
@@ -409,6 +497,10 @@ def available_fields(cfg=None, tr=None, include_3d=True) -> list:
         fields += MECHRED_FIELDS
     if has_pond:
         fields += POND_FIELDS
+    if tr is not None and tr.nt_fbri >= 0:
+        fields += BGC_FIELDS
+    if tr is not None and tr.nbtrcr:
+        fields += skl_bgc_fields(tr.bgc_names)
     if include_3d and tr is not None:
         for f in CAT_FIELDS:
             if f.name in ("apondn", "hpondn") and not has_pond:
@@ -420,6 +512,10 @@ def available_fields(cfg=None, tr=None, include_3d=True) -> list:
             fields.append(f)
         fields += [f for f in VERT_FIELDS
                    if cfg is None or f.dims != "4Ds" or cfg.nslyr >= 1]
+        if tr.nt_fbri >= 0:
+            fields += BGC_3DB_FIELDS
+    if tr is not None and tr.n_aero:
+        fields += aero_fields(tr.n_aero)
     if cfg is not None and cfg.dyn.diag_mechred and has_lvl:
         fields += MECHRED_CAT_FIELDS
     if cfg is not None and cfg.forcing.formdrag:
@@ -428,18 +524,6 @@ def available_fields(cfg=None, tr=None, include_3d=True) -> list:
     if not include_3d:
         fields = [f for f in fields if f.dims == "2D"]
     return fields
-
-
-def _check_ported(cfg=None, tr=None):
-    """Raise for a configuration whose history fields come with physics
-    the port does not have yet: the JAX catalog would list them, and the
-    port does not drop them silently."""
-    if tr is not None and (tr.nt_aero >= 0 or tr.nt_fbri >= 0
-                           or tr.bgc_names):
-        raise NotImplementedError(
-            "history: the aerosol, brine and skeletal-BGC fields are not "
-            "ported yet: they come with their physics in a later slice of "
-            "the port")
 
 
 class HistoryStreams:
@@ -613,8 +697,9 @@ def write_coord_grid_vars(f, grid):
 def write_netcdf(stream: HistoryStream, grid, info, path: str,
                  case_name: str = "cice5_tpu"):
     """Write one history file as classic netCDF-3 via scipy (the
-    io_netcdf/ice_history_write.F90 equivalent), incl. per-category (nc)
-    and vertical (nkice/nksnow) variables, and reset the stream."""
+    io_netcdf/ice_history_write.F90 equivalent), incl. per-category (nc),
+    vertical (nkice/nksnow) and bio-grid (nkbio) variables, and reset the
+    stream."""
     from scipy.io import netcdf_file
     ny, nx = grid.hm.shape
     data = {dims: stream.averages(dims) for dims in stream.groups}
@@ -631,12 +716,15 @@ def write_netcdf(stream: HistoryStream, grid, info, path: str,
             f.createDimension("nkice", data["4Di"].shape[1])
         if "4Ds" in data:
             f.createDimension("nksnow", data["4Ds"].shape[1])
+        if "3Db" in data:
+            f.createDimension("nkbio", data["3Db"].shape[1])
         tv = f.createVariable("time", "d", ("time",))
         tv.units = "days since 0001-01-01 00:00:00"
         tv[0] = info.time / 86400.0
         write_coord_grid_vars(f, grid)
         dimmap = {"2D": ("time", "nj", "ni"),
                   "3Dc": ("time", "nc", "nj", "ni"),
+                  "3Db": ("time", "nkbio", "nj", "ni"),
                   "4Di": ("time", "nkice", "nc", "nj", "ni"),
                   "4Ds": ("time", "nksnow", "nc", "nj", "ni")}
         for dims, fl in stream.groups.items():
@@ -660,9 +748,9 @@ def diag_to_values(diag, state, grid, tr=None, forcing=None,
     under diag_mechred): the JAX package's keys and values. The state's
     a11n/a12n give a11/a12 and the step's EAP diagnostics the strain-rate
     and yield-stress tensors (zeros under EVP, as the JAX step fills
-    them). Elementwise tensor expressions: nothing is read back to the
-    host."""
-    _check_ported(tr=tr)
+    them), with the aerosol, brine and skeletal-BGC fields of a
+    configuration that carries those tracers. Elementwise tensor
+    expressions: nothing is read back to the host."""
     aice = diag.aice
     has_ice = aice > ct.puny
     safe = torch.clamp(aice, min=ct.puny)
@@ -700,7 +788,6 @@ def diag_to_values(diag, state, grid, tr=None, forcing=None,
     if diag.rdgn.shape[0]:
         from cice5_tpu_torch.driver.step import RDGN_KEYS
         stacks.update({k: diag.rdgn[i] for i, k in enumerate(RDGN_KEYS)})
-    zero = torch.zeros_like(aice)
     eap = {"a11": state.a11n[0], "a12": state.a12n[0],
            "e11": diag.e11, "e12": diag.e12, "e22": diag.e22,
            "yieldstress11": diag.yieldstress11,
@@ -754,7 +841,7 @@ def diag_to_values(diag, state, grid, tr=None, forcing=None,
         "fswthru": per_ice(diag.fswthru), "fswthru_ai": diag.fswthru,
         "strairy": diag.strairyT, "strocny": state.strocnyT,
         "fpond": diag.fpond,
-        "PP_net": zero, "grow_net": zero,
+        "PP_net": diag.PP_net, "grow_net": diag.grow_net,
         "melts": diag.melts * m_to_cmday,
         "fsurf_ai": diag.fsurf, "fcondtop_ai": diag.fcondtop,
         "fmeltt_ai": diag.fmelttn_ai.sum(0),
@@ -770,7 +857,8 @@ def diag_to_values(diag, state, grid, tr=None, forcing=None,
         "icepresent": (aice > ct.puny).to(aice.dtype),
         "mlt_onset": state.mlt_onset, "frz_onset": state.frz_onset,
     } | _principal_stress(state, diag) | _tracer_values(state, tr) \
-      | _category_values(diag, state, tr, nilyr, nslyr)
+      | _category_values(diag, state, tr, nilyr, nslyr) \
+      | _bgc_aero_values(diag, state, tr, forcing, nilyr)
 
 
 def _principal_stress(state, diag) -> dict:
@@ -896,4 +984,87 @@ def _tracer_values(state, tr) -> dict:
         out["apeff_ai"] = (apeffn * aicen).sum(0)
         out["apeff"] = out["apeff_ai"] / safe_ai
         out["apeffn"] = apeffn
+    if tr.nt_fbri >= 0:
+        # volume-weighted mean brine ratio (the brine volume is f_hbri)
+        out["fbri"] = (state.trcrn[:, tr.nt_fbri] * vicen).sum(0) \
+            / torch.clamp(vice, min=ct.puny)
+    return out
+
+
+def _bgc_aero_values(diag, state, tr, forcing, nilyr) -> dict:
+    """Aerosol / skeletal-BGC / brine-structure history values
+    (ice_history_bgc.F90 accumulation blocks: f_faero_atm/f_faero_ocn/
+    f_aero/f_aeron, f_bgc_*_sk/_ml, f_f*/_ai, f_bTin/f_bphi, f_hbri)."""
+    if tr is None:
+        return {}
+    out = {}
+    aicen, vicen, vsnon = state.aicen, state.vicen, state.vsnon
+    trcrn = state.trcrn
+    aice = aicen.sum(0)
+    has_ice = aice > ct.puny
+    safe_a = torch.clamp(aice, min=ct.puny)
+    kw = dict(dtype=aice.dtype, device=aice.device)
+
+    if tr.n_aero:
+        from cice5_tpu_torch.models.tracers.aerosol import faero_default
+        fa = forcing.faero_atm if (forcing is not None
+                                   and forcing.faero_atm is not None) \
+            else faero_default(tr.n_aero, aice.shape, **kw)
+        sno_safe = torch.clamp(vsnon.sum(0), min=ct.puny)
+        ice_safe = torch.clamp(vicen.sum(0), min=ct.puny)
+        for it in range(tr.n_aero):
+            s = f"{it + 1:03d}"
+            a0 = tr.nt_aero + 4 * it
+            out[f"faero_atm{s}"] = fa[it]
+            out[f"faero_ocn{s}"] = diag.faero_ocn[it]
+            # mass concentrations (kg aerosol / kg medium), cell means
+            out[f"aerosnossl{s}"] = (vsnon * trcrn[:, a0]).sum(0) \
+                / sno_safe / ct.rhos
+            out[f"aerosnoint{s}"] = (vsnon * trcrn[:, a0 + 1]).sum(0) \
+                / sno_safe / ct.rhos
+            out[f"aeroicessl{s}"] = (vicen * trcrn[:, a0 + 2]).sum(0) \
+                / ice_safe / ct.rhoi
+            out[f"aeroiceint{s}"] = (vicen * trcrn[:, a0 + 3]).sum(0) \
+                / ice_safe / ct.rhoi
+            # per-category loads (f_aeron)
+            out[f"aerosnon{s}"] = vsnon * (trcrn[:, a0] + trcrn[:, a0 + 1])
+            out[f"aeroicen{s}"] = vicen * (trcrn[:, a0 + 2]
+                                           + trcrn[:, a0 + 3])
+
+    if tr.nbtrcr:
+        from cice5_tpu_torch.models.tracers.algae import default_ocean_bio
+        from cice5_tpu_torch.models.tracers.brine import SK_L
+        ob = forcing.ocean_bio if (forcing is not None
+                                   and forcing.ocean_bio is not None) \
+            else default_ocean_bio(tr, aice.shape, **kw)
+        for k, nm in enumerate(tr.bgc_names):
+            out[f"bgc_{nm}_sk"] = (aicen * trcrn[:, tr.nt_bgc[k]]).sum(0) \
+                / safe_a / SK_L
+            if nm in _ML_NAMES:
+                out[f"bgc_{_ML_NAMES[nm]}"] = ob[k]
+            if nm in _FLUX_NAMES:
+                f = _FLUX_NAMES[nm]
+                fb = diag.flux_bio[k]
+                out[f"{f}_ai"] = fb
+                out[f] = torch.where(has_ice, fb / safe_a, 0.0)
+
+    if tr.nt_fbri >= 0:
+        out["hbri"] = (trcrn[:, tr.nt_fbri] * vicen).sum(0)
+        if nilyr is not None and forcing is not None:
+            # brine vertical structure on the bio grid (f_bTin/f_bphi):
+            # the per-category microstructure, area-weighted to a
+            # (nblyr+2, ny, nx) profile (a3Db class)
+            from cice5_tpu_torch.models.tracers import brine
+            hin = torch.where(aicen > ct.puny,
+                              vicen / torch.clamp(aicen, min=ct.puny), 0.0)
+            ms = brine.compute_microS_mushy(
+                trcrn[:, tr.nt_sice:tr.nt_sice + nilyr].movedim(1, -1),
+                trcrn[:, tr.nt_qice:tr.nt_qice + nilyr].movedim(1, -1),
+                hin, trcrn[:, tr.nt_fbri] * hin,
+                forcing.sss.expand_as(aicen), state.sst.expand_as(aicen),
+                nblyr=nilyr)
+            w = aicen[..., None]
+            wsum = torch.clamp(w.sum(0), min=ct.puny)
+            out["bTizn"] = ((ms.bTin * w).sum(0) / wsum).movedim(-1, 0)
+            out["bphizn"] = ((ms.bphin * w).sum(0) / wsum).movedim(-1, 0)
     return out

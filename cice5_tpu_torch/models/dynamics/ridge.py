@@ -8,8 +8,10 @@ ridge-ITD functions), ridge_shift (:1303), ridge_check (:2040). The donor
 vectorized ops; the outer iteration (``ops/loop.py``) ends when every
 cell's area is conserved or after NITERMAX passes. The topo-pond water
 of the ridged area drains to the ocean (``dfpond``, ice_mechred.F90:
-1713-1717); the aerosol, BGC and per-category diagnostic bookkeeping
-belongs to options of later slices.
+1713-1717), so does the aerosol of the snow that ridging does not keep
+(``faero_ocn``, :1704-1711) and the skeletal-BGC amount that the area
+reduction crushes out (``dflux_bio``, the JAX package's conservation
+completion); ``cat_diags`` returns the per-category mechred diagnostics.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch
 
 from cice5_tpu_torch import constants as ct
 from cice5_tpu_torch.models.thermo.itd import compute_tracers, tracer_weights
+from cice5_tpu_torch.models.tracers.brine import PHI_SK
 from cice5_tpu_torch.ops.loop import while_loop
 from cice5_tpu_torch.state import (DEP_AICE, DEP_TRCR, DEP_VICE,
                                    TracerRegistry)
@@ -106,6 +109,10 @@ class RidgeResult(NamedTuple):
     asum_err: torch.Tensor   # |asum - 1| after the final iteration
     niter: torch.Tensor      # iterations taken (0-d int64; normally 1-2)
     dfpond: torch.Tensor     # topo-pond water lost with ridged area (m)
+    faero_ocn: torch.Tensor  # (n_aero, *B) aerosol of the snow that
+    # ridging does not keep, to the ocean (kg/m^2/s)
+    dflux_bio: torch.Tensor  # (nbtrcr, *B) skeletal-BGC amount crushed
+    # out by the area reduction, to the ocean (mmol/m^2/s)
     catdiag: torch.Tensor    # per-category mechred diagnostics (9, ncat,
     # *B) in driver.step.RDGN_KEYS order when cat_diags, else (0, ncat,
     # *B): dardg1ndt, dardg2ndt, dvirdgndt (rates), araftn, vraftn,
@@ -161,8 +168,10 @@ def ridge_ice(dt, tr: TracerRegistry, hin_max, nilyr, nslyr, *, aicen,
              aice0=aice0, closing_net=closing_net, opning=opning,
              done=torch.zeros(B, dtype=torch.bool, device=aicen.device),
              ardg1=z, ardg2=z, virdg=z, aopen=z, msnow_mlt=z, esnow_mlt=z,
-             mpond=z, catdiag=torch.zeros(((9 if cat_diags else 0), ncat) + B,
-                                          **kw))
+             mpond=z, maero=torch.zeros((tr.n_aero,) + B, **kw),
+             mbio=torch.zeros((tr.nbtrcr,) + B, **kw),
+             catdiag=torch.zeros(((9 if cat_diags else 0), ncat) + B, **kw))
+    a0, na = tr.nt_aero, tr.n_aero
     pond_slot = tr.nt_hpnd if tr_pond_topo and tr.nt_hpnd >= 0 else None
     qs0, qs1 = tr.nt_qsno, tr.nt_qsno + nslyr
     eps_sum = 8.0 * torch.finfo(aicen.dtype).eps
@@ -205,6 +214,7 @@ def ridge_ice(dt, tr: TracerRegistry, hin_max, nilyr, nslyr, *, aicen,
         a_init, v_init, s_init = aicen, vicen, vsnon
         ardg1_d, ardg2_d, virdg_d = c["ardg1"], c["ardg2"], c["virdg"]
         msnow, esnow, mpond = c["msnow_mlt"], c["esnow_mlt"], c["mpond"]
+        maero, mbio = c["maero"], c["mbio"]
 
         d_aicen = [None] * ncat
         d_vicen = [None] * ncat
@@ -241,6 +251,19 @@ def ridge_ice(dt, tr: TracerRegistry, hin_max, nilyr, nslyr, *, aicen,
             msnow = msnow + ct.rhos * vsrdgn * (1.0 - FSNOWRDG)
             esnow = esnow + (1.0 - FSNOWRDG) / nslyr * afrac \
                 * atrcrn[n, qs0:qs1].sum(0)
+            if na:
+                # the aerosol of the snow that ridging does not keep:
+                # vsrdgn*(1-fsnowrdg)*conc = afrac*(1-FSNOWRDG)*amount
+                # (ice_mechred.F90:1704-1711)
+                sno_amt = torch.stack([atrcrn[n, a0 + 4 * it]
+                                       + atrcrn[n, a0 + 4 * it + 1]
+                                       for it in range(na)])
+                maero = maero + (1.0 - FSNOWRDG) * afrac[None] * sno_amt
+            if tr.nbtrcr:
+                # BGC: the donor loses afrac*amount; the receivers' gains
+                # are taken off below, leaving the area-crush loss
+                bio_amt = torch.stack([atrcrn[n, s] for s in tr.nt_bgc])
+                mbio = mbio + afrac[None] * bio_amt
 
             if cat_diags:
                 # rafting where hrmin takes the 2h branch (hi <= maxraft)
@@ -302,6 +325,8 @@ def ridge_ice(dt, tr: TracerRegistry, hin_max, nilyr, nslyr, *, aicen,
                 coeff = torch.stack([z if cls is None else frac[cls]
                                      for cls in share])
                 acc(d_atrcr, nr, coeff * atrcrn[n])
+                if tr.nbtrcr:
+                    mbio = mbio - frac["A"][None] * bio_amt
                 if cat_diags:
                     acc(cd["reda"], nr, farea * ardg2n)
                     acc(cd["redv"], nr, fvol * virdgn)
@@ -338,7 +363,7 @@ def ridge_ice(dt, tr: TracerRegistry, hin_max, nilyr, nslyr, *, aicen,
             opning=torch.where(ok, 0.0, torch.clamp(divadv, min=0.0)),
             done=c["done"] | ok, ardg1=ardg1_d, ardg2=ardg2_d,
             virdg=virdg_d, aopen=aopen, msnow_mlt=msnow, esnow_mlt=esnow,
-            mpond=mpond, catdiag=catdiag)
+            mpond=mpond, maero=maero, mbio=mbio, catdiag=catdiag)
 
     # the first pass always runs (ridge_ice's loop is a do-while)
     c = while_loop(body, pending, body(c, torch.ones(
@@ -356,6 +381,9 @@ def ridge_ice(dt, tr: TracerRegistry, hin_max, nilyr, nslyr, *, aicen,
         dvirdgdt=c["virdg"] * dti, opening=c["aopen"] * dti,
         fresh=c["msnow_mlt"] * dti_th, fhocn=c["esnow_mlt"] * dti_th,
         asum_err=torch.abs(asum_f - 1.0), niter=c["niter"],
-        dfpond=c["mpond"],
+        dfpond=c["mpond"], faero_ocn=c["maero"] * dti_th,
+        # the slot amounts (conc * sk_l per area) times the porosity are
+        # the physical mass, the unit of flux_bio (ice_algae.F90:464)
+        dflux_bio=c["mbio"] * PHI_SK * dti_th,
         catdiag=(torch.cat([c["catdiag"][:3] * dti, c["catdiag"][3:]])
                  if cat_diags else c["catdiag"]))

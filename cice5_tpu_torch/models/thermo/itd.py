@@ -15,8 +15,12 @@ ride through the shifts, rebinning and zapping as they are; the topo-pond
 water that lateral melt and the zaps remove is returned as ``dfpond``
 (ice_therm_itd.F90:1146-1152, ice_itd.F90:1905-1913), and
 ``zerolayer_check`` (ice_itd.F90:2428) counts the zero-layer columns whose
-enthalpy left its latent value. The aerosol, brine and BGC bookkeeping of
-the JAX functions belongs to options of later slices.
+enthalpy left its latent value. The aerosol and skeletal-BGC loads that
+lateral melt, the zaps and the aice > 1 renormalization remove go to the
+ocean (``dfaero``, ``dflux_bio``: the JAX package's conservation
+completions of ice_therm_itd.F90:1196-1212 and ice_itd.F90:1918-1927,
+2221-2236); frazil growth dilutes the ice aerosols, carries the brine
+volume and takes up ocean BGC (``add_new_ice``, ice_zbgc.F90:866-1060).
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ import torch
 
 from cice5_tpu_torch import constants as ct
 from cice5_tpu_torch.models.thermo import mushy
+from cice5_tpu_torch.models.tracers.brine import PHI_SK
 from cice5_tpu_torch.state import (DEP_AICE, DEP_TRCR, DEP_VICE, DEP_VSNO,
                                    TracerRegistry)
 from cice5_tpu_torch.utils import with_index
@@ -199,6 +204,34 @@ def _pond_volume_per_cat(tr: TracerRegistry, aicen, trcrn):
     """Per-category topo-pond water volume aicen*apnd*hpnd (m)
     (ice_itd.F90:1910-1913)."""
     return aicen * trcrn[:, tr.nt_apnd] * trcrn[:, tr.nt_hpnd]
+
+
+def _aero_mass_per_cat(tr: TracerRegistry, vicen, vsnon, trcrn,
+                       snow=True, ice=True):
+    """Per-(species, category) aerosol mass (kg/m^2): vsnon * (snow-layer
+    concentrations) + vicen * (ice-layer concentrations), slots
+    [sno ssl, sno int, ice ssl, ice int] per species (ice_state.F90:118).
+    (n_aero, ncat, *B); (0, ncat, *B) without aerosols."""
+    a0 = tr.nt_aero
+    out = []
+    for it in range(tr.n_aero):
+        m = torch.zeros_like(vicen)
+        if snow:
+            m = m + vsnon * (trcrn[:, a0 + 4 * it] + trcrn[:, a0 + 4 * it + 1])
+        if ice:
+            m = m + vicen * (trcrn[:, a0 + 4 * it + 2]
+                             + trcrn[:, a0 + 4 * it + 3])
+        out.append(m)
+    return torch.stack(out) if out else vicen.new_zeros((0,) + vicen.shape)
+
+
+def _bgc_mass_per_cat(tr: TracerRegistry, aicen, trcrn):
+    """Per-(BGC tracer, category) physical skeletal-BGC mass per grid area
+    aicen * conc * phi_sk (mmol/m^2), the unit of flux_bio
+    (ice_algae.F90:464). (nbtrcr, ncat, *B)."""
+    if not tr.nbtrcr:
+        return aicen.new_zeros((0,) + aicen.shape)
+    return torch.stack([aicen * trcrn[:, s] * PHI_SK for s in tr.nt_bgc])
 
 
 def _shift_boundary(tr: TracerRegistry, pair, t_lo, t_hi, lo_is_donor,
@@ -495,19 +528,26 @@ class LateralMelt(NamedTuple):
     meltl: torch.Tensor
     dfpond: torch.Tensor | None   # topo-pond water removed (m); None
                                   # without topo ponds
+    dfaero: torch.Tensor     # (n_aero, *B) aerosol flux to the ocean
+    dflux_bio: torch.Tensor  # (nbtrcr, *B) BGC flux to the ocean
 
 
 def lateral_melt(dt, tr: TracerRegistry, nilyr, nslyr, *, aicen, vicen,
                  vsnon, trcrn, rside, tr_pond_topo=False) -> LateralMelt:
     """Melt fraction rside of every category laterally; tracers unchanged
     (ice_therm_itd.F90:1043-1235). The melted fraction's topo-pond water
-    leaves the ponds (:1146-1152 dfpond)."""
+    leaves the ponds (:1146-1152 dfpond), and its aerosol and skeletal-BGC
+    loads go to the ocean (:1196-1212), from the pre-melt volumes so that
+    the budget closes (the JAX package's completion)."""
     r = rside[None]
     dfresh = ((ct.rhos * vsnon + ct.rhoi * vicen) * r).sum(0) / dt
     dfsalt = (ct.rhoi * vicen * r).sum(0) * ct.ice_ref_salinity * 0.001 / dt
     meltl = (vicen * r).sum(0)
     dfpond = ((_pond_volume_per_cat(tr, aicen, trcrn) * r).sum(0)
               if tr_pond_topo else None)
+    dfaero = (_aero_mass_per_cat(tr, vicen, vsnon, trcrn)
+              * r[None]).sum(1) / dt
+    dflux_bio = (_bgc_mass_per_cat(tr, aicen, trcrn) * r[None]).sum(1) / dt
     aicen_new = aicen * (1.0 - r)
     vicen_new = vicen * (1.0 - r)
     vsnon_new = vsnon * (1.0 - r)
@@ -518,7 +558,7 @@ def lateral_melt(dt, tr: TracerRegistry, nilyr, nslyr, *, aicen, vicen,
              + (qsno.sum(1) * vsnon_new / nslyr * r).sum(0)) / dt
     return LateralMelt(aicen=aicen_new, vicen=vicen_new, vsnon=vsnon_new,
                        fresh=dfresh, fsalt=dfsalt, fhocn=fhocn, meltl=meltl,
-                       dfpond=dfpond)
+                       dfpond=dfpond, dfaero=dfaero, dflux_bio=dflux_bio)
 
 
 class NewIce(NamedTuple):
@@ -528,13 +568,18 @@ class NewIce(NamedTuple):
     frazil: torch.Tensor
     dfresh: torch.Tensor   # frazil fresh-water flux to the ocean
     dfsalt: torch.Tensor   # frazil salt flux to the ocean
+    flux_bio: torch.Tensor  # (nbtrcr, *B) BGC uptake from the ocean into
+    # the new frazil ice (mmol/m^2/s, negative: the ocean loses;
+    # ice_zbgc.F90:988-999 add_new_ice_bgc)
 
 
 def add_new_ice(dt, tr: TracerRegistry, hin_max, nilyr, *, aicen, vicen,
                 trcrn, aice, aice0, frzmlt, Tf, salinz,
                 tr_FY=False, tr_lvl=False, tr_iage=False,
                 update_ocn_f=False, ktherm=1, sss=None, phi_init=0.75,
-                dSin0_frazil=3.0, hfrazilmin=ct.hfrazilmin) -> NewIce:
+                dSin0_frazil=3.0, hfrazilmin=ct.hfrazilmin,
+                tr_brine=False, ocean_bio=None,
+                initbio_frac=1.0) -> NewIce:
     """Frazil formation (ice_therm_itd.F90:1239-1860): new ice in category
     1, or spread over all categories when open water is scarce.
 
@@ -542,7 +587,14 @@ def add_new_ice(dt, tr: TracerRegistry, hin_max, nilyr, *, aicen, vicen,
     Si0 = sss - dSin0_frazil (a quadratic taper for fresh water) with
     liquid fraction phi_init and the mush enthalpy; otherwise it is fresh
     latent-heat ice with the salinz profile. The iage, FY and lvl tracers
-    of the grown ice are mixed in (:1612-1800)."""
+    of the grown ice are mixed in (:1612-1800). The new ice carries no
+    aerosol: the ice-aerosol concentrations are diluted so that the
+    amount is unchanged. With tr_brine the brine volume fbri*vicen grows
+    with the new ice volume and fbri is re-derived; with ocean_bio
+    (nbtrcr, *B) the frazil volume takes up ocean BGC tracer (dissolved
+    tracers at initbio_frac, the rest fully) into the skeletal layer as a
+    negative flux_bio (add_new_ice_bgc, ice_zbgc.F90:866-1060, with the
+    JAX package's conservation completions)."""
     ncat = aicen.shape[0]
     B = aicen.shape[1:]
     hi0max = float(hin_max[1]) * 0.9 if ncat > 1 else ct.bignum
@@ -583,6 +635,12 @@ def add_new_ice(dt, tr: TracerRegistry, hin_max, nilyr, *, aicen, vicen,
     else:
         dfresh = torch.zeros_like(vi0new)
         dfsalt = torch.zeros_like(vi0new)
+
+    # brine volume before any new-ice addition (add_new_ice_bgc,
+    # ice_zbgc.F90:966-976: vbrin = fbri*vicen_init per category)
+    brine = tr_brine and tr.nt_fbri >= 0
+    if brine:
+        vbrin = trcrn[:, tr.nt_fbri] * vicen
 
     grow = vi0new > 0.0
     open_w = aice0 > ct.puny
@@ -633,6 +691,13 @@ def add_new_ice(dt, tr: TracerRegistry, hin_max, nilyr, *, aicen, vicen,
             has_surp[None] & (vicen > ct.puny),
             (vl * vicen + trcrn[:, tr.nt_alvl] * vsurp)
             / torch.clamp(vtmp, min=ct.puny), vl)
+    # the new ice carries no aerosol: the ice-aerosol concentrations scale
+    # by vicen/vtmp, keeping the amount (the JAX package's conservation
+    # completion; ice_therm_itd.F90:1612-1690 leaves them as they are)
+    for it in range(tr.n_aero):
+        i0 = tr.nt_aero + 4 * it + 2
+        ai = trcrn[:, i0:i0 + 2]
+        trcrn[:, i0:i0 + 2] = torch.where(hsm, ai * ro, ai)
     vicen = torch.where(has_surp[None], vtmp, vicen)
 
     # add vi0n/ai0new to category 1 (:1697-1800)
@@ -671,8 +736,52 @@ def add_new_ice(dt, tr: TracerRegistry, hin_max, nilyr, *, aicen, vicen,
         mixm, (qb * vice1 + qi0_c1 * vi0n) / v1s, qb)
     trcrn[0, s0:s0 + nilyr] = torch.where(
         mixm, (sb * vice1 + salz_c1 * vi0n) / v1s, sb)
+    # aerosol-free new ice in category 1 (see the hsurp dilution above)
+    for it in range(tr.n_aero):
+        i0 = tr.nt_aero + 4 * it + 2
+        ai = trcrn[0, i0:i0 + 2].clone()
+        trcrn[0, i0:i0 + 2] = torch.where(mixm, ai * vice1 / v1s, ai)
+
+    # add_new_ice_bgc (ice_zbgc.F90:866-1060)
+    if brine:
+        # hsurp thickening grows vbrin by vsurp, the category-1 frazil by
+        # vi0n
+        vbrin = torch.where(has_surp[None], vbrin + vsurp, vbrin)
+        vbrin = with_index(vbrin, 0, torch.where(add1, vbrin[0] + vi0n,
+                                                 vbrin[0]))
+        touched = has_surp[None] | torch.cat(
+            [add1[None], torch.zeros_like(has_surp[None]).expand(
+                (ncat - 1,) + tuple(B))])
+        fbri_new = torch.where(vicen > 0.0,
+                               vbrin / torch.clamp(vicen, min=1e-30), 1.0)
+        trcrn[:, tr.nt_fbri] = torch.where(touched, fbri_new,
+                                           trcrn[:, tr.nt_fbri])
+    if tr.nbtrcr and ocean_bio is not None:
+        # the ocean loses tracer into the full frazil volume: dissolved
+        # tracers at initbio_frac, particulate fully (ice_zbgc.F90:
+        # 988-999; negative flux_bio). The uptake U seeds the skeletal
+        # concentrations (the category-1 share vi0n/vi0new area-mixed into
+        # category 1, the hsurp share spread over all categories), so that
+        # the ice + ocean budget closes (the JAX package's completion)
+        fac = [t * initbio_frac + (1.0 - t) for t in tr.bgc_type]
+        U = torch.stack([torch.where(grow, vi0new, 0.0) * ocean_bio[k]
+                         * fac[k] for k in range(tr.nbtrcr)])
+        flux_bio = -U / dt
+        vi0_safe = torch.clamp(vi0new, min=ct.puny)
+        for k, slot in enumerate(tr.nt_bgc):
+            ck = trcrn[:, slot]
+            gain_h = torch.where(has_surp,
+                                 U[k] * hsurp / (vi0_safe * PHI_SK), 0.0)
+            cn = torch.where(has_surp[None] & (aicen > ct.puny),
+                             ck + gain_h[None], ck)
+            u1 = torch.where(add1, U[k] * vi0n / vi0_safe, 0.0)
+            c1 = torch.where(add1, (cn[0] * area1 + u1 / PHI_SK)
+                             / torch.clamp(a1new, min=ct.puny), cn[0])
+            trcrn[:, slot] = with_index(cn, 0, c1)
+    else:
+        flux_bio = aicen.new_zeros((tr.nbtrcr,) + tuple(B))
     return NewIce(aicen=aicen, vicen=vicen, trcrn=trcrn, frazil=frazil,
-                  dfresh=dfresh, dfsalt=dfsalt)
+                  dfresh=dfresh, dfsalt=dfsalt, flux_bio=flux_bio)
 
 
 class Cleanup(NamedTuple):
@@ -685,6 +794,8 @@ class Cleanup(NamedTuple):
     dfhocn: torch.Tensor
     dfpond: torch.Tensor | None   # topo-pond water removed (m); None
                                   # without topo ponds
+    dfaero: torch.Tensor     # (n_aero, *B) aerosol flux to the ocean
+    dflux_bio: torch.Tensor  # (nbtrcr, *B) BGC flux to the ocean
     zapped: torch.Tensor     # (ncat, *B) bool: category fully zapped
 
 
@@ -693,7 +804,9 @@ def zap_small_areas(dt, tr: TracerRegistry, nilyr, nslyr, *, aicen, vicen,
     """Zap categories with 0 < aicen <= puny, returning melt water, salt
     and heat to the ocean (ice_itd.F90:1778-2166), and renormalize
     aice > 1 (:2028-2160); the zapped and scaled-away topo-pond water
-    leaves the ponds (:1905-1913)."""
+    leaves the ponds (:1905-1913), their aerosol (:1918-1927) and
+    skeletal-BGC loads go to the ocean (the BGC routing is the JAX
+    package's completion: 5.1.2 drops that mass)."""
     zap = (torch.abs(aicen) <= ct.puny) & (torch.abs(aicen) != 0.0)
     qice = trcrn[:, tr.nt_qice:tr.nt_qice + nilyr]
     qsno = trcrn[:, tr.nt_qsno:tr.nt_qsno + nslyr]
@@ -709,16 +822,21 @@ def zap_small_areas(dt, tr: TracerRegistry, nilyr, nslyr, *, aicen, vicen,
         * ct.ice_ref_salinity * 0.001 / dt
     dfpond = (torch.where(zap, _pond_volume_per_cat(tr, aicen, trcrn),
                           0.0).sum(0) if tr_pond_topo else None)
+    dfaero = torch.where(zap[None], _aero_mass_per_cat(tr, vicen, vsnon,
+                                                       trcrn), 0.0).sum(1) / dt
+    dflux_bio = torch.where(zap[None], _bgc_mass_per_cat(tr, aicen, trcrn),
+                            0.0).sum(1) / dt
 
     aicen = torch.where(zap, 0.0, aicen)
     vicen = torch.where(zap, 0.0, vicen)
     vsnon = torch.where(zap, 0.0, vsnon)
-    tvals = []
-    for it in range(tr.ntrcr):
-        fill = ct.Tocnfrz if it == tr.nt_Tsfc else \
-            (1.0 if it == tr.nt_fbri else 0.0)
-        tvals.append(torch.where(zap, fill, trcrn[:, it]))
-    trcrn = torch.stack(tvals, dim=1)
+    # the zapped categories' tracers reset: Tsfc to freezing, fbri to 1,
+    # the rest to 0, in one select over the tracer axis
+    fill = trcrn.new_zeros(tr.ntrcr)
+    fill[tr.nt_Tsfc].fill_(ct.Tocnfrz)
+    if tr.nt_fbri >= 0:
+        fill[tr.nt_fbri].fill_(1.0)
+    trcrn = torch.where(zap[:, None], fill[:, None, None], trcrn)
 
     aice = aicen.sum(0)
     over = aice > 1.0
@@ -733,18 +851,25 @@ def zap_small_areas(dt, tr: TracerRegistry, nilyr, nslyr, *, aicen, vicen,
     if tr_pond_topo:
         dfpond = dfpond + (_pond_volume_per_cat(tr, aicen, trcrn)
                            * excess[None]).sum(0)
+    dfaero = dfaero + (_aero_mass_per_cat(tr, vicen, vsnon, trcrn)
+                       * excess[None, None]).sum(1) / dt
+    dflux_bio = dflux_bio + (_bgc_mass_per_cat(tr, aicen, trcrn)
+                             * excess[None, None]).sum(1) / dt
     aicen = aicen * scale[None]
     vicen = vicen * scale[None]
     vsnon = vsnon * scale[None]
     return Cleanup(aicen=aicen, vicen=vicen, vsnon=vsnon, trcrn=trcrn,
                    dfresh=dfresh, dfsalt=dfsalt, dfhocn=dfhocn,
-                   dfpond=dfpond, zapped=zap)
+                   dfpond=dfpond, dfaero=dfaero, dflux_bio=dflux_bio,
+                   zapped=zap)
 
 
 def zap_snow_temperature(dt, tr: TracerRegistry, nslyr, *, aicen, vsnon,
                          trcrn):
     """Remove snow whose diagnosed temperature is out of bounds
-    (ice_itd.F90:2274-2420). Returns (vsnon, trcrn, dfresh, dfhocn)."""
+    (ice_itd.F90:2274-2420); its aerosol load goes to the ocean and its
+    weightless snow-aerosol concentrations are zeroed (zap_snow,
+    :2221-2236). Returns (vsnon, trcrn, dfresh, dfhocn, dfaero)."""
     TMIN = -100.0
     hsn = torch.where(aicen > ct.puny,
                       vsnon / torch.clamp(aicen, min=ct.puny), 0.0)
@@ -761,11 +886,17 @@ def zap_snow_temperature(dt, tr: TracerRegistry, nslyr, *, aicen, vsnon,
     dfresh = torch.where(bad, ct.rhos * vsnon / dt, 0.0).sum(0)
     dfhocn = torch.where(bad[:, None], qsno * vsnon[:, None] / nslyr,
                          0.0).sum((0, 1)) / dt
+    dfaero = torch.where(bad[None], _aero_mass_per_cat(
+        tr, vsnon, vsnon, trcrn, ice=False), 0.0).sum(1) / dt
     vsnon = torch.where(bad, 0.0, vsnon)
     trcrn = trcrn.clone()
     trcrn[:, tr.nt_qsno:tr.nt_qsno + nslyr] = torch.where(
         bad[:, None], -ct.rhos * ct.Lfresh, qsno)
-    return vsnon, trcrn, dfresh, dfhocn
+    for it in range(tr.n_aero):
+        s0 = tr.nt_aero + 4 * it
+        trcrn[:, s0:s0 + 2] = torch.where(bad[:, None], 0.0,
+                                          trcrn[:, s0:s0 + 2])
+    return vsnon, trcrn, dfresh, dfhocn, dfaero
 
 
 def cleanup_itd(dt, tr: TracerRegistry, hin_max, nilyr, nslyr, *, aicen,
@@ -775,10 +906,11 @@ def cleanup_itd(dt, tr: TracerRegistry, hin_max, nilyr, nslyr, *, aicen,
     its aice>1 renormalization sees the final volumes)."""
     aicen, vicen, vsnon, trcrn = rebin(tr, hin_max, aicen, vicen, vsnon,
                                        trcrn)
-    vsnon, trcrn, dfresh_s, dfhocn_s = zap_snow_temperature(
+    vsnon, trcrn, dfresh_s, dfhocn_s, dfaero_s = zap_snow_temperature(
         dt, tr, nslyr, aicen=aicen, vsnon=vsnon, trcrn=trcrn)
     out = zap_small_areas(dt, tr, nilyr, nslyr, aicen=aicen, vicen=vicen,
                           vsnon=vsnon, trcrn=trcrn,
                           tr_pond_topo=tr_pond_topo)
     return out._replace(dfresh=out.dfresh + dfresh_s,
-                        dfhocn=out.dfhocn + dfhocn_s)
+                        dfhocn=out.dfhocn + dfhocn_s,
+                        dfaero=out.dfaero + dfaero_s)

@@ -8,7 +8,8 @@ gx1-parity configuration (``gx1_parity``: mushy thermo, dEdd, tracers,
 tripole seam, on ``synth_gx1_grid``), the same with topographic ponds
 (``gx1_topo``), on a T-fold seam with the transport conservation and
 monotonicity checks (``gx1_tfold``), with EAP rheology and the
-per-category mechred diagnostics (``gx1_eap``), the BL99 model with
+per-category mechred diagnostics (``gx1_eap``), with the aerosol, brine
+and skeletal-BGC tracers (``gx1_bgc``: 39 tracers), the BL99 model with
 upwind transport (``bl99_upwind``), CICE's gx3 test configuration (``gx3``: 116x100, nilyr=7,
 open north, on ``synth_gx1_grid``'s mesh at that shape, the arrays that
 chip_smoke writes to its gx3 grid files) or the ACCESS-OM 0.25-degree one
@@ -18,15 +19,6 @@ radiation ordering of the coupled model), float32, ndte=120, on the GPU;
 ``--evp-algorithm pallas`` takes the fused EVP sweep (kernel evp_fused)
 where the step does (not on the tripole seam). Prints one JSON line with
 
-- ``phase_ms``: wall time per step phase of the eager step
-  (``driver.step.step``; column physics, strength, EVP, transport,
-  ridging, slab ocean, and the rest), each phase bracketed by
-  ``torch.cuda.synchronize()`` so that its device work is inside it;
-  ``column_ms`` splits the column physics the same way (radiation,
-  vertical thermo; the rest of it is the tracers and the ITD; under the
-  coupled radiation ordering the radiation runs after the dynamics and is
-  a phase of its own). The phase wrappers patch module functions, so they
-  time the eager step only;
 - ``eager`` and ``graph``: the eager step and ``Model.rollout``, whose
   steps replay the step's CUDA graphs, each over ``--steps`` steps:
   ``ms_per_step`` (host clock, no syncs inside), and from
@@ -36,6 +28,18 @@ where the step does (not on the tripole seam). Prints one JSON line with
   (``aten::_local_scalar_dense``) per step; for ``graph`` also the graph
   replays and loop flag reads per step, the graphs of the step's program
   and the host seconds their capture took;
+- ``phase_device``: the device time and kernels of one eager step split
+  by its leaf phases (form drag, radiation, vertical thermo, the aerosol
+  and brine/BGC updates, linear_itd, add_new_ice, lateral_melt,
+  cleanup_itd, strength, EVP, fused EVP or EAP, transport, ridging, the
+  slab ocean; ``other`` the rest), each call under its own
+  ``torch.profiler``, and
+  ``history_device``: the device time and kernels of one history
+  accumulation of every available field (``diag_to_values`` +
+  ``HistoryStream.accum``, as ``Model.run`` makes it after each step);
+- ``run_split``: ``Model.run``'s ms per step split by part
+  (``run_split``), over 4 steps with a history stream of every available
+  field written once and the state checked every step;
 - the thermo solver's passes (BL99 or mushy Picard, both stages) and the
   ridging passes of the last step.
 
@@ -46,6 +50,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import tempfile
 import time
 from collections import defaultdict
 
@@ -57,14 +62,6 @@ from cice5_tpu_torch.driver import step as step_mod
 from cice5_tpu_torch.driver.model import Model
 from cice5_tpu_torch.grid import synth_gx1_grid
 
-PHASES = {"_column_physics": "column_physics",
-          "strength_rothrock": "strength", "evp": "evp", "evp_fused": "evp",
-          "eap": "eap", "transport_remap": "transport",
-          "transport_upwind": "transport", "ridge_ice": "ridging",
-          "ocean_mixed_layer": "ocean"}
-# inside _column_physics: reported apart, not added to phase_ms
-COLUMN_PHASES = {"_step_radiation": "radiation",
-                 "thermo_vertical": "vertical_thermo"}
 # device kernel name -> wrapper; the EVP engine (csrc/evp_resident.cu)
 # runs evp_sweep, or evp_fused on the fused path; remap_recon and
 # remap_flux are the single-edge kernel's (csrc/remap_flux_edge.cu)
@@ -94,6 +91,15 @@ def gx1_eap_config():
     return _with(gx1_parity_config(), dyn=dict(kdyn=2, diag_mechred=True))
 
 
+def gx1_bgc_config():
+    """gx1-parity with the aerosol (n_aero=3), brine and skeletal-BGC
+    tracers, all nine BGC tracers under the Jin2006 piston velocity: 39
+    tracers (chip_smoke's ``gx1_bgc`` path)."""
+    return _with(gx1_parity_config(), tracers=dict(
+        tr_aero=True, n_aero=3, tr_brine=True, skl_bgc=True,
+        bgc_flux_type="Jin2006"))
+
+
 CONFIGS = {
     "bench_easy": bench_easy_config,
     "gx1_parity": gx1_parity_config,
@@ -101,6 +107,7 @@ CONFIGS = {
         tr_pond_lvl=False, tr_pond_topo=True)),
     "gx1_tfold": gx1_tfold_config,
     "gx1_eap": gx1_eap_config,
+    "gx1_bgc": gx1_bgc_config,
     "bl99_upwind": lambda: _with(bench_easy_config(),
                                  dyn=dict(advection="upwind")),
     "gx3": gx3_config,
@@ -108,39 +115,149 @@ CONFIGS = {
 }
 
 
-def _timed_phases(totals, column, coupled_radiation=False):
-    """Wrap the phase functions the step module calls so that each adds
-    its synchronized wall time to ``totals`` (``column`` for the parts of
-    the column physics; the radiation goes to ``totals`` under the coupled
-    ordering, which runs it after the dynamics). Returns an undo
-    function."""
+# the leaf functions of one step whose device time ``phase_device``
+# splits out: (owner module attribute path, label)
+LEAF_PHASES = (("step", "neutral_drag_coeffs", "formdrag"),
+               ("step", "_step_radiation", "radiation"),
+               ("vertical", "thermo_vertical", "vertical_thermo"),
+               ("step", "_aerosol", "aerosol"),
+               ("step", "_brine_bgc", "brine_bgc"),
+               ("itd", "linear_itd", "linear_itd"),
+               ("itd", "add_new_ice", "add_new_ice"),
+               ("itd", "lateral_melt", "lateral_melt"),
+               ("itd", "cleanup_itd", "cleanup_itd"),
+               ("step", "strength_rothrock", "strength"),
+               ("step", "evp", "evp"), ("step", "evp_fused", "evp_fused"),
+               ("step", "eap", "eap"),
+               ("step", "transport_remap", "transport"),
+               ("step", "transport_upwind", "transport"),
+               ("step", "ridge_ice", "ridging"),
+               ("ocean", "ocean_mixed_layer", "ocean"))
+
+
+def _device(prof):
+    """(kernels, device ms) of the CUDA events of a profile."""
+    n, us = 0, 0.0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n += 1
+            us += e.time_range.elapsed_us()
+    return n, us / 1e3
+
+
+def _profiled(fn):
+    """(fn's result, its kernels, their device ms) under torch.profiler."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return (out,) + _device(prof)
+
+
+def phase_device(m, st, f) -> dict:
+    """{label: [kernels, device ms]} of one eager step of ``m`` split by
+    LEAF_PHASES (no leaf runs inside another), with the step's total and
+    the rest as ``other``."""
+    from cice5_tpu_torch.models.thermo import itd
+    owners = {"step": step_mod, "vertical": step_mod.vertical, "itd": itd,
+              "ocean": step_mod.ocean}
+    acc = defaultdict(lambda: [0, 0.0])
+    saved = []
+    for owner, attr, label in LEAF_PHASES:
+        mod = owners[owner]
+        fn = getattr(mod, attr)
+
+        def timed(*a, _fn=fn, _label=label, **k):
+            out, n, ms = _profiled(lambda: _fn(*a, **k))
+            acc[_label][0] += n
+            acc[_label][1] += ms
+            return out
+        saved.append((mod, attr, fn))
+        setattr(mod, attr, timed)
+    try:
+        step_mod.step(st, f, *m.step_args)
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    _, n, ms = _profiled(lambda: step_mod.step(st, f, *m.step_args))
+    out = {k: list(v) for k, v in acc.items()}
+    out["other"] = [n - sum(v[0] for v in acc.values()),
+                    ms - sum(v[1] for v in acc.values())]
+    out["total"] = [n, ms]
+    return out
+
+
+def history_device(m, st, f) -> list:
+    """[kernels, device ms] of one history accumulation of every available
+    field after a step of ``m`` (``Model.run``'s per-step history work)."""
+    from cice5_tpu_torch.io import history as hist
+    st, diag = step_mod.step(st, f, *m.step_args)
+    stream = hist.HistoryStream(hist.available_fields(m.cfg, m.tr),
+                                freq="1", freq_n=4)
+
+    def accum():
+        stream.accum(hist.diag_to_values(diag, st, m.grid, m.tr, f,
+                                         m.cfg.nilyr, m.cfg.nslyr), 0.0)
+    accum()
+    return list(_profiled(accum)[1:])
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def run_split(m, st, nsteps, **run_kw):
+    """``m.run(st, nsteps, **run_kw)`` with its ms per step split by part:
+    ``step`` (``Model.step``: on CUDA the graph replay and the clones of
+    its result), ``check_state``, ``history_values`` (``diag_to_values``),
+    ``history_accum`` (``HistoryStream.accum``), ``history_write``
+    (``write_netcdf``) and ``rest`` (the forcing, the calendar, the
+    state_bad read, the diagnostics and the loop), with ``total``. Each
+    part is bracketed by a device synchronization, so that its device work
+    is inside it (the syncs add to ``total``). Returns (final state,
+    split)."""
+    from cice5_tpu_torch.driver import model as model_mod
+    device = st.aicen.device
+    acc = defaultdict(float)
     saved = []
 
-    def wrap(owner, attr, label, acc):
+    def wrap(owner, attr, label):
         fn = getattr(owner, attr)
 
         def timed(*a, **k):
-            torch.cuda.synchronize()
+            _sync(device)
             t0 = time.perf_counter()
             out = fn(*a, **k)
-            torch.cuda.synchronize()
+            _sync(device)
             acc[label] += time.perf_counter() - t0
             return out
-        saved.append((owner, attr, fn))
+        saved.append((owner, attr, vars(owner).get(attr)))
         setattr(owner, attr, timed)
 
-    for attr, label in PHASES.items():
-        owner = step_mod.ocean if attr == "ocean_mixed_layer" else step_mod
-        wrap(owner, attr, label, totals)
-    for attr, label in COLUMN_PHASES.items():
-        owner = step_mod.vertical if attr == "thermo_vertical" else step_mod
-        in_column = not (coupled_radiation and attr == "_step_radiation")
-        wrap(owner, attr, label, column if in_column else totals)
-
-    def undo():
-        for owner, attr, fn in saved:
-            setattr(owner, attr, fn)
-    return undo
+    wrap(m, "step", "step")
+    wrap(model_mod.diag_mod, "check_state", "check_state")
+    wrap(model_mod.hist_mod, "diag_to_values", "history_values")
+    wrap(model_mod.hist_mod, "write_netcdf", "history_write")
+    if run_kw.get("history") is not None:
+        wrap(run_kw["history"], "accum", "history_accum")
+    _sync(device)
+    t0 = time.perf_counter()
+    try:
+        st = m.run(st, nsteps, **run_kw)
+        _sync(device)
+    finally:
+        for owner, attr, fn in reversed(saved):
+            if fn is None:
+                delattr(owner, attr)
+            else:
+                setattr(owner, attr, fn)
+    total = time.perf_counter() - t0
+    out = {k: 1e3 * v / nsteps for k, v in acc.items()}
+    out["rest"] = 1e3 * (total - sum(acc.values())) / nsteps
+    out["total"] = 1e3 * total / nsteps
+    return st, out
 
 
 def main(argv=None):
@@ -177,22 +294,6 @@ def main(argv=None):
         for _ in range(n):
             st, diag = step_mod.step(st, f, *m.step_args)
         return st, diag
-
-    totals, column = defaultdict(float), defaultdict(float)
-    undo = _timed_phases(totals, column, cfg.coupled_radiation)
-    try:
-        t0 = time.perf_counter()
-        st, _ = eager(st, args.steps)
-        torch.cuda.synchronize()
-        ms_synced = 1e3 * (time.perf_counter() - t0) / args.steps
-    finally:
-        undo()
-    phase_ms = {k: 1e3 * v / args.steps for k, v in totals.items()}
-    # the dynamics' cleanup_itd, aggregates and diagnostics
-    phase_ms["rest"] = ms_synced - sum(phase_ms.values())
-    column_ms = {k: 1e3 * v / args.steps for k, v in column.items()}
-    column_ms["tracers_and_itd"] = phase_ms["column_physics"] \
-        - sum(column_ms.values())
 
     def profiled(run):
         """Unsynced ms/step of ``run(st, steps)``, then one more run of it
@@ -232,6 +333,13 @@ def main(argv=None):
     _, eager_out = profiled(eager)
     replays, reads = g.replays, g.flag_reads
     diag, graph_out = profiled(lambda s, n: m.rollout(s, f, n))
+    with tempfile.TemporaryDirectory(prefix="profile_step_") as tmp:
+        from cice5_tpu_torch.io import history as hist
+        stream = hist.HistoryStream(hist.available_fields(m.cfg, m.tr),
+                                    freq="1", freq_n=4)
+        _, split = run_split(m, st, 4, start_step=2, check_every=1,
+                             history=stream, history_dir=tmp,
+                             log=lambda *a: None)
     graph_out.update(
         replays_per_step=(g.replays - replays) / (2 * args.steps),
         flag_reads_per_step=(g.flag_reads - reads) / (2 * args.steps),
@@ -240,8 +348,9 @@ def main(argv=None):
         config=args.config, evp_algorithm=args.evp_algorithm,
         grid=[args.ny, args.nx], steps=args.steps,
         card=torch.cuda.get_device_name(0),
-        ms_per_step_phase_synced=ms_synced, phase_ms=phase_ms,
-        column_ms=column_ms, eager=eager_out, graph=graph_out,
+        eager=eager_out, graph=graph_out,
+        phase_device=phase_device(m, st, f),
+        history_device=history_device(m, st, f), run_split=split,
         thermo_passes_last_step=int(diag.niter_thermo),
         ridging_passes_last_step=int(diag.niter_ridge))
     print(json.dumps(out))

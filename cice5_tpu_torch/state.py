@@ -52,6 +52,17 @@ class TracerRegistry:
     nt_bgc: tuple[int, ...] = ()
     bgc_type: tuple[float, ...] = ()
 
+    @property
+    def nbtrcr(self) -> int:
+        return len(self.nt_bgc)
+
+    @property
+    def n_aero(self) -> int:
+        """Number of aerosol species (4 trcrn slots each: 2 snow + 2 ice
+        layers, the reference's nt_aero+4*(it-1) layout,
+        ice_state.F90:118)."""
+        return sum(1 for n in self.names if n.startswith("aerosno1_"))
+
 
 def build_tracer_registry(cfg: ModelConfig) -> TracerRegistry:
     """Assign tracer slots in the reference's canonical order

@@ -37,8 +37,10 @@ from cice5_tpu_torch.io import timers as ttimers
 from cice5_tpu_torch.models import restoring as trestoring
 from cice5_tpu_torch.parallel import Topology
 from cice5_tpu_torch.state import build_tracer_registry
+import torch_option_sets as O
 import torch_port_util as U
 from torch_port_util import assert_close
+from test_torch_options import check_history_and_restarts
 
 import jax.numpy as jnp
 from cice5_tpu.forcing import Forcing as JForcing
@@ -322,16 +324,73 @@ def test_icefields_mapping_matches_jax():
     assert tun == jun and "f_made_up" in tun and "f_aero" in tun
 
 
-@pytest.mark.parametrize("what", ["tr_aero", "tr_brine", "skl_bgc"])
-def test_catalog_raises_for_physics_not_ported(what):
+@pytest.mark.parametrize("what", ["tr_aero", "tr_brine", "skl_bgc",
+                                  "skl_bgc_subset", "gx1_bgc"])
+def test_catalog_of_the_tracer_options_matches_jax(what):
+    """The aerosol, brine (with the 3Db bio-grid structure) and
+    skeletal-BGC fields, alone and together on the gx1-parity physics:
+    the JAX package's catalog and icefields mapping."""
     cfg = bench_easy_config(ny=8, nx=8, ndte=2)
     r = dataclasses.replace
+    parity = _configs()["parity"]
     cfg = {"tr_aero": cfg.replace(tracers=r(cfg.tracers, tr_aero=True,
-                                            n_aero=1)),
+                                            n_aero=3)),
            "tr_brine": cfg.replace(tracers=r(cfg.tracers, tr_brine=True)),
-           "skl_bgc": cfg.replace(tracers=r(cfg.tracers, skl_bgc=True))}[what]
-    with pytest.raises(NotImplementedError, match="not ported"):
-        thist.available_fields(cfg, build_tracer_registry(cfg))
+           "skl_bgc": cfg.replace(tracers=r(cfg.tracers, skl_bgc=True)),
+           "skl_bgc_subset": cfg.replace(tracers=r(
+               cfg.tracers, skl_bgc=True, bgc_flux_type="constant",
+               **O.BGC_SUBSET_OFF)),
+           "gx1_bgc": parity.replace(tracers=r(
+               parity.tracers, tr_aero=True, n_aero=3, tr_brine=True,
+               skl_bgc=True))}[what]
+    jcfg = U.jax_config(cfg)
+    tr, jtr = build_tracer_registry(cfg), jbuild(jcfg)
+    for inc in (True, False):
+        got = thist.available_fields(cfg, tr, inc)
+        ref = jhist.available_fields(jcfg, jtr, inc)
+        assert [dataclasses.astuple(f) for f in got] == \
+            [dataclasses.astuple(f) for f in ref]
+    names = {f.name for f in thist.available_fields(cfg, tr)}
+    assert {"aerosnossl001", "faero_ocn003", "aeroicen002"} <= names \
+        if cfg.tracers.tr_aero else True
+    # PP_net and grow_net ride with the brine fields (the JAX catalog's
+    # BGC_FIELDS)
+    assert {"fbri", "hbri", "bTizn", "bphizn", "PP_net"} <= names \
+        if cfg.tracers.tr_brine else True
+    assert {"bgc_N_sk", "fN_ai"} <= names if cfg.tracers.skl_bgc else True
+    flags = {"f_aero": "m", "f_aeron": "d", "f_faero_ocn": "m",
+             "f_PPnet": "m", "f_bTin": "m", "f_fNO": "d", "f_hbri": "m"}
+    got, tun = thist.fields_for_icefields(flags, cfg, tr)
+    ref, jun = jhist.fields_for_icefields(flags, jcfg, jtr)
+    assert [f.name for f in got] == [f.name for f in ref] and tun == jun
+
+
+@pytest.mark.parametrize("name", O.TRACER_SETS)
+def test_tracer_history_and_restarts_interchange(name, tmp_path):
+    """A step of each tracer set: the catalog, diag_to_values (the
+    aerosol, BGC and brine values of ``_bgc_aero_values``, 1e-12 of each
+    field's scale) and the history file equal the JAX package's; an npz
+    restart with the tracers and first_ice loads in either package bit
+    for bit; the bio-grid (3Db) fields read back from the port's file
+    as they were accumulated, on the nkbio axis of nilyr+2 levels."""
+    from scipy.io import netcdf_file
+    path, got = check_history_and_restarts(name, tmp_path)
+    cfg = O.option_sets()[name]
+    with netcdf_file(path, "r", mmap=False) as f:
+        names = set(f.variables)
+        if cfg.tracers.tr_brine:
+            assert f.dimensions["nkbio"] == cfg.nilyr + 2
+            for k in ("bTizn", "bphizn"):
+                v = f.variables[k]
+                assert v.dimensions == ("time", "nkbio", "nj", "ni")
+                np.testing.assert_array_equal(
+                    v[0], got[k].numpy().astype(np.float32))
+    if cfg.tracers.tr_aero:
+        assert {"faero_ocn001", "aerosnon001"} <= names
+    if cfg.tracers.skl_bgc:
+        assert {"bgc_N_sk", "fN"} <= names
+    if cfg.tracers.skl_bgc and cfg.tracers.tr_brine:
+        assert {"PP_net", "grow_net"} <= names
 
 
 @pytest.mark.parametrize("what", ["diag_mechred", "kdyn"])
@@ -431,6 +490,22 @@ def test_accumulation_reads_nothing_back(case):
     with graph.HostSyncs() as hs:
         s.accum(got, 2.0)
         _port_values(case, 1)
+    assert hs.syncs == 0 and hs.host_made == 0
+
+
+@pytest.mark.parametrize("name", O.TRACER_SETS)
+def test_tracer_history_values_read_nothing_back(name):
+    """diag_to_values of a tracer step (``_bgc_aero_values``, the
+    bio-grid remaps of compute_microS_mushy) makes no tensor from host
+    data and reads nothing from the device, so Model.run's history
+    accumulation waits on no replay."""
+    from test_torch_options import port_inputs, port_model
+    m = port_model(name)
+    st, f = port_inputs(O.load_reference(name))
+    s, d = m.step(st, f)
+    with graph.HostSyncs() as hs:
+        thist.diag_to_values(d, s, m.grid, m.tr, f, m.cfg.nilyr,
+                             m.cfg.nslyr)
     assert hs.syncs == 0 and hs.host_made == 0
 
 

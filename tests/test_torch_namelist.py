@@ -339,11 +339,8 @@ def test_overrides_and_unknown_entries_match_jax(tmp_path):
 
 
 @pytest.mark.parametrize("text,what", [
-    ("&zbgc_nml\n skl_bgc = .true.\n/\n", "BGC"),
-    ("&tracer_nml\n tr_brine = .true.\n tr_aero = .true.\n/\n",
-     "tracer slice"),
-    ("&tracer_nml\n tr_brine = .true.\n/\n", "brine"),
-    ("&tracer_nml\n tr_aero = .true.\n/\n", "aerosol"),
+    ("&grid_nml\n grid_type = 'bipolar'\n/\n", "grid_type"),
+    ("&domain_nml\n ew_boundary_type = 'tripole'\n/\n", "east-west"),
 ])
 def test_options_outside_the_port_raise_at_model_not_at_parse(tmp_path,
                                                               text, what):
@@ -352,6 +349,29 @@ def test_options_outside_the_port_raise_at_model_not_at_parse(tmp_path,
     cfg, _ = config_from_ice_in(str(p), nx=8, ny=8)
     with pytest.raises(NotImplementedError, match=what):
         Model(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("text,flags", [
+    ("&zbgc_nml\n skl_bgc = .true.\n/\n", ("skl_bgc",)),
+    ("&tracer_nml\n tr_brine = .true.\n tr_aero = .true.\n/\n",
+     ("tr_brine", "tr_aero")),
+    ("&tracer_nml\n tr_brine = .true.\n/\n", ("tr_brine",)),
+    ("&tracer_nml\n tr_aero = .true.\n/\n", ("tr_aero",)),
+])
+def test_tracer_options_build_the_model(tmp_path, text, flags):
+    """The aerosol, brine and skeletal-BGC switches of an ice_in build the
+    port's Model (they parse as the JAX package parses them); n_aero is a
+    build-time size the namelist does not carry, so tr_aero alone keeps
+    no species."""
+    p = tmp_path / "ice_in"
+    p.write_text(text)
+    cfg, _ = config_from_ice_in(str(p), nx=8, ny=8)
+    jcfg, _ = jnamelist.config_from_ice_in(str(p), nx=8, ny=8)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert all(getattr(cfg.tracers, k) for k in flags)
+    m = Model(cfg, device="cpu")
+    assert (m.tr.nt_fbri >= 0) == cfg.tracers.tr_brine
+    assert bool(m.tr.nbtrcr) == cfg.tracers.skl_bgc
 
 
 def test_tripole_namelist_builds_the_parity_model(ice_in):

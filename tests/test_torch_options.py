@@ -10,9 +10,14 @@ surface fluxes (calc_Tsfc=False) under BL99 and under mushy thermo, which
 solves its own surface and ignores them (ice_therm_vertical.F90:316-343,
 tests/test_calc_tsfc_off.py:104): the port copies that. And the
 dynamics and transport options (``O.DYN_SETS``): the T-fold seam, EAP
-alone and with the mechred diagnostics, upwind transport, the transport
-checks, dynamics without transport (their extra outputs:
-tests/test_torch_dyn_options.py).
+alone, on the T-fold and with the mechred diagnostics, upwind transport,
+the transport checks, dynamics without transport (their extra outputs:
+tests/test_torch_dyn_options.py); and the tracer sets (``O.TRACER_SETS``):
+aerosols, brine + skeletal BGC under mushy thermo, the constant piston
+velocity with a subset of the BGC tracers, every auxiliary tracer at
+once on a U-fold, with first_ice and the aerosol and BGC fluxes, primary
+production and algal growth compared too, and each reference shown to
+have its tracers at work.
 
 Each runs two steps of the port's ``Model`` on the 24x16 mesh, ndte=8,
 from the state the JAX package warmed up by one step, with rain on the
@@ -33,6 +38,7 @@ from cice5_tpu_torch import convert
 from cice5_tpu_torch.driver.model import Model, check_supported
 from cice5_tpu_torch.grid import popgrid_np
 from cice5_tpu_torch.models.thermo.itd import tracer_weights
+from cice5_tpu_torch.state import build_tracer_registry
 import torch_option_sets as O
 from torch_port_util import assert_close
 
@@ -122,6 +128,44 @@ def test_diag_of_last_step_matches(name):
     assert bool(jd["therm_converged"]) and bool(r["td2"]["therm_converged"])
 
 
+@pytest.mark.parametrize("name", O.TRACER_SETS)
+def test_tracer_outputs_after_two_steps_match(name):
+    """The first-ice flags bit for bit, and the aerosol and BGC fluxes to
+    the ocean, the net primary production and the algal growth of the
+    last step, each on its own scale."""
+    r = run(name)
+    js, jd = O.part(r["ref"], "out"), O.part(r["ref"], "diag")
+    for k in O.TRACER_STATE:
+        np.testing.assert_array_equal(js[k], r["tn2"][k], err_msg=k)
+    for k in O.TRACER_DIAG:
+        assert_close(jd[k], r["td2"][k], 3e-8, f"{name}: {k}")
+
+
+@pytest.mark.parametrize("name", O.TRACER_SETS)
+def test_tracer_reference_shows_its_tracers_at_work(name):
+    """A set whose tracers sit at rest holds nothing: in the recorded JAX
+    reference itself, aerosol reaches the ocean, the lit ice has net
+    primary production, and the brine height has moved off the ice
+    thickness somewhere."""
+    ref = O.load_reference(name)
+    cfg = O.option_sets()[name]
+    tr = build_tracer_registry(cfg)
+    jd, js = O.part(ref, "diag"), O.part(ref, "out")
+    tc = cfg.tracers
+    assert jd["faero_ocn"].shape[0] == (tc.n_aero if tc.tr_aero else 0)
+    assert jd["flux_bio"].shape[0] == tr.nbtrcr
+    if tc.tr_aero:
+        assert np.abs(jd["faero_ocn"]).max() > 0.0
+    if tc.skl_bgc:
+        assert jd["PP_net"].max() > 0.0 and jd["grow_net"].max() > 0.0
+        assert np.abs(jd["flux_bio"]).max() > 0.0
+    if tc.tr_brine:
+        fbri = js["trcrn"][:, tr.nt_fbri][js["aicen"] > ct.puny]
+        assert np.abs(fbri - 1.0).max() > 1e-4
+    if tc.tr_brine or tc.skl_bgc:
+        assert set(np.unique(js["first_ice"])) == {0.0, 1.0}
+
+
 @pytest.mark.parametrize("name", SETS)
 def test_set_exercises_its_option(name):
     """Each set's option is live in its run: ponds hold water, the ages
@@ -207,6 +251,12 @@ def test_history_and_restarts_interchange(name, tmp_path):
     package's on the same state, diagnostics and forcing (values 1e-12 of
     each field's scale, the file to 1 float32 ulp); an npz restart of
     either package loads in the other bit for bit."""
+    check_history_and_restarts(name, tmp_path)
+
+
+def check_history_and_restarts(name, tmp_path):
+    """The body of test_history_and_restarts_interchange for set
+    ``name``; returns the port's history file and values of the step."""
     import os
     from cice5_tpu.forcing import Forcing as JForcing
     from cice5_tpu.grid import popgrid_np as jpopgrid
@@ -261,6 +311,7 @@ def test_history_and_restarts_interchange(name, tmp_path):
         np.testing.assert_array_equal(getattr(t2, fl.name).numpy(),
                                       np.asarray(getattr(js, fl.name)))
     assert os.path.exists(tp)
+    return tp, got
 
 
 @pytest.mark.parametrize("name", SETS)

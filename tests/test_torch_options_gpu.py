@@ -10,8 +10,10 @@ For every set (gx3's and tp1's physics, BL99 + CCSM3 on a tripole seam,
 mushy without dEdd, dEdd without ponds, iage, FY and lvl alone, CESM and
 topographic ponds under BL99 and mushy, the CESM pond refreezing,
 zero-layer thermo, calc_Tsfc=False under BL99 and mushy; the T-fold
-seam, EAP alone and with the mechred diagnostics, upwind transport, the
-transport checks, dynamics without transport), from the recorded
+seam, EAP alone, on the T-fold and with the mechred diagnostics, upwind
+transport, the transport checks, dynamics without transport; the
+aerosol, brine and skeletal-BGC tracers, with their fluxes to the
+ocean), from the recorded
 warmed-up state in float64: two steps through the kernels on the card
 within 3e-8 of each field's scale of the plain versions on the CPU
 (tracers as conserved amounts, stresses 1e-5), the graph rollout equal to
@@ -47,9 +49,9 @@ def test_set_on_the_card_matches_the_cpu(cuda_device, name):
     ref = O.load_reference(name)
     mc, mg = port_model(name), port_model(name, device=cuda_device)
     st, f = port_inputs(ref)
-    sc, _ = mc.rollout(st, f, O.NSTEPS)
+    sc, dc = mc.rollout(st, f, O.NSTEPS)
     kernels.reset_launch_counts()
-    sg, _ = mg.rollout(st.to(cuda_device), f.to(cuda_device), O.NSTEPS)
+    sg, dg = mg.rollout(st.to(cuda_device), f.to(cuda_device), O.NSTEPS)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     dedd = mc.cfg.shortwave.shortwave == "dEdd"
@@ -60,7 +62,8 @@ def test_set_on_the_card_matches_the_cpu(cuda_device, name):
                           shortwave_dedd=O.NSTEPS if dedd else 0,
                           evp_fused=0, remap_flux_edge=0)
     sg = sg.to("cpu")
-    for k in O.STATE + (O.DYN_STATE if name in O.DYN_SETS else ()):
+    for k in O.STATE + (O.DYN_STATE if name in O.DYN_SETS else ()) + (
+            O.TRACER_STATE if name in O.TRACER_SETS else ()):
         assert_close(getattr(sc, k), getattr(sg, k), 3e-8, k, floor=1.0)
     for k in O.STRESS:
         assert_close(getattr(sc, k), getattr(sg, k), 1e-5, k, floor=1.0)
@@ -70,6 +73,8 @@ def test_set_on_the_card_matches_the_cpu(cuda_device, name):
     wc, wg = amount(sc), amount(sg)
     for it in range(tr.ntrcr):
         assert_close(wc[:, it], wg[:, it], 3e-8, f"trcrn[{it}]", floor=1e-6)
+    for k in O.TRACER_DIAG if name in O.TRACER_SETS else ():
+        assert_close(getattr(dc, k), getattr(dg, k).cpu(), 3e-8, k)
 
 
 @pytest.mark.gpu

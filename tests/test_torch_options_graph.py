@@ -5,7 +5,8 @@ its pending flag, under the strict dispatch mode of test_torch_graph.py
 that refuses any other host sync or tensor made from host data, from the
 recorded warmed-up state in float64: bit for bit the eager step. So the
 cesm and topo pond schemes (the `_calc_hpond` sort network), zero-layer
-thermo and the coupler's fluxes capture as the earlier paths do.
+thermo, the coupler's fluxes, EAP on the T-fold and the aerosol, brine and
+skeletal-BGC tracers capture as the earlier paths do.
 """
 import pytest
 

@@ -78,11 +78,6 @@ def _unsupported():
     base = tconfig.rect_config(ny=8, nx=8)
     r = dataclasses.replace
     return {
-        "mushy": base.replace(thermo=r(base.thermo, ktherm=2),
-                              tracers=r(base.tracers, tr_brine=True)),
-        "skl_bgc": base.replace(tracers=r(base.tracers, skl_bgc=True)),
-        "aero": base.replace(tracers=r(base.tracers, tr_aero=True,
-                                       n_aero=1)),
         "chunked": base.replace(dyn=r(base.dyn, evp_algorithm="chunked")),
         "compact": base.replace(grid=r(base.grid, compact_columns="on")),
         "grid_type_unknown": base.replace(grid=r(base.grid,
@@ -168,6 +163,18 @@ def _ported():
         "diag_mechred": base.replace(dyn=r(base.dyn, diag_mechred=True)),
         "dynamics_without_transport": base.replace(
             dyn=r(base.dyn, advection="none")),
+        "eap_tfold": base.replace(grid=r(base.grid, ns_boundary="tripoleT"),
+                                  dyn=r(base.dyn, kdyn=2)),
+        # the aerosol, brine and skeletal-BGC tracers (the tracer sets of
+        # tests/torch_option_sets.py hold them against JAX)
+        "mushy+brine": base.replace(thermo=r(base.thermo, ktherm=2),
+                                    tracers=r(base.tracers, tr_brine=True)),
+        "skl_bgc": base.replace(tracers=r(base.tracers, skl_bgc=True)),
+        "aero": base.replace(tracers=r(base.tracers, tr_aero=True,
+                                       n_aero=1)),
+        "gx1_bgc": tconfig.gx1_parity_config(tracers=r(
+            parity.tracers, tr_aero=True, n_aero=3, tr_brine=True,
+            skl_bgc=True)),
     }
 
 

@@ -305,6 +305,41 @@ def test_check_state_stops_the_run():
     assert "print_state bad cell (3,4)" in lines[1]
 
 
+def test_run_split_times_the_run_without_changing_it(tmp_path):
+    """profile_step.run_split runs Model.run as it is: the same final
+    state and history file as the plain run, every part of the loop timed
+    (the parts and the rest add up to the total), and the wrapped
+    functions restored afterwards."""
+    from cice5_tpu_torch.driver import model as model_mod
+    from cice5_tpu_torch.profile_step import run_split
+    m, st = bl99_model()
+    fields = thist.available_fields(m.cfg, m.tr)
+    kw = dict(check_every=1, log=lambda *a: None)
+    want = m.run(st, 4, history=thist.HistoryStream(fields, "1", 4),
+                 history_dir=str(tmp_path / "plain"), **kw)
+    saved = (m.step, model_mod.diag_mod.check_state,
+             model_mod.hist_mod.diag_to_values,
+             model_mod.hist_mod.write_netcdf)
+    got, split = run_split(m, st, 4, history=thist.HistoryStream(
+        fields, "1", 4), history_dir=str(tmp_path / "split"), **kw)
+    for f in dataclasses.fields(State):
+        a, b = getattr(want, f.name), getattr(got, f.name)
+        assert (a is None and b is None) or torch.equal(a, b), f.name
+    U.assert_same_history_file(
+        str(tmp_path / "plain" / os.listdir(tmp_path / "plain")[0]),
+        str(tmp_path / "split" / os.listdir(tmp_path / "split")[0]))
+    assert set(split) == {"step", "check_state", "history_values",
+                          "history_accum", "history_write", "rest", "total"}
+    assert all(v > 0.0 for k, v in split.items() if k != "rest")
+    assert split["rest"] >= 0.0
+    parts = sum(v for k, v in split.items() if k != "total")
+    assert abs(parts - split["total"]) <= 1e-9 * split["total"]
+    assert (m.step, model_mod.diag_mod.check_state,
+            model_mod.hist_mod.diag_to_values,
+            model_mod.hist_mod.write_netcdf) == saved
+    assert "step" not in vars(m)
+
+
 def test_dump_last_writes_a_restart_off_the_schedule(tmp_path):
     m, st = bl99_model()
     m.run(st, nsteps=3, restart_every=2, restart_dir=str(tmp_path),

@@ -8,10 +8,11 @@ ponds, each of iage, FY and lvl alone, CESM and topographic ponds under
 BL99 and mushy thermo, the CESM refreezing of level ponds, zero-layer
 thermo, and the coupler's surface fluxes (calc_Tsfc=False) under BL99
 and mushy thermo; and the dynamics and transport options (``DYN_SETS``):
-the BL99 model on a T-fold seam, EAP rheology alone and with the
-per-category mechred diagnostics on a U-fold seam, upwind transport,
-the transport conservation and monotonicity checks, and dynamics without
-transport. All run on the 24x16 synthetic global mesh of
+the BL99 model on a T-fold seam, EAP rheology alone, on a T-fold seam
+and with the per-category mechred diagnostics on a U-fold seam, upwind
+transport, the transport conservation and monotonicity checks, and
+dynamics without transport; and the aerosol, brine and skeletal-BGC
+tracers (``TRACER_SETS``). All run on the 24x16 synthetic global mesh of
 test_torch_parity_step.py, ndte=8, float64, with rain on the ice (a
 pond's "no fresh water" branch then never rests on rounding noise).
 
@@ -21,7 +22,10 @@ recorded in OPTIONS_REFERENCE under a SHA-256 of what it depends on (one
 jitted JAX step costs 20-60 s to compile on a CPU). The dynamics sets
 also record the EAP structure tensor, the EAP, check and mechred
 diagnostics, and run the JAX step with the port's T-fold metric ghosts
-(``tfold_region_metrics``: the JAX package's own raise there):
+(``tfold_region_metrics``: the JAX package's own raise there); the
+tracer sets seed the aerosol concentrations too and record first_ice and
+the aerosol and BGC fluxes, primary production and algal growth
+(``make_reference_tracers``):
 ``JAX_PLATFORMS=cpu PYTHONPATH=.:tests python tests/torch_option_sets.py
 [set ...]`` rewrites it (every set, or the sets named). Importing this
 module imports no JAX, so the GPU tests read the same states.
@@ -32,10 +36,16 @@ from pathlib import Path
 import numpy as np
 
 from cice5_tpu_torch import config as C
+from cice5_tpu_torch import small_sets as S
+from cice5_tpu_torch.small_sets import (BGC_SUBSET_OFF, DEDD, DYN_STATE,
+                                        MUSHY, PONDS, TRACER_DIAG,
+                                        TRACER_STATE, dyn_option_sets,
+                                        tracer_option_sets)
 import torch_port_util as U
 
 OPTIONS_REFERENCE = Path(__file__).with_name("test_torch_options.npz")
 NY, NX, NDTE = U.PARITY_NY, U.PARITY_NX, U.PARITY_NDTE
+assert (NY, NX, NDTE) == (S.NY, S.NX, S.NDTE)
 ISTEP = U.PARITY_ISTEP
 NSTEPS = 2
 SEED = 23
@@ -58,35 +68,7 @@ DIAG_EVP = ("strintx", "strinty", "prs_sig")
 DIAG_FLAGS = ("state_bad", "therm_converged")
 
 
-def _grid(ns):
-    """The grid section: the test mesh with an open north (displaced
-    pole) or a tripole seam (U-fold "tripole" or T-fold "tripoleT")."""
-    return C.GridConfig(nx=NX, ny=NY, ew_boundary="cyclic", ns_boundary=ns,
-                        grid_type="displaced_pole" if ns == "open"
-                        else "tripole")
-
-
-def _bl99(ns="open") -> C.ModelConfig:
-    """BL99 + CCSM3 with gx3's dynamics and slab ocean, no tracers."""
-    return C.ModelConfig(
-        grid=_grid(ns),
-        dyn=C.DynConfig(kdyn=1, ndte=NDTE, advection="remap", kstrength=1,
-                        krdg_partic=1, krdg_redist=1, mu_rdg=3.0, Cf=17.0),
-        forcing=C.ForcingConfig(oceanmixed_ice=True, natmiter=5),
-        time=C.TimeConfig(dt=3600.0), dtype="float64",
-        accum_dtype="float64")
-
-
-def _with(cfg, **sections):
-    return cfg.replace(**{k: dataclasses.replace(getattr(cfg, k), **v)
-                          for k, v in sections.items()})
-
-
-DEDD = dict(shortwave="dEdd", R_ice=0.0, R_pnd=0.0, R_snw=1.5, dT_mlt=1.5,
-            rsnw_mlt=1500.0)
-MUSHY = dict(ktherm=2, dSdt_slow_mode=-5.0e-8)
-PONDS = dict(hs0=0.0, hs1=0.03, hp1=0.01, dpscale=1e-3, rfracmin=0.15,
-             rfracmax=1.0, pndaspect=0.8)
+_grid, _bl99, _with = S.grid, S.bl99, S.with_
 
 
 def option_sets() -> dict:
@@ -120,39 +102,20 @@ def option_sets() -> dict:
         "calc_tsfc_off_mushy": _with(b, thermo=dict(calc_Tsfc=False,
                                                     **MUSHY)),
         **dyn_option_sets(),
+        **tracer_option_sets(),
     }
 
 
-# the extra fields the dynamics sets record (make_reference_dyn)
-DYN_STATE = ("a11n", "a12n")
+# the extra fields the dynamics sets record (make_reference_dyn): the
+# state's DYN_STATE and these
 DYN_DIAG = ("e11", "e12", "e22", "yieldstress11", "yieldstress12",
             "yieldstress22", "rdgn", "transport_conserv_err",
             "transport_mono_bad")
-
-
-def dyn_option_sets() -> dict:
-    """{name: ModelConfig} of the dynamics and transport options, each on
-    the BL99 model."""
-    b = _bl99()
-    return {
-        # the reference runs the JAX package's Pallas remap kernel (in
-        # interpret mode), which the port's kernel B replaces: on the
-        # T-fold its fold row differs from the XLA remap's (ROADMAP C)
-        "tfold": _with(_bl99("tripoleT"), dyn=dict(remap_kernel="pallas")),
-        "eap": _with(b, dyn=dict(kdyn=2)),
-        "eap_mechred": _with(_bl99("tripole"),
-                             dyn=dict(kdyn=2, diag_mechred=True),
-                             tracers=dict(tr_lvl=True)),
-        "upwind": _with(b, dyn=dict(advection="upwind"),
-                        tracers=dict(tr_iage=True)),
-        "transport_checks": _with(b, dyn=dict(conserv_check=True,
-                                              monotonicity_check=True),
-                                  tracers=dict(tr_iage=True)),
-        "dyn_no_transport": _with(b, dyn=dict(advection="none")),
-    }
-
-
 DYN_SETS = tuple(dyn_option_sets())
+
+# the tracer sets record TRACER_STATE and TRACER_DIAG too
+# (make_reference_tracers)
+TRACER_SETS = tuple(tracer_option_sets())
 
 
 def grid_arrays():
@@ -285,10 +248,43 @@ def make_reference_dyn(name) -> dict:
          jremap.remap_fields_batch) = saved
 
 
+def seed_tracer_state(arrays: dict, cfg, tr, base=None) -> dict:
+    """``seed_state`` (or ``base``) with the aerosol concentrations of
+    every layer also seeded where there is ice (kg/m^3), so that melt has
+    aerosol to scavenge into the ocean from the first step."""
+    arrays = (base or seed_state)(arrays, cfg, tr)
+    rng = np.random.default_rng(SEED + 2)
+    trc = np.array(arrays["trcrn"])
+    has = np.asarray(arrays["aicen"]) > 0
+    for it in range(cfg.tracers.n_aero if cfg.tracers.tr_aero else 0):
+        for k in range(4):
+            trc[:, tr.nt_aero + 4 * it + k] = np.where(
+                has, rng.uniform(1e-9, 1e-8, has.shape), 0.0)
+    return dict(arrays, trcrn=trc)
+
+
+def make_reference_tracers(name) -> dict:
+    """``make_reference`` of a tracer set: the same recipe from
+    ``seed_tracer_state``, with TRACER_STATE and TRACER_DIAG recorded
+    too."""
+    global STATE, DIAG, seed_state
+    from functools import partial
+    saved = (STATE, DIAG, seed_state)
+    STATE, DIAG = STATE + TRACER_STATE, DIAG + TRACER_DIAG
+    seed_state = partial(seed_tracer_state, base=saved[2])
+    try:
+        return make_reference(name)
+    finally:
+        STATE, DIAG, seed_state = saved
+
+
 def record(name) -> dict:
     """The reference of any set, as ``__main__`` records it."""
-    return (make_reference_dyn(name) if name in DYN_SETS
-            else make_reference(name))
+    if name in DYN_SETS:
+        return make_reference_dyn(name)
+    if name in TRACER_SETS:
+        return make_reference_tracers(name)
+    return make_reference(name)
 
 
 def reference_key(name) -> str:
@@ -315,6 +311,10 @@ def reference_key(name) -> str:
         for fn in (tfold_region_metrics, make_reference_dyn):
             h.update(inspect.getsource(fn).encode())
         h.update(repr((DYN_STATE, DYN_DIAG)).encode())
+    if name in TRACER_SETS:
+        for fn in (seed_tracer_state, make_reference_tracers):
+            h.update(inspect.getsource(fn).encode())
+        h.update(repr((TRACER_STATE, TRACER_DIAG)).encode())
     return h.hexdigest()
 
 

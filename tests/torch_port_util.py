@@ -365,9 +365,8 @@ def jax_obj(cls, obj):
 
 def jax_diag(diag):
     """A JAX StepDiag from the port's, with the fields the port's lacks
-    filled as the JAX step fills them under EVP without BGC, aerosols,
-    formdrag or diag_mechred (cice5_tpu/driver/step.py:926-944,
-    1262-1294)."""
+    filled as the JAX step fills them under EVP without formdrag or
+    diag_mechred (cice5_tpu/driver/step.py:926-944, 1262-1294)."""
     import jax.numpy as jnp
     from cice5_tpu.driver.step import StepDiag as JStepDiag
     from cice5_tpu_torch import convert
@@ -376,11 +375,9 @@ def jax_diag(diag):
     dt = d["aice"].dtype
     z = np.zeros((ny, nx), dt)
     fill = dict(e11=z, e12=z, e22=z, yieldstress11=z, yieldstress12=z,
-                yieldstress22=z, PP_net=z, grow_net=z,
+                yieldstress22=z,
                 transport_conserv_err=np.zeros((), dt),
                 transport_mono_bad=np.zeros((), np.int32),
-                faero_ocn=np.zeros((0, ny, nx), dt),
-                flux_bio=np.zeros((0, ny, nx), dt),
                 drag=np.zeros((0, ny, nx), dt),
                 rdgn=np.zeros((0, ncat, ny, nx), dt))
     return JStepDiag(**{k: jnp.asarray(d[k] if k in d else fill[k])

@@ -158,7 +158,28 @@ toolkit. Phases (any failure exits non-zero):
    the CPU within 3e-8 of scale, first_ice
    and the aerosol and BGC fluxes included, with its graph rollout equal
    to the eager step at 0.0.
-11. Print one JSON line with every kernel (launches from the gx1-parity
+11. The gx1-parity main path driven by forcing files
+   (``file_forcing_phase``, 384x320, float32, ndte=120): synthetic
+   NCAR-layout files (12 monthly records of fsw, cldf and fsnow; the
+   six-hourly records of Tair, uatm, vatm, Qa and rhoa of the first two
+   days, the run starting on January 2 past the year seam) written to a
+   temporary directory, ``Model.run`` with ``FileForcing.provider`` for 8
+   steps after 2 with the bench.py guards, a state check every step and a
+   2-D history stream written through ``write_ready(use_async=True)`` and
+   read back; A, B and C once per step (launch counters set to 0 just
+   before, read just after); ms/step of ``Model.run`` on the files beside
+   the same run on the idealized forcing, in turns, and the forcing's own
+   ms/step (record reads, interpolation, host-to-device copy, derivation
+   on the card); a CICE 5 binary dump with its tracer files at step 4 of
+   8 restored into a fresh Model, whose run equals the continuous run at
+   0.0 in every State field the dump carries (all but mlt_onset), with
+   the dump's bytes and write and read seconds; the run's 2-D history
+   fields appended to the native asynchronous netCDF writer
+   (``io/fastwriter.py``, built by g++ into ``build/``) and read back
+   equal, ms per append beside a synchronous ``write_netcdf`` of the same
+   fields; ``prescribe_ice`` on the state in float64 on the card against
+   the CPU at 0.0. One ``file_forcing:`` JSON line.
+12. Print one JSON line with every kernel (launches from the gx1-parity
    main path, the fused kernel's from the fused path, and each path's
    launches per step; times on the gx1-parity inputs, the fused kernel's
    on the BL99 ones; A's T-fold and B's gx1_bgc launches and times
@@ -2446,6 +2467,317 @@ def tracer_phase():
     return launches, b
 
 
+# the file-driven run starts on January 2, past the year seam (the first
+# steps of a year read the previous year's last six-hourly record: the CPU
+# tests hold that, tests/test_torch_forcing_data.py)
+FILE_START, FILE_WARM, FILE_STEPS = 24, 2, 8
+
+
+def write_forcing_tree(root, m, last_istep, seed=13):
+    """NCAR-layout forcing files (``forcing_data.ncar_files``, big-endian
+    float64 direct-access records) on the model's grid: 12 monthly records
+    of fsw, cldf and fsnow (mm/month), and the six-hourly records of Tair,
+    uatm, vatm, Qa and rhoa from the year's first through the last day a
+    step up to ``last_istep`` reads. The values are the port's idealized
+    forcing at each record's time with noise from ``seed``. Returns the
+    bytes written."""
+    import numpy as np
+    import torch
+    from cice5_tpu_torch.forcing import idealized_polar_forcing
+    from cice5_tpu_torch.forcing_data import ncar_files
+    rng = np.random.default_rng(seed)
+    files = ncar_files(str(root), m.cfg.time.year_init)
+    shape = m.grid.shape
+    at = lambda yday: idealized_polar_forcing(
+        shape, yday, dtype=torch.float64, tlat=m.grid.TLAT.double(),
+        tlon=m.grid.TLON.double(), orb=m.orb, device=m.device)
+    noise = lambda a: a * (1.0 + 0.05 * rng.standard_normal(shape))
+    recs = {k: [] for k in files}
+    for month in range(12):
+        f = at(15.0 + 30.4 * month)
+        fsw = (f.swvdr + f.swvdf + f.swidr + f.swidf).cpu().numpy()
+        recs["fsw"].append(noise(fsw))
+        recs["cldf"].append(np.clip(0.8 + 0.1 * rng.standard_normal(shape),
+                                    0.0, 1.0))
+        recs["fsnow"].append(noise(f.fsnow.cpu().numpy() * 86400.0 * 365.0
+                                   / 12.0))
+    nrec = 4 * (1 + last_istep * int(m.cfg.time.dt) // 86400) + 1
+    for r in range(nrec):
+        f = at(1.0 + (r + 1) / 4.0)     # valid at the end of its interval
+        recs["Tair"].append(f.Tair.cpu().numpy()
+                            + rng.standard_normal(shape))
+        recs["uatm"].append(noise(f.uatm.cpu().numpy()))
+        recs["vatm"].append(rng.standard_normal(shape))
+        recs["Qa"].append(noise(f.Qa.cpu().numpy()))
+        recs["rhoa"].append(noise(f.rhoa.cpu().numpy()))
+    total = 0
+    for name, path in files.items():
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        data = np.stack(recs[name]).astype(">f8")
+        data.tofile(path)
+        total += data.nbytes
+    return total
+
+
+def _async_streams():
+    """HistoryStreams whose run-loop writes pass ``use_async=True``."""
+    from cice5_tpu_torch.io import history as hist
+
+    class AsyncStreams(hist.HistoryStreams):
+        def write_ready(self, grid, info, out_dir, case_name="cice5_tpu",
+                        use_async=True):
+            return super().write_ready(grid, info, out_dir, case_name,
+                                       use_async=True)
+    return AsyncStreams
+
+
+def forcing_split_ms(tmp, m, steps):
+    """The forcing's own ms per step over ``steps`` from a fresh
+    FileForcing (its record cache cold, the files in the page cache):
+    record reads, interpolation, the host-to-device copy, and the
+    derivation on the card (``build_forcing``), each synchronized."""
+    import torch
+    from cice5_tpu_torch import constants as ct
+    from cice5_tpu_torch.forcing_data import FileForcing, build_forcing, \
+        to_device
+
+    class Timed(FileForcing):
+        read_s = 0.0
+
+        def _read(self, name, yr, rec):
+            t0 = time.perf_counter()
+            a = super()._read(name, yr, rec)
+            self.read_s += time.perf_counter() - t0
+            return a
+
+    ds = Timed(str(tmp), nx=m.cfg.grid.nx, ny=m.cfg.grid.ny,
+               fyear_init=m.cfg.time.year_init,
+               year_init=m.cfg.time.year_init)
+    out = dict(read=0.0, interpolate=0.0, copy=0.0, derive=0.0)
+    for istep in steps:
+        info = m.calendar.info(istep, m.cfg.time.dt)
+        yday, sec = float(int(info.yday)), float(info.sec)
+        torch.cuda.synchronize()
+        r0, t0 = ds.read_s, time.perf_counter()
+        raw = ds.raw_at(yday, sec, info.year)
+        t1 = time.perf_counter()
+        dev = to_device(raw, m.cfg.xp_dtype, m.device)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        build_forcing(dev, yday + sec / ct.secday, m.grid,
+                      dtype=m.cfg.xp_dtype, precip_units=ds.precip_units)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        out["read"] += ds.read_s - r0
+        out["interpolate"] += (t1 - t0) - (ds.read_s - r0)
+        out["copy"] += t2 - t1
+        out["derive"] += t3 - t2
+    out = {k: v / len(steps) * 1e3 for k, v in out.items()}
+    out["total"] = sum(out.values())
+    return out
+
+
+def file_forcing_phase():
+    """The gx1-parity main path driven by forcing files (384x320, float32,
+    ndte=120): synthetic NCAR-layout files written to a temporary
+    directory, ``Model.run`` with ``FileForcing.provider`` (the bench.py
+    guards, a state check every step, a 2-D history stream written with
+    ``write_ready(use_async=True)`` and read back), A, B and C once per
+    step; ms/step of ``Model.run`` on the files beside the same run on
+    the idealized forcing (in turns, one call), and the forcing's own
+    ms/step by part; a CICE 5 binary dump (with its tracer files) at step
+    4 of 8 restored into a fresh Model, whose run must equal the
+    continuous one at 0.0 in every State field the dump carries; the
+    2-D history fields appended to the native asynchronous netCDF writer
+    and read back equal, its ms per record beside a synchronous
+    ``write_netcdf`` of the same fields; ``prescribe_ice`` on the state
+    in float64 on the card against the CPU. One ``file_forcing:`` JSON
+    line. Returns the launches per step."""
+    import dataclasses
+    import tempfile
+    import numpy as np
+    import torch
+    from scipy.io import netcdf_file
+    from cice5_tpu_torch.forcing_data import FileForcing
+    from cice5_tpu_torch.io import history as hist
+    from cice5_tpu_torch.io import restart_v5
+    from cice5_tpu_torch.io.fastwriter import AsyncNetcdfWriter, build
+    from cice5_tpu_torch.models.prescribed import prescribe_ice
+    from cice5_tpu_torch.ops import kernels
+    from cice5_tpu_torch.state import State
+    quiet = lambda *a: None
+    fresh_path()
+    t0 = time.perf_counter()
+    build()
+    writer_build_s = time.perf_counter() - t0
+    m, st0, _ = build_parity()
+    cfg = m.cfg
+    s0 = FILE_START + FILE_WARM
+    expect = dict(evp_sweep=FILE_STEPS, remap_flux_both=FILE_STEPS,
+                  shortwave_dedd=FILE_STEPS, evp_fused=0, remap_flux_edge=0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_forcing_") as tmp:
+        t0 = time.perf_counter()
+        nbytes = write_forcing_tree(f"{tmp}/data", m,
+                                    s0 + FILE_STEPS)
+        write_s = time.perf_counter() - t0
+        tree = dict(nx=cfg.grid.nx, ny=cfg.grid.ny,
+                    fyear_init=cfg.time.year_init,
+                    year_init=cfg.time.year_init)
+        files = FileForcing(f"{tmp}/data", **tree)
+        m.forcing_provider = files.provider(m)
+        st_w = m.run(st0, FILE_WARM, start_step=FILE_START, log=quiet)
+        torch.cuda.synchronize()
+        check_health(m, st_w, None, "file_forcing post-warmup")
+        fields2d = hist.available_fields(cfg, m.tr, include_3d=False)
+        stream = hist.HistoryStream(fields2d, freq="1", freq_n=FILE_STEPS)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        full = m.run(st_w, FILE_STEPS, start_step=s0, check_every=1,
+                     history=_async_streams()([stream]),
+                     history_dir=f"{tmp}/history", log=quiet)
+        torch.cuda.synchronize()
+        checked_ms = (time.perf_counter() - t0) / FILE_STEPS * 1e3
+        launches = kernels.launch_counts()
+        frac = check_health(m, full, None, "file_forcing")
+        if launches != expect:
+            fail(f"file_forcing: launches {launches}, expected {expect}")
+        names = sorted(os.listdir(f"{tmp}/history"))
+        if len(names) != 1:
+            fail(f"file_forcing: history files {names}")
+        with netcdf_file(f"{tmp}/history/{names[0]}", "r",
+                         mmap=False) as f:
+            for k, v in f.variables.items():
+                if not np.isfinite(np.asarray(v[:])).all():
+                    fail(f"file_forcing: history {k} is not finite")
+            history_aice = np.asarray(f.variables["aice"][0])
+
+        # ms/step on the files and on the idealized forcing, in turns
+        ways = {"files": files.provider(m), "idealized": None}
+        ms = {k: [] for k in ways}
+        for k in ("files", "idealized", "idealized", "files"):
+            m.forcing_provider = ways[k]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m.run(st_w, FILE_STEPS, start_step=s0, log=quiet)
+            torch.cuda.synchronize()
+            ms[k].append((time.perf_counter() - t0) / FILE_STEPS * 1e3)
+        split = forcing_split_ms(f"{tmp}/data", m,
+                                 range(s0, s0 + FILE_STEPS))
+
+        # the CICE 5 dump at step 4 of 8, a fresh Model, 4 more steps
+        m.forcing_provider = files.provider(m)
+        cont = m.run(st_w, FILE_STEPS, start_step=s0, log=quiet)
+        half = m.run(st_w, FILE_STEPS // 2, start_step=s0, log=quiet)
+        k = s0 + FILE_STEPS // 2
+        core = f"{tmp}/restart/iced.{k:05d}"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        paths = restart_v5.write_restart_v5(half, core, cfg, m.tr, istep=k,
+                                            time=k * cfg.time.dt)
+        dump_write_s = time.perf_counter() - t0
+        dump_bytes = sum(os.path.getsize(p) for p in paths)
+        m2, _, _ = build_parity()
+        m2.forcing_provider = FileForcing(f"{tmp}/data",
+                                          **tree).provider(m2)
+        t0 = time.perf_counter()
+        st_r, meta = restart_v5.read_restart_v5(core, m2.cfg, m2.tr,
+                                                device=m2.device)
+        torch.cuda.synchronize()
+        dump_read_s = time.perf_counter() - t0
+        if meta["istep"] != k or meta.get("missing_files"):
+            fail(f"file_forcing: v5 dump meta {meta}")
+        out = m2.run(st_r, FILE_STEPS // 2, start_step=k, log=quiet)
+        torch.cuda.synchronize()
+        carried = [f.name for f in dataclasses.fields(State)
+                   if f.name != "mlt_onset"]
+        differ = [n for n in carried
+                  if not torch.equal(getattr(out, n), getattr(cont, n))]
+        restart_diff = max(float((getattr(out, n).double()
+                                  - getattr(cont, n).double()).abs().max())
+                           for n in carried if getattr(cont, n).numel())
+        if differ:
+            fail(f"file_forcing: the run restored from the CICE 5 dump "
+                 f"differs from the continuous run in {differ} (max abs "
+                 f"diff {restart_diff:.3e})")
+        del m2, st_r, out
+
+        # the 2-D history fields through the native writer
+        s2d = hist.HistoryStream(fields2d, freq="1", freq_n=10 ** 9)
+        _, d = m.step(full, m.forcing_at(s0 + FILE_STEPS))
+        s2d.accum(hist.diag_to_values(
+            d, full, m.grid, m.tr, m.forcing_at(s0 + FILE_STEPS),
+            cfg.nilyr, cfg.nslyr), 0.0)
+        varnames = [f.name for f in s2d.groups["2D"]]
+        recs = 4
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        avg = s2d.averages("2D").astype(np.float32)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        path = f"{tmp}/async.nc"
+        append_ms = []
+        with AsyncNetcdfWriter(path, cfg.grid.ny, cfg.grid.nx,
+                               varnames) as w:
+            for r in range(recs):
+                t0 = time.perf_counter()
+                w.append(r * cfg.time.dt, dict(zip(varnames, avg)))
+                append_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            w.flush()
+            flush_ms = (time.perf_counter() - t0) * 1e3
+        with netcdf_file(path, "r", mmap=False) as f:
+            for r in range(recs):
+                for i, name in enumerate(varnames):
+                    if not np.array_equal(np.asarray(f.variables[name][r]),
+                                          avg[i]):
+                        fail(f"file_forcing: the native writer's {name} "
+                             f"record {r} differs from what was appended")
+        async_bytes = os.path.getsize(path)
+        info = m.calendar.info(s0 + FILE_STEPS, cfg.time.dt)
+        t0 = time.perf_counter()
+        hist.write_netcdf(s2d, m.grid, info, f"{tmp}/sync.nc")
+        sync_ms = (time.perf_counter() - t0) * 1e3
+        sync_bytes = os.path.getsize(f"{tmp}/sync.nc")
+
+    # prescribe_ice in float64, card against CPU
+    st64 = full.to(m.device, dtype=torch.float64)
+    g64 = m.grid.to(m.device, dtype=torch.float64)
+    rng = np.random.default_rng(5)
+    cov = torch.from_numpy(rng.uniform(-0.1, 1.1, m.grid.shape)).to(m.device)
+    tf = torch.from_numpy(rng.uniform(-1.9, -1.7, m.grid.shape)).to(m.device)
+    pg = prescribe_ice(st64, cov, g64, m.tr, cfg, m.hin_max, tf)
+    pc = prescribe_ice(st64.to("cpu"), cov.cpu(), g64.to("cpu"), m.tr, cfg,
+                       m.hin_max, tf.cpu())
+    presc_diff = {n: float((getattr(pg, n).cpu() - getattr(pc, n)).abs()
+                           .max()) for n in ("aicen", "vicen", "vsnon",
+                                              "trcrn")}
+    if any(v != 0.0 for v in presc_diff.values()):
+        fail(f"file_forcing: prescribe_ice on the card differs from the "
+             f"CPU in float64: {presc_diff}")
+    line = dict(
+        path="gx1-parity file forcing", shape=[cfg.grid.ny, cfg.grid.nx],
+        dtype=cfg.dtype, ndte=cfg.dyn.ndte, card=card_line(),
+        start_step=s0, steps=FILE_STEPS, launches=launches,
+        forcing_bytes_written=nbytes, forcing_write_s=write_s,
+        ice_fraction=frac,
+        ms_per_step_run_checked_with_async_history=checked_ms,
+        ms_per_step_run=ms, forcing_ms_per_step=split,
+        v5_dump_bytes=dump_bytes, v5_dump_files=len(paths),
+        v5_dump_write_s=dump_write_s, v5_dump_read_s=dump_read_s,
+        v5_restart_max_abs_diff=restart_diff,
+        history_aice_max=float(np.abs(history_aice).max()),
+        native_writer=dict(
+            build_s=writer_build_s, fields=len(varnames), records=recs,
+            append_ms_per_record=append_ms, flush_ms=flush_ms,
+            bytes=async_bytes, averages_to_host_ms=host_ms,
+            sync_write_netcdf_ms=sync_ms, sync_bytes=sync_bytes),
+        prescribe_ice_gpu_vs_cpu_float64=presc_diff)
+    print("file_forcing: " + json.dumps(line), flush=True)
+    m.forcing_provider = None
+    return {"gx1-parity file forcing": {
+        k: v // FILE_STEPS for k, v in launches.items()}}
+
+
+
 def main():
     try:
         import torch
@@ -2530,6 +2862,7 @@ def main():
     by_path, a_tfold = dynamics_phase()
     bgc_launches, b_bgc = tracer_phase()
     by_path.update(bgc_launches)
+    by_path.update(file_forcing_phase())
     by_path.update({"gx1-parity": {k: v // 10 for k, v in launches.items()},
                     "BL99+CCSM3": {k: v // 5 for k, v in bl99.items()},
                     "BL99+CCSM3 fused EVP": {k: v // 5

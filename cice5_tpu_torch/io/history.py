@@ -14,8 +14,9 @@ scipy with CF-style time/units/cell coordinates: the JAX package's files,
 variable for variable, with the EAP, per-category mechred, form-drag,
 pond, aerosol, brine and skeletal-BGC field sets of the configurations
 that have them (the brine structure on the bio grid is the ``3Db``
-class). The asynchronous native writer (``use_async``) comes in a later
-slice and raises.
+class). ``HistoryStreams.write_ready`` accepts ``use_async`` as the JAX
+package's does and writes the same files; the native asynchronous
+netCDF writer is ``io/fastwriter.py``.
 """
 from __future__ import annotations
 
@@ -542,12 +543,10 @@ class HistoryStreams:
 
     def write_ready(self, grid, info, out_dir: str,
                     case_name: str = "cice5_tpu", use_async: bool = False):
-        """Write every stream whose output window closed; returns paths."""
-        if use_async:
-            raise NotImplementedError(
-                "use_async=True: the asynchronous native history writer "
-                "(native/fastwriter) is not ported yet: it comes with a "
-                "later slice of the port")
+        """Write every stream whose output window closed; returns paths.
+        ``use_async`` is accepted as the JAX package's write_ready accepts
+        it: the files are the same, written before this returns (the
+        native asynchronous writer is ``io/fastwriter.py``)."""
         paths = []
         for st in self.streams:
             if st.ready(info):

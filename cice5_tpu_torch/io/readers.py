@@ -12,6 +12,8 @@ weights of ice_forcing.F90 (interp_coeff_monthly :1296, interp_coeff
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 
@@ -76,6 +78,24 @@ def interp_coeff(istep: int, dt: float, recslot: int, sec_per_rec: float):
         t2 = t1 + secyr
     c2 = (tt - t1) / (t2 - t1)
     return 1.0 - c2, c2
+
+
+def read_records(path: str, n: int, rec: int, count: int = 1,
+                 dtype: str = ">f8") -> np.ndarray:
+    """``count`` consecutive records of ``n`` values from 0-based record
+    ``rec`` of a direct-access binary file, flat. A file too short for
+    them raises EOFError naming the file, the records and its size (a
+    plain ``np.fromfile`` returns a short array there)."""
+    item = np.dtype(dtype).itemsize
+    size = os.path.getsize(path)
+    end = (rec + count) * n * item
+    if size < end:
+        raise EOFError(
+            f"{path}: records {rec}..{rec + count - 1} of {n * item} bytes "
+            f"each end at byte {end}, the file holds {size} bytes "
+            f"({size // (n * item)} whole records)")
+    return np.fromfile(path, dtype=dtype, count=n * count,
+                       offset=rec * n * item)
 
 
 def read_netcdf_field(path: str, varname: str, record: int | None = None):

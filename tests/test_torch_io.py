@@ -15,6 +15,11 @@ packages through NumPy, in float64 and then float32.
   the same keys, each value within 1e-12 of its scale (float32: 2 ulp);
   two streams' averages within 1e-12 of each field's scale and their
   files within 1 float32 ulp; accumulation reads nothing to the host.
+- ``write_ready(use_async=True)``: the JAX package's files, and byte for
+  byte the port's files without it.
+- xyt field I/O: the binary files byte for byte and every reader equal;
+  the native asynchronous netCDF writer reads back bit for bit, and a
+  build that fails raises.
 - restoring: the edge masks and the nudged state bit for bit.
 - the idealized forcing within 1e-12 of each field's scale, its snowfall
   bit for bit.
@@ -519,9 +524,147 @@ def test_history_errors():
         thist.HistoryStream([], freq="w")
     with pytest.raises(ValueError, match="at most"):
         thist.HistoryStreams([s] * 6)
-    with pytest.raises(NotImplementedError, match="fastwriter"):
-        thist.HistoryStreams([s]).write_ready(None, None, "x",
-                                              use_async=True)
+
+
+def test_write_ready_async_writes_the_jax_files(case, tmp_path):
+    """``use_async=True``, which both packages accept: the port writes the
+    files the JAX package writes with it (within 1 float32 ulp of each
+    variable's scale, the same variables, dimensions, units and long
+    names), byte for byte the files it writes without it."""
+    fields = thist.available_fields(case["cfg"], case["tr"])
+    ts, js = _streams(fields, jhist.available_fields(case["jcfg"],
+                                                     case["jtr"]))
+    sync, _ = _streams(fields, [])
+    cal = case["m"].calendar
+    for k in range(2):
+        got, ref = _values(case, k)
+        info = cal.info(U.RUN_START + k + 1, case["cfg"].time.dt)
+        for streams, v in ((ts, got), (sync, got), (js, ref)):
+            streams.accum(v, info.time)
+        tp = ts.write_ready(case["grid"], info, str(tmp_path / "port"),
+                            use_async=True)
+        sp = sync.write_ready(case["grid"], info, str(tmp_path / "sync"))
+        jp = js.write_ready(case["jgrid"], info, str(tmp_path / "jax"),
+                            use_async=True)
+        assert [os.path.basename(p) for p in tp] == \
+            [os.path.basename(p) for p in jp] == \
+            [os.path.basename(p) for p in sp]
+        assert len(tp) == (1 if k == 0 else 2)
+        for a, b, c in zip(jp, tp, sp):
+            U.assert_same_history_file(a, b)
+            with open(b, "rb") as fb, open(c, "rb") as fc:
+                assert fb.read() == fc.read()
+
+
+# ---------------------------------------------------------------------
+# xyt field I/O and the native netCDF writer
+# ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("atype", ["rda8", "rda4", "ida4"])
+def test_xyt_files_and_reads_match_jax(tmp_path, atype):
+    """write_xyt byte for byte (one record, a sequence, appended), and
+    every reader (xyt with an offset and a count, xyzt, global, ext)
+    equal to the JAX package's on the same file."""
+    from cice5_tpu.io import xyt as jxyt
+    from cice5_tpu_torch.io import xyt as txyt
+    rng = np.random.default_rng(21)
+    ny, nx, nz = 6, 8, 3
+    recs = [rng.uniform(-50.0, 50.0, (ny, nx)) for _ in range(2 * nz)]
+    t, j = str(tmp_path / "t.bin"), str(tmp_path / "j.bin")
+    txyt.write_xyt(t, torch.from_numpy(recs[0]), atype=atype)
+    txyt.write_xyt(t, [torch.from_numpy(r) for r in recs[1:]],
+                   atype=atype, append=True)
+    jxyt.write_xyt(j, jnp.asarray(recs[0]), atype=atype)
+    jxyt.write_xyt(j, [jnp.asarray(r) for r in recs[1:]], atype=atype,
+                   append=True)
+    with open(t, "rb") as ft, open(j, "rb") as fj:
+        assert ft.read() == fj.read()
+    for fn, args, kw in (("read_xyt", (nx, ny, 2), {}),
+                         ("read_xyt", (nx, ny, 3), {"count": 2}),
+                         ("read_xyzt", (nx, ny, nz, 2), {}),
+                         ("read_global", (nx, ny, 6), {}),
+                         ("read_ext", (nx - 2, ny - 2, 4), {})):
+        a = getattr(jxyt, fn)(j, *args, atype=atype, **kw)
+        b = getattr(txyt, fn)(t, *args, atype=atype, **kw)
+        assert a.dtype == b.dtype, fn
+        np.testing.assert_array_equal(a, b, fn)
+    with pytest.raises(EOFError, match="t.bin"):
+        txyt.read_xyt(t, nx, ny, 6, atype=atype, count=2)
+
+
+def test_xyt_netcdf_matches_jax(tmp_path):
+    from cice5_tpu.io import xyt as jxyt
+    from cice5_tpu_torch.io import xyt as txyt
+    rng = np.random.default_rng(22)
+    f = {"aice": rng.uniform(size=(6, 8)), "hi": rng.uniform(size=(6, 8))}
+    attrs = {"aice": {"units": "1", "long_name": "ice area"}}
+    t, j = str(tmp_path / "t.nc"), str(tmp_path / "j.nc")
+    txyt.write_xyt_nc(t, {k: torch.from_numpy(v) for k, v in f.items()},
+                      attrs=attrs)
+    jxyt.write_xyt_nc(j, {k: jnp.asarray(v) for k, v in f.items()},
+                      attrs=attrs)
+    with open(t, "rb") as ft, open(j, "rb") as fj:
+        assert ft.read() == fj.read()
+    for name in f:
+        np.testing.assert_array_equal(jxyt.read_xyt_nc(j, name),
+                                      txyt.read_xyt_nc(t, name))
+    path = str(tmp_path / "recs.nc")
+    from scipy.io import netcdf_file
+    with netcdf_file(path, "w") as nc:
+        nc.createDimension("time", 3)
+        nc.createDimension("nj", 6)
+        nc.createDimension("ni", 8)
+        nc.createVariable("Tair", "d", ("time", "nj", "ni"))[:] = \
+            rng.uniform(size=(3, 6, 8))
+    for nrec in (None, 1, 3):
+        np.testing.assert_array_equal(jxyt.read_xyt_nc(path, "Tair", nrec),
+                                      txyt.read_xyt_nc(path, "Tair", nrec))
+
+
+def test_native_writer_roundtrip(tmp_path):
+    """Records appended from host arrays and tensors read back bit for
+    bit, with their times; pending() counts the records not yet written,
+    and is 0 after flush()."""
+    from scipy.io import netcdf_file
+    from cice5_tpu_torch.io.fastwriter import AsyncNetcdfWriter
+    path = str(tmp_path / "async.nc")
+    ny, nx = 5, 7
+    rng = np.random.default_rng(3)
+    recs = []
+    with AsyncNetcdfWriter(path, ny, nx, ["aice", "hi", "hs"]) as w:
+        for t in range(6):
+            f = {k: rng.random((ny, nx)).astype(np.float32)
+                 for k in ("aice", "hi", "hs")}
+            recs.append((t * 3600.0, f))
+            w.append(t * 3600.0, {k: torch.from_numpy(v) if t % 2 else v
+                                  for k, v in f.items()})
+            assert 0 <= w.pending() <= t + 1
+        w.flush()
+        assert w.pending() == 0
+    with pytest.raises(ValueError, match="closed"):
+        w.append(0.0, recs[0][1])
+    with netcdf_file(path, "r", mmap=False) as f:
+        np.testing.assert_array_equal(np.array(f.variables["time"][:]),
+                                      [r[0] for r in recs])
+        for name in ("aice", "hi", "hs"):
+            arr = np.array(f.variables[name][:])
+            for k, (_, fields) in enumerate(recs):
+                np.testing.assert_array_equal(arr[k], fields[name], name)
+
+
+def test_native_writer_build_failure_raises(tmp_path, monkeypatch):
+    """A source g++ refuses raises with the compiler's output; no writer
+    falls back to a synchronous one."""
+    from cice5_tpu_torch.io import fastwriter
+    bad = tmp_path / "ncwriter.cpp"
+    bad.write_text("int ncw_create( {\n")
+    monkeypatch.setattr(fastwriter, "SOURCE", bad)
+    monkeypatch.setattr(fastwriter, "_LIB", None)
+    monkeypatch.setenv("CICE5_TORCH_BUILD_DIR", str(tmp_path / "build"))
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed.*ncwriter.cpp"):
+        fastwriter.AsyncNetcdfWriter(str(tmp_path / "x.nc"), 2, 2, ["a"])
+    assert not (tmp_path / "x.nc").exists()
+    assert list((tmp_path / "build").iterdir()) == []
 
 
 # ---------------------------------------------------------------------

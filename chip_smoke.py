@@ -179,12 +179,28 @@ toolkit. Phases (any failure exits non-zero):
    equal, ms per append beside a synchronous ``write_netcdf`` of the same
    fields; ``prescribe_ice`` on the state in float64 on the card against
    the CPU at 0.0. One ``file_forcing:`` JSON line.
-12. Print one JSON line with every kernel (launches from the gx1-parity
+12. The multi-GPU path (``sharded_phase``), in spawned processes
+   (``chip_smoke.py --sharded-rank`` / ``--nccl-rank``) whose output is
+   printed here: 4 gloo ranks sharing the card on a 2x2 mesh run the
+   gx1-parity model at 384x320 (float32, ndte=120, a 192x160 tile per
+   rank) through ``ShardedModel.run`` (3 steps after a warm-up step, a
+   diagnostics line and a state check each step) with the launch counters
+   and the halo traffic set to 0 just before and read just after (B and C
+   once per rank per step, A and D never: on a mesh the EVP runs the
+   subcycle loop with one halo exchange per subcycle), the bench.py
+   guards on the gathered state, a per-rank restart round trip at 0.0 and
+   the gathered state against the one-device eager step (kernel A); the
+   24x16 float64 gx1-parity model with land on the seam on the 2x2, 1x4
+   and 4x1 meshes on the card against the CPU; one NCCL rank: the
+   reductions and a 1x1-mesh step against ``Model``'s eager step at 0.0.
+   One ``sharded:`` JSON line; four processes on one card are a
+   correctness run, not a multi-GPU speed.
+13. Print one JSON line with every kernel (launches from the gx1-parity
    main path, the fused kernel's from the fused path, and each path's
-   launches per step; times on the gx1-parity inputs, the fused kernel's
-   on the BL99 ones; A's T-fold and B's gx1_bgc launches and times
-   beside), then the card line, then ``{"ok": true, "device": {...}}``
-   as the last line.
+   launches per step, the sharded path's per rank; times on the
+   gx1-parity inputs, the fused kernel's on the BL99 ones; A's T-fold and
+   B's gx1_bgc launches and times beside), then the card line, then
+   ``{"ok": true, "device": {...}}`` as the last line.
 """
 from __future__ import annotations
 
@@ -2778,6 +2794,329 @@ def file_forcing_phase():
 
 
 
+# the mesh of the sharded phase: 4 gloo ranks on the one card
+SHARDED_RANKS, SHARDED_MESH = 4, (2, 2)
+SHARDED_EXPECT = dict(evp_sweep=0, remap_flux_both=3, shortwave_dedd=3,
+                      evp_fused=0, remap_flux_edge=0)
+SMALL_MESHES = ((2, 2), (1, 4), (4, 1))
+
+
+def _state_diff(ref, got):
+    """(max abs diff over every State field, the first field where it is
+    not 0.0 or None)."""
+    import dataclasses
+    worst, first = 0.0, None
+    for f in dataclasses.fields(ref):
+        a, b = getattr(ref, f.name), getattr(got, f.name)
+        if a.numel() == 0:
+            continue
+        d = float((a.double() - b.double()).abs().max())
+        if d > 0.0 and first is None:
+            first = f.name
+        worst = max(worst, d)
+    return worst, first
+
+
+def tile_kernel_check(cap):
+    """Kernels B and C against their plain versions on the float32
+    arguments captured on one rank's tile (``check.capture_kernel_args``
+    of a sharded step), each field against its own scale (B within 1e-5,
+    C within DEDD_F32_TOL, as phase 2 holds them); eager CUDA-event
+    times of one call, and the bounds of these inputs."""
+    import torch
+    from cice5_tpu_torch.models.radiation import dedd
+    from cice5_tpu_torch.models.transport import remap as trm
+    from cice5_tpu_torch.ops import check
+    args, kw = cap["remap"], cap["dedd"]
+    out = {}
+    for name, kernel, plain, outputs, tol, bound in (
+            ("remap_flux_both", lambda: trm.remap_flux_both(*args),
+             lambda: trm.remap_flux_plain(*args), check.remap_outputs,
+             1e-5, lambda: remap_bound(args, ("north", "east"))),
+            ("shortwave_dedd", lambda: dedd.shortwave_dEdd_ncat(**kw),
+             lambda: dedd.shortwave_dEdd_plain(**kw),
+             lambda o: o._asdict(), DEDD_F32_TOL, lambda: dedd_bound(kw))):
+        got, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        field, rel, err = check.worst(check.field_errors(outputs(ref),
+                                                         outputs(got)))
+        if not rel <= tol:
+            fail(f"{name} on the sharded tile: {field} differs from the "
+                 f"plain version by {rel:.3e} of its scale (> {tol:.0e})")
+        bound_ms, bound_by, _ = bound()
+        out[name] = dict(
+            shape=[args[7], args[8]] if name == "remap_flux_both"
+            else list(kw["aicen"].shape[-2:]), max_abs_err=err,
+            worst_field=field, rel_err=rel,
+            ms=cuda_time_ms(kernel, reps=20),
+            plain_ms=cuda_time_ms(plain, reps=2), bound_ms=bound_ms,
+            bound_by=bound_by)
+    return out
+
+
+def sharded_rank(rank: int, world: int, tmp: str):
+    """One rank of the sharded phase (``python3 chip_smoke.py
+    --sharded-rank RANK WORLD DIR``, spawned by ``sharded_phase``): gloo
+    over the ``file://`` store DIR/store, the rank's tiles on the one
+    card. Writes its result to DIR/rank<RANK>.json."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from cice5_tpu_torch.config import gx1_parity_config
+    from cice5_tpu_torch.driver.model import Model
+    from cice5_tpu_torch.driver.sharded import ShardedModel
+    from cice5_tpu_torch.driver.step import step as step_fn
+    from cice5_tpu_torch.grid import synth_gx1_grid
+    from cice5_tpu_torch.io import shard_io
+    from cice5_tpu_torch.ops import check, kernels
+    from cice5_tpu_torch.parallel import distributed as pdist
+    torch.set_num_threads(2)
+    pdist.initialize_distributed("gloo", init_method=f"file://{tmp}/store",
+                                 rank=rank, world_size=world)
+    res = {"rank": rank}
+    # the 384x320 gx1-parity model on the 2x2 mesh
+    cfg = gx1_parity_config()
+    grid = synth_gx1_grid(cfg, device="cuda")
+    sm = ShardedModel(cfg, mesh_shape=SHARDED_MESH, grid=grid)
+    t0 = time.perf_counter()
+    st, diag = sm.step(sm.init_state(), sm.forcing_at(0))   # warm-up
+    torch.cuda.synchronize()
+    res["warmup_step_s"] = time.perf_counter() - t0
+    warm = sm.global_view(st)
+    steps, logs = [], []
+    dist.barrier()
+    kernels.reset_launch_counts()
+    pdist.reset_traffic()
+    t0 = time.perf_counter()
+    st = sm.run(st, 3, start_step=1, diag_every=1, check_every=1,
+                diag_fn=lambda i, s, d: steps.append((s, d)),
+                log=logs.append)
+    torch.cuda.synchronize()
+    dist.barrier()
+    res["ms_per_step_run"] = (time.perf_counter() - t0) / 3 * 1e3
+    res["launches"] = kernels.launch_counts()
+    res["traffic"] = pdist.traffic()
+    res["diag_lines"] = logs
+    gst, gdiag = steps[-1]
+    res["state_bad"] = int(gdiag.state_bad)
+    res["therm_converged"] = bool(gdiag.therm_converged)
+    # the per-rank restart files, restored at 0.0
+    shard_io.dump_sharded(st, f"{tmp}/dump", istep=4, time=4 * 3600.0,
+                          mesh=sm.mesh)
+    dist.barrier()
+    back = sm.put(shard_io.restore_sharded(f"{tmp}/dump")[0])
+    res["restore_max_abs_diff"] = _state_diff(st, back)[0]
+    # B and C against their plain versions at the tile's shape, on the
+    # arguments of one more sharded step (every rank steps, rank 0 checks)
+    _, cap = check.capture_kernel_args(sm, st, sm.forcing_at(4))
+    if rank == 0:
+        res["tile_kernels"] = tile_kernel_check(cap)
+    dist.barrier()
+    if rank == 0:
+        from cice5_tpu_torch.io import diagnostics as diag_mod
+        res["health"] = check_health(sm, gst, None, "sharded 2x2")
+        res["check_state"] = bool(diag_mod.check_state(
+            gst, sm.grid, sm.tr, cfg.nilyr, cfg.nslyr, log=logs.append))
+        # the one-device eager step (kernel A) on the same inputs
+        m1 = Model(cfg, grid=grid)
+        s1, first = warm, None
+        worst = 0.0
+        for k in range(3):
+            s1, _ = step_fn(s1, m1.forcing_at(1 + k), *m1.step_args)
+            d, f = _state_diff(s1, steps[k][0])
+            if f is not None and first is None:
+                first = f"{f} at step {k + 1}"
+            worst = max(worst, d)
+        torch.cuda.synchronize()
+        res["max_abs_diff_vs_one_device"] = worst
+        res["first_difference"] = first
+    dist.barrier()
+    # small float64 runs on three meshes against the CPU plain run
+    res["small"] = {}
+    for mesh in SMALL_MESHES:
+        c = gx1_parity_config()
+        c = c.replace(grid=dataclasses.replace(c.grid, ny=24, nx=16),
+                      dyn=dataclasses.replace(c.dyn, ndte=8),
+                      dtype="float64", accum_dtype="float64")
+        mc = Model(c, grid=small_parity_grid(c, "cpu"), device="cpu")
+        f = mc.forcing_at(172 * 24 + 12)
+        f = f.replace(frain=torch.full_like(f.frain, 2.0e-5))
+        s0, _ = mc.step(mc.init_state(), f)              # warm-up, CPU
+        ss = ShardedModel(c, mesh_shape=mesh,
+                          grid=small_parity_grid(c, "cpu"))
+        sg, fg = ss.put(s0.to("cuda")), ss.put(f.to("cuda"))
+        for _ in range(2):
+            sg, dg = ss.step(sg, fg)
+        gs, gd = ss.global_view((sg, dg))
+        if rank == 0:
+            ref, dref = mc.rollout(s0, f, 2)
+            err = lambda a, b: float((a.cpu() - b).abs().max())
+            res["small"][f"{mesh[0]}x{mesh[1]}"] = dict(
+                vicen=err(gs.vicen, ref.vicen), uvel=err(gs.uvel, ref.uvel),
+                fhocn=err(gd.fhocn, dref.fhocn))
+    with open(f"{tmp}/rank{rank}.json", "w") as fh:
+        json.dump(res, fh)
+    dist.destroy_process_group()
+
+
+def nccl_rank(tmp: str):
+    """The one-rank NCCL check (``python3 chip_smoke.py --nccl-rank DIR``):
+    init, global_sum/global_min against the plain reductions, and one
+    sharded gx1-parity step on a 1x1 mesh against the ``Model`` eager
+    step. Writes DIR/nccl.json."""
+    import torch
+    import torch.distributed as dist
+    from cice5_tpu_torch.driver.sharded import ShardedModel
+    from cice5_tpu_torch.driver.step import step as step_fn
+    from cice5_tpu_torch.ops import kernels
+    from cice5_tpu_torch.parallel import halo
+    from cice5_tpu_torch.parallel import distributed as pdist
+    pdist.initialize_distributed("nccl", init_method=f"file://{tmp}/store",
+                                 rank=0, world_size=1)
+    m, st0, f0 = build_parity()
+    sm = ShardedModel(m.cfg, mesh_shape=(1, 1), grid=m.grid)
+    x = torch.randn(384, 320, device="cuda", generator=torch.Generator(
+        "cuda").manual_seed(3))
+    res = dict(backend=dist.get_backend(),
+               global_sum_diff=float(halo.global_sum(x, sm.topo) - x.sum()),
+               global_min_diff=float(halo.global_min(x, sm.topo) - x.min()))
+    kernels.reset_launch_counts()
+    got, _ = sm.step(sm.put(st0), sm.put(f0))
+    res["launches"] = kernels.launch_counts()
+    ref, _ = step_fn(st0, f0, *m.step_args)
+    torch.cuda.synchronize()
+    res["max_abs_diff_vs_model"], res["first_difference"] = _state_diff(
+        ref, got)
+    with open(f"{tmp}/nccl.json", "w") as fh:
+        json.dump(res, fh)
+    dist.destroy_process_group()
+
+
+def _spawn(args, tmp, name):
+    """Start ``python3 chip_smoke.py ARGS``, its output into
+    tmp/<name>.log; returns (process, log path)."""
+    log = os.path.join(tmp, f"{name}.log")
+    with open(log, "w") as fh:
+        p = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                              *map(str, args)], stdout=fh,
+                             stderr=subprocess.STDOUT, cwd=HERE)
+    return p, log
+
+
+def _collect(procs, timeout, label):
+    """Wait for the spawned processes (all killed at ``timeout``), print
+    each one's output, and fail if one failed."""
+    deadline = time.perf_counter() + timeout
+    for p, _ in procs:
+        try:
+            p.wait(timeout=max(deadline - time.perf_counter(), 1.0))
+        except subprocess.TimeoutExpired:
+            pass
+    for p, _ in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    bad = False
+    for k, (p, log) in enumerate(procs):
+        text = open(log).read()
+        print(f"--- {label} process {k} (exit {p.returncode}):\n"
+              f"{text[-3000:]}", flush=True)
+        bad |= p.returncode != 0
+    if bad:
+        fail(f"{label}: a spawned process failed")
+
+
+def sharded_phase():
+    """The multi-GPU path (``ShardedModel`` over ``torch.distributed``),
+    in spawned processes whose output is printed here:
+
+    - gloo, 4 ranks sharing the one card on a 2x2 mesh: the gx1-parity
+      model at 384x320, float32, ndte=120, 192x160 per rank; a warm-up
+      step, then 3 steps of ``ShardedModel.run`` with a diagnostics line
+      and a state check each step, the launch counters and the halo
+      traffic set to 0 just before and read just after (B and C once per
+      rank per step, A and D never: on a mesh the EVP runs the subcycle
+      loop with one halo exchange per subcycle, as the JAX step does);
+      the bench.py guards on the gathered state; a ``dump_sharded`` /
+      ``restore_sharded`` round trip at 0.0; the gathered state against
+      the one-device eager step (kernel A) on the same inputs. Then the
+      24x16 float64 gx1-parity model (land on the seam, ndte=8, 2 steps
+      after a CPU warm-up step) on the 2x2, 1x4 and 4x1 meshes on the
+      card against the one-device CPU run: vicen and uvel within 1e-8,
+      fhocn within 1e-5, as the CPU tests hold them. Four processes
+      sharing one card through host-staged halos are a correctness run:
+      their ms/step is not a multi-GPU speed.
+    - NCCL, 1 rank: init, ``global_sum`` / ``global_min`` against the
+      plain reductions, and one sharded gx1-parity step on a 1x1 mesh
+      equal to the ``Model`` eager step at 0.0.
+
+    Prints one ``sharded:`` JSON line; returns the path's launches per
+    step and rank."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_") as tmp:
+        t0 = time.perf_counter()
+        procs = [_spawn(["--sharded-rank", r, SHARDED_RANKS, tmp], tmp,
+                        f"rank{r}") for r in range(SHARDED_RANKS)]
+        _collect(procs, 600, "sharded gloo")
+        ranks = [json.load(open(f"{tmp}/rank{r}.json"))
+                 for r in range(SHARDED_RANKS)]
+        gloo_s = time.perf_counter() - t0
+        os.makedirs(f"{tmp}/nccl")
+        procs = [_spawn(["--nccl-rank", f"{tmp}/nccl"], tmp, "nccl")]
+        _collect(procs, 300, "sharded nccl")
+        nccl = json.load(open(f"{tmp}/nccl/nccl.json"))
+    r0 = ranks[0]
+    for r in ranks:
+        if r["launches"] != SHARDED_EXPECT:
+            fail(f"sharded rank {r['rank']}: launches {r['launches']} in 3 "
+                 f"steps, expected {SHARDED_EXPECT}")
+        if r["state_bad"] or not r["therm_converged"]:
+            fail(f"sharded rank {r['rank']}: state_bad {r['state_bad']}, "
+                 f"thermo converged {r['therm_converged']}")
+        if r["restore_max_abs_diff"] != 0.0:
+            fail(f"sharded rank {r['rank']}: restored state differs by "
+                 f"{r['restore_max_abs_diff']}")
+    if not r0["check_state"] or len(r0["diag_lines"]) != 3:
+        fail(f"sharded: check_state {r0['check_state']}, diagnostics "
+             f"{r0['diag_lines']}")
+    for mesh, e in r0["small"].items():
+        if not (e["vicen"] <= 1e-8 and e["uvel"] <= 1e-8
+                and e["fhocn"] <= 1e-5):
+            fail(f"sharded small float64 {mesh}: card vs CPU {e}")
+    if nccl["max_abs_diff_vs_model"] != 0.0:
+        fail(f"sharded NCCL 1x1 step differs from the Model eager step by "
+             f"{nccl['max_abs_diff_vs_model']} ({nccl['first_difference']})")
+    if abs(nccl["global_sum_diff"]) > 1e-2 or nccl["global_min_diff"]:
+        fail(f"sharded NCCL reductions: {nccl}")
+    per_step = {k: v // 3 for k, v in r0["launches"].items()}
+    line = dict(
+        path="gx1-parity sharded 2x2", shape=[384, 320], tile=[192, 160],
+        dtype="float32", ndte=120, card=card_line(),
+        note=("4 gloo processes share one card and stage every halo "
+              "through host memory: a correctness run, not a multi-GPU "
+              "speed"),
+        ranks=SHARDED_RANKS, mesh=list(SHARDED_MESH),
+        launches_per_step_per_rank=per_step,
+        evp="subcycle loop with one halo exchange per subcycle (kernel A "
+            "is not launched on a mesh)",
+        ms_per_step_run=[r["ms_per_step_run"] for r in ranks],
+        warmup_step_s=[r["warmup_step_s"] for r in ranks],
+        exchanges_per_step=[r["traffic"]["exchanges"] / 3 for r in ranks],
+        halo_bytes_per_step=[r["traffic"]["bytes"] / 3 for r in ranks],
+        collectives_per_step=[r["traffic"]["collectives"] / 3
+                              for r in ranks],
+        ice_fraction=r0["health"],
+        restore_max_abs_diff=max(r["restore_max_abs_diff"] for r in ranks),
+        max_abs_diff_vs_one_device=r0["max_abs_diff_vs_one_device"],
+        first_difference=r0["first_difference"],
+        small_float64_card_vs_cpu=r0["small"], nccl=nccl,
+        tile_kernels=r0["tile_kernels"],
+        phase_s=time.perf_counter() - t0, gloo_s=gloo_s)
+    print(r0["diag_lines"][-1])
+    print(f"sharded: {json.dumps(line)}", flush=True)
+    return {"gx1-parity sharded 2x2 (per rank)": per_step}, \
+        r0["tile_kernels"]
+
 def main():
     try:
         import torch
@@ -2863,6 +3202,8 @@ def main():
     bgc_launches, b_bgc = tracer_phase()
     by_path.update(bgc_launches)
     by_path.update(file_forcing_phase())
+    sharded_launches, tile = sharded_phase()
+    by_path.update(sharded_launches)
     by_path.update({"gx1-parity": {k: v // 10 for k, v in launches.items()},
                     "BL99+CCSM3": {k: v // 5 for k, v in bl99.items()},
                     "BL99+CCSM3 fused EVP": {k: v // 5
@@ -2888,6 +3229,7 @@ def main():
              ms=b["ms"], plain_ms=b["plain_ms"], bound_ms=b["bound_ms"],
              bound_by=b["bound_by"], library_ms=None,
              launches_per_step_by_path=per_path("remap_flux_both"),
+             sharded_tile=tile["remap_flux_both"],
              gx1_bgc=dict(launches=by_path["gx1_bgc"]["remap_flux_both"]
                           * 4, max_abs_err=b_bgc["err"], ms=b_bgc["ms"],
                           plain_ms=b_bgc["plain_ms"],
@@ -2899,7 +3241,8 @@ def main():
              launches=launches["shortwave_dedd"], max_abs_err=c["err"],
              ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
              bound_by=c["bound_by"], library_ms=None,
-             launches_per_step_by_path=per_path("shortwave_dedd")),
+             launches_per_step_by_path=per_path("shortwave_dedd"),
+             sharded_tile=tile["shortwave_dedd"]),
         dict(name="evp_fused", route="cuda",
              source="cice5_tpu_torch/csrc/evp_resident.cu",
              replaces="cice5_tpu/ops/pallas/evp_fused.py:49",
@@ -2924,4 +3267,9 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--sharded-rank"]:
+        sharded_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    elif sys.argv[1:2] == ["--nccl-rank"]:
+        nccl_rank(sys.argv[2])
+    else:
+        main()

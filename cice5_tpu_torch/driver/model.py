@@ -55,11 +55,12 @@ def check_supported(cfg: ModelConfig) -> None:
     (kdyn=2) dynamics, on either seam, with remap, upwind or no transport
     and ridging, the fused EVP sweep off a tripole seam, the transport
     conservation and monotonicity checks and the per-category mechred
-    diagnostics; and the coupled-mode options formdrag, highfreq,
-    coupled_radiation and fbot_xfer_type="Cdn_ocn". Each option is held
-    against the JAX step on its own (tests/test_torch_options.py). It
-    refuses chunked EVP (the multi-GPU slice), compact_columns (not
-    ported) and a tripole east-west boundary. Nothing is silently
+    diagnostics, the chunked EVP (K subcycles per halo exchange, on one
+    device or a mesh of ranks); and the coupled-mode options formdrag,
+    highfreq, coupled_radiation and fbot_xfer_type="Cdn_ocn". Each option
+    is held against the JAX step on its own (tests/test_torch_options.py,
+    tests/test_torch_sharded.py). It refuses compact_columns (not ported)
+    and a tripole east-west boundary. Nothing is silently
     approximated."""
     g, th, dy, tc = cfg.grid, cfg.thermo, cfg.dyn, cfg.tracers
     later = "is not ported yet: it comes with"
@@ -74,9 +75,6 @@ def check_supported(cfg: ModelConfig) -> None:
          "compact_columns='on' is not ported: the JAX package measured "
          "column packing a loss (cice5_tpu/driver/model.py:130-141), so no "
          "slice of the port brings it"),
-        (dy.evp_algorithm == "chunked",
-         f"evp_algorithm='chunked' {later} the multi-GPU slice of the "
-         "port"),
     ]
     for bad, what in checks:
         if bad:
@@ -315,6 +313,14 @@ class Model:
         history accumulation/write + restart dumps (``run_loop``)."""
         return run_loop(self, state, nsteps, **kw)
 
+    # run_loop's I/O boundary: one device holds the global arrays and
+    # writes the files (a ShardedModel gathers its tiles, and only its
+    # primary rank writes)
+    writes_files = True
+
+    def global_view(self, tree):
+        return tree
+
     def rollout(self, state: State, forcing, nsteps: int):
         """Advance nsteps. ``forcing`` is one Forcing held fixed, or a
         sequence of nsteps Forcings. Returns (state, diag of the last
@@ -352,14 +358,18 @@ def run_loop(m, state, nsteps: int, start_step: int = 0,
              check_every: int = 0, dump_last: bool = False):
     """Driver time loop (CICE_RunMod.F90:37-90 CICE_Run): step + boundary
     restoring + state health checks + runtime diagnostics + history
-    accumulation/write + restart dumps. ``m`` needs
-    .cfg/.grid/.tr/.topo/.calendar/.step/.forcing_at.
+    accumulation/write + restart dumps, for a ``Model`` or a
+    ``ShardedModel``. ``m`` needs .cfg/.grid/.tr/.topo/.calendar/.step/
+    .forcing_at and the I/O boundary .global_view/.writes_files.
 
     Each step is ``m.step`` (on CUDA a replay of the step's graphs); the
     loop reads the device only between steps: the step's state_bad count
-    under ``check_every``, the diagnostics every ``diag_every`` steps, and
-    the history and restart files when they are written. History
-    accumulates on the device. Returns the final state."""
+    under ``check_every`` (a global count on a mesh), the diagnostics
+    every ``diag_every`` steps, and the history and restart files when
+    they are written. On a mesh of ranks each of those gathers the tiles
+    into global tensors on every rank (``m.global_view``, collective), and
+    only the primary rank accumulates history, writes files and logs.
+    History accumulates on the device. Returns the final state."""
     cfg = m.cfg
     dtype = cfg.xp_dtype
     if state.aicen.dtype != dtype:
@@ -372,6 +382,9 @@ def run_loop(m, state, nsteps: int, start_step: int = 0,
         rest = state
         mask = edge_mask(state.aicen.shape[-2:], m.topo, dtype,
                          state.aicen.device)
+    writer = m.writes_files
+    if not writer:
+        log = _silent
     for k in range(nsteps):
         istep = start_step + k
         forcing = m.forcing_at(istep)
@@ -385,24 +398,27 @@ def run_loop(m, state, nsteps: int, start_step: int = 0,
             # the in-step flag is computed inside the step every step
             # (l_stop analog) — reading it costs one scalar sync
             if int(diag.state_bad) > 0 or (istep % check_every == 0):
-                if not diag_mod.check_state(state, m.grid, m.tr, cfg.nilyr,
-                                            cfg.nslyr, istep=istep,
-                                            log=log):
+                if not diag_mod.check_state(m.global_view(state), m.grid,
+                                            m.tr, cfg.nilyr, cfg.nslyr,
+                                            istep=istep, log=log):
                     raise RuntimeError(
                         f"check_state failed at istep {istep}: "
                         f"{int(diag.state_bad)} bad state values "
                         "(see log for the offending cell dump)")
 
         if diag_every and (istep % diag_every == 0):
-            gd = diag_mod.compute_diags(state, m.grid, m.tr,
+            gstate = m.global_view(state)
+            gd = diag_mod.compute_diags(gstate, m.grid, m.tr,
                                         cfg.nilyr, cfg.nslyr)
             log(diag_mod.format_diags(istep, gd))
             if diag_fn is not None:
-                diag_fn(istep, state, diag)
+                diag_fn(istep, gstate, m.global_view(diag))
 
         if history is not None:
+            gdiag, gstate, gforcing = m.global_view((diag, state, forcing))
+        if history is not None and writer:
             history.accum(hist_mod.diag_to_values(
-                diag, state, m.grid, tr=m.tr, forcing=forcing,
+                gdiag, gstate, m.grid, tr=m.tr, forcing=gforcing,
                 nilyr=cfg.nilyr, nslyr=cfg.nslyr), info.time)
             if hasattr(history, "write_ready"):   # HistoryStreams
                 for fn in history.write_ready(m.grid, info, history_dir):
@@ -425,6 +441,13 @@ def run_loop(m, state, nsteps: int, start_step: int = 0,
                 restart_dir,
                 f"iced.{info.year:04d}-{info.month:02d}-"
                 f"{info.mday:02d}-{info.sec:05d}.npz")
-            restart_mod.dump(state, fn, istep=istep + 1, time=info.time)
-            log(f"wrote restart {fn}")
+            gstate = m.global_view(state)
+            if writer:
+                restart_mod.dump(gstate, fn, istep=istep + 1,
+                                 time=info.time)
+                log(f"wrote restart {fn}")
     return state
+
+
+def _silent(*args, **kw):
+    """The log of a rank that is not the primary."""

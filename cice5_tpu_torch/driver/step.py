@@ -36,7 +36,7 @@ from cice5_tpu_torch.models import atmo, ocean
 from cice5_tpu_torch.models.formdrag import neutral_drag_coeffs
 from cice5_tpu_torch.models.dynamics import shared as dyn
 from cice5_tpu_torch.models.dynamics.eap import eap
-from cice5_tpu_torch.models.dynamics.evp import evp
+from cice5_tpu_torch.models.dynamics.evp import evp, evp_chunked
 from cice5_tpu_torch.models.dynamics.ridge import ridge_ice
 from cice5_tpu_torch.models.dynamics.strength import (strength_hibler,
                                                       strength_rothrock)
@@ -776,12 +776,20 @@ def step(state: State, forcing: Forcing, grid: Grid, cfg: ModelConfig,
                 a11n, a12n = er.a11n, er.a12n
                 e11_d, e12_d, e22_d = er.e11, er.e12, er.e22
                 ys11_d, ys12_d, ys22_d = er.ys11, er.ys12, er.ys22
-            elif (cfg.dyn.evp_algorithm == "pallas"
+            elif (cfg.dyn.evp_algorithm == "pallas" and not topo.sharded
                     and topo.ns not in ("tripole", "tripoleT")):
                 # the fused subcycle sweep where the JAX step takes it
-                # (cice5_tpu/driver/step.py:1010-1014): not on a seam
+                # (cice5_tpu/driver/step.py:1010-1014): one device, not on
+                # a seam
                 ev = evp_fused(dt_dyn, p, grid, topo, **dyn_kw)
+            elif (cfg.dyn.evp_algorithm == "chunked"
+                    and topo.ns != "tripoleT"):
+                # K subcycles per margin exchange (:1021-1027)
+                ev = evp_chunked(dt_dyn, p, grid, topo,
+                                 K=cfg.dyn.evp_chunk, **dyn_kw)
             else:
+                # kernel A on one device, the loop with one exchange per
+                # subcycle on a mesh of ranks (evp.evp)
                 ev = evp(dt_dyn, p, grid, topo, **dyn_kw)
             uvel, vvel = ev.uvel, ev.vvel
             prs_sig_d = ev.prs_sig

@@ -8,14 +8,18 @@ variants. Files are read on the host into NumPy arrays (the caller puts
 them on its device); writes take tensors or arrays and copy them to the
 host. Binary records are big-endian Fortran-ordered direct-access records
 (the reference's ``ice_read`` unformatted layout); netCDF goes through
-scipy (classic format). The multi-GPU scatter and gather come with the
-multi-GPU slice of the port.
+scipy (classic format). On a mesh of ranks ``scatter_xyt`` puts a rank's
+tile of a field read on the host, and ``gather_xyt`` brings the tiles
+back into the global array.
 """
 from __future__ import annotations
 
 import numpy as np
 
+import torch
+
 from cice5_tpu_torch.io.readers import read_records
+from cice5_tpu_torch.parallel import distributed as pdist
 from cice5_tpu_torch.utils import to_host
 
 _DTYPES = {"rda8": ">f8", "rda4": ">f4", "ida4": ">i4"}
@@ -96,3 +100,20 @@ def write_xyt_nc(path: str, fields: dict, *, dims=("nj", "ni"),
             for ak, av in (attrs or {}).get(name, {}).items():
                 setattr(v, ak, av)
     return path
+
+
+def scatter_xyt(arr, mesh=None, device=None) -> torch.Tensor:
+    """Host (global) array -> this rank's tile on ``device`` (the whole
+    array with no mesh): the master-task scatter_global loop
+    (ice_read_write.F90:188-236), with no communication, since every rank
+    reads the file."""
+    t = torch.as_tensor(np.asarray(arr))
+    if mesh is None:
+        return t.to(device)
+    return pdist.put(t, mesh, device)
+
+
+def gather_xyt(x, mesh=None) -> np.ndarray:
+    """A rank's tile (or a whole-grid tensor with no mesh) -> the global
+    host array on every rank: the gather_global analog (:690-758)."""
+    return pdist.to_host(x, mesh)

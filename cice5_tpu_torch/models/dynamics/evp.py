@@ -26,7 +26,8 @@ from cice5_tpu_torch import constants as ct
 from cice5_tpu_torch.constants import FieldLoc, FieldType
 from cice5_tpu_torch.models.dynamics import shared as dyn
 from cice5_tpu_torch.ops import kernels
-from cice5_tpu_torch.parallel import Topology, extend
+from cice5_tpu_torch.parallel import (Topology, extend, extend_wide,
+                                      extend_wide_groups)
 
 P027, P055, P111, P166, P222, P25, P333, P5 = (
     0.027777777777777776, 0.05555555555555555, 0.1111111111111111,
@@ -296,16 +297,24 @@ def _extend_stress(stress0, topo):
     component (ice_HaloUpdate_stress, mpi/ice_boundary.F90:5564). On the
     T-fold the JAX package seeds the plain CENTER fold, without the
     partner permutation (cice5_tpu/models/dynamics/evp.py:299-316), and so
-    does the port."""
+    does the port. On a mesh only the top row of ranks takes the partner
+    row (``cice5_tpu/models/dynamics/evp.py:312-315``); every rank makes
+    both exchanges."""
     E1 = extend(stress0, topo)
     if topo.ns != "tripole":
         return E1[:, 1:, 1:]
-    # the fold swaps the corner partners NE<->SW, NW<->SE of each of
-    # (stressp, stressm, stress12) (ice_dyn_evp.F90:416-481
-    # ice_HaloUpdate_stress pairs): components (2, 3, 0, 1) of each four
-    swapped = stress0.unflatten(0, (3, 2, 2)).flip(1).flatten(0, 2)
-    E2 = extend(swapped, topo)
+    E2 = extend(_fold_partner_stress(stress0), topo)
+    if not topo.is_top:
+        return E1[:, 1:, 1:]
     return torch.cat([E1[:, :-1, :], E2[:, -1:, :]], dim=1)[:, 1:, 1:]
+
+
+def _fold_partner_stress(stress0):
+    """The 12 stress components with the corner partners the tripole fold
+    swaps, NE<->SW and NW<->SE of each of (stressp, stressm, stress12)
+    (ice_dyn_evp.F90:416-481 ice_HaloUpdate_stress pairs): components
+    (2, 3, 0, 1) of each four."""
+    return stress0.unflatten(0, (3, 2, 2)).flip(1).flatten(0, 2)
 
 
 def subcycle_sweep(p: dyn.EVPParams, ndte: int, topo: Topology, *, uvel,
@@ -396,21 +405,14 @@ def evp_sweep(p: dyn.EVPParams, ndte: int, topo: Topology, *, uvel, vvel,
                           diagR[4], strint[0], strint[1])
 
 
-def evp_prep(dt, p: dyn.EVPParams, grid, topo: Topology, *, aice, vice,
-             vsno, strength, strairxT, strairyT, uocn, vocn, uvel, vvel,
-             stressp, stressm, stress12, iceumask, ss_tltx=None,
-             ss_tlty=None, Cw=ct.dragio):
-    """The EVP driver's preparation (ice_dyn_evp.F90:68-330): masks, T -> U
-    interpolation, forcing terms, region metrics and the stress ghost
-    ring. Shared by ``evp`` and the fused driver
-    (``cice5_tpu_torch/ops/evp_fused.py``).
-
-    stressp/stressm/stress12: (4, ny, nx) from State. strength: T-grid
-    ice strength. uocn/vocn on the U grid. Returns (the keyword arguments
-    of the subcycle sweep, {strairx, strairy, strtltx, strtlty})."""
+def _prep_points(dt, p: dyn.EVPParams, grid, topo: Topology, *, aice, vice,
+                 vsno, strairxT, strairyT, uocn, vocn, uvel, vvel, iceumask,
+                 ss_tltx=None, ss_tlty=None):
+    """The point fields of the EVP preparation (ice_dyn_evp.F90:68-330):
+    masses and masks, T -> U interpolation and the forcing terms. Returns
+    (fields, {strairx, strairy, strtltx, strtlty})."""
     # prep1: masses + masks
     tmass, icetmask = dyn.icet_mask(aice, vice, vsno, grid.tmask, topo)
-    maskR = _region(icetmask.to(aice.dtype), topo) > 0.5
 
     # T -> U interpolation
     aiu = dyn.to_ugrid(aice, grid, topo)
@@ -439,20 +441,42 @@ def evp_prep(dt, p: dyn.EVPParams, grid, topo: Topology, *, aice, vice,
         strtlty = -ct.gravit * umass * ss_tlty
     forcex = torch.where(icem_u, strairx + strtltx, 0.0)
     forcey = torch.where(icem_u, strairy + strtlty, 0.0)
+    pts = dict(icetmask=icetmask, uvel=uvel, vvel=vvel, icem_u=icem_u,
+               aiu=aiu, uocn=uocn, vocn=vocn, waterx=waterx, watery=watery,
+               forcex=forcex, forcey=forcey, umassdti=umassdti, fm=fm)
+    return pts, dict(strairx=strairx, strairy=strairy, strtltx=strtltx,
+                     strtlty=strtlty)
 
+
+def evp_prep(dt, p: dyn.EVPParams, grid, topo: Topology, *, aice, vice,
+             vsno, strength, strairxT, strairyT, uocn, vocn, uvel, vvel,
+             stressp, stressm, stress12, iceumask, ss_tltx=None,
+             ss_tlty=None, Cw=ct.dragio):
+    """The EVP driver's preparation (ice_dyn_evp.F90:68-330): masks, T -> U
+    interpolation, forcing terms, region metrics and the stress ghost
+    ring. Shared by ``evp`` and the fused driver
+    (``cice5_tpu_torch/ops/evp_fused.py``).
+
+    stressp/stressm/stress12: (4, ny, nx) from State. strength: T-grid
+    ice strength. uocn/vocn on the U grid. Returns (the keyword arguments
+    of the subcycle sweep, {strairx, strairy, strtltx, strtlty})."""
+    pts, forcing = _prep_points(
+        dt, p, grid, topo, aice=aice, vice=vice, vsno=vsno,
+        strairxT=strairxT, strairyT=strairyT, uocn=uocn, vocn=vocn,
+        uvel=uvel, vvel=vvel, iceumask=iceumask, ss_tltx=ss_tltx,
+        ss_tlty=ss_tlty)
+    icetmask = pts.pop("icetmask")
+    maskR = _region(icetmask.to(aice.dtype), topo) > 0.5
     gR = _region_metrics(grid, topo, GR_NAMES)
     strengthR = _region(strength, topo)
 
     stress0 = torch.cat([stressp, stressm, stress12], dim=0)
     stressR = _extend_stress(stress0, topo)
     stressR = torch.where(maskR[None], stressR, 0.0)
-    sweep = dict(uvel=uvel, vvel=vvel, stressR=stressR, maskR=maskR,
-                 strengthR=strengthR, gR=gR, icem_u=icem_u, aiu=aiu,
-                 uocn=uocn, vocn=vocn, waterx=waterx, watery=watery,
-                 forcex=forcex, forcey=forcey, umassdti=umassdti, fm=fm,
-                 uarear=grid.uarear, uvel_init=uvel, vvel_init=vvel, Cw=Cw)
-    return sweep, dict(strairx=strairx, strairy=strairy, strtltx=strtltx,
-                       strtlty=strtlty)
+    sweep = dict(stressR=stressR, maskR=maskR, strengthR=strengthR, gR=gR,
+                 uarear=grid.uarear, uvel_init=pts["uvel"],
+                 vvel_init=pts["vvel"], Cw=Cw, **pts)
+    return sweep, forcing
 
 
 def evp_result(p: dyn.EVPParams, grid, topo: Topology, sweep: dict,
@@ -491,6 +515,133 @@ def evp(dt, p: dyn.EVPParams, grid, topo: Topology, **fields) -> EVPResult:
     strairxT/strairyT, uocn/vocn, uvel/vvel, stressp/stressm/stress12,
     iceumask; optional ss_tltx/ss_tlty and Cw)."""
     sweep, forcing = evp_prep(dt, p, grid, topo, **fields)
-    # subcycling loop (ice_dyn_evp.F90:336-410)
-    out = evp_sweep(p, p.ndte, topo, **sweep)
+    # subcycling loop (ice_dyn_evp.F90:336-410): on a mesh of ranks the
+    # loop with one halo exchange per subcycle, as the JAX step runs it
+    # there (cice5_tpu/driver/step.py:1010-1027); on one device kernel A
+    sweep_fn = subcycle_sweep if topo.sharded else evp_sweep
+    out = sweep_fn(p, p.ndte, topo, **sweep)
     return evp_result(p, grid, topo, sweep, forcing, out)
+
+
+def evp_chunked(dt, p: dyn.EVPParams, grid, topo: Topology, *, K: int = 10,
+                strength, stressp, stressm, stress12, Cw=ct.dragio,
+                **fields) -> EVPResult:
+    """EVP with K subcycles per halo exchange (PyTorch port of
+    ``cice5_tpu/models/dynamics/evp.py:445`` evp_chunked).
+
+    A K-wide margin of (u, v, 12 stress components) is exchanged once per
+    K subcycles (``extend_wide`` / ``extend_wide_groups``, one exchange
+    per mesh axis), the margin is recomputed redundantly and its validity
+    decays one ring per subcycle, so the interior equals the loop with one
+    exchange per subcycle (ice_dyn_evp.F90:336-410) in ndte/K exchanges.
+    On a U-fold seam the K ghost rows above the fold hold the fold image:
+    velocities as NECORNER vectors, stress through the corner-partner
+    permutation, one-sided metric coefficients through their partners.
+    Plain PyTorch on every device (kernel A runs all ndte subcycles of one
+    device in one launch). ``fields``: the keyword arguments of
+    ``evp_prep`` but the stress and Cw. A Cw plane (form drag) is carried
+    in the margin as a U-point field; the JAX function takes a scalar.
+    Refuses a T-fold seam, ndte not a multiple of K, and tiles narrower
+    than K."""
+    if topo.ns == "tripoleT":
+        raise NotImplementedError("evp_chunked: T-fold grids; use evp()")
+    if p.ndte % K != 0:
+        raise ValueError(f"ndte={p.ndte} not divisible by K={K}")
+    ny, nx = fields["aice"].shape
+    if topo.sharded and (K > ny or K > nx):
+        raise ValueError(f"evp_chunked: K={K} exceeds the ({ny}, {nx}) "
+                         "tile (one hop per exchange)")
+    W, nchunks, dtype = K, p.ndte // K, strength.dtype
+    pts, forcing = _prep_points(dt, p, grid, topo, **fields)
+    icem_u = pts["icem_u"]
+
+    # static fields extended once per call (one wide exchange), grouped by
+    # tripole fold treatment: T-centred scalars + partner metrics /
+    # U-point scalars / U-point vectors
+    g = grid
+    centerA = [g.dxt, g.dyt, g.tarear, g.tinyarea, strength,
+               pts["icetmask"].to(dtype)]
+    centerM = [g.dxhy, g.dyhx, g.cxp, g.cyp, g.cxm, g.cym]
+    centerM_partner = [-g.dxhy, -g.dyhx, -g.cxm, -g.cym, -g.cxp, -g.cyp]
+    cw_plane = torch.is_tensor(Cw) and Cw.dim() > 0
+    uscal = [pts["umassdti"], pts["fm"], g.uarear, icem_u.to(dtype),
+             pts["aiu"]] + ([Cw.to(dtype)] if cw_plane else [])
+    uvec = [pts[k] for k in ("uocn", "vocn", "waterx", "watery", "forcex",
+                             "forcey", "uvel", "vvel")]
+    nC, nM, nS = len(centerA), len(centerM), len(uscal)
+    groups = [
+        (slice(0, nC + nM), FieldLoc.CENTER, FieldType.SCALAR,
+         torch.stack(centerA + centerM_partner), 1.0),
+        (slice(nC + nM, nC + nM + nS), FieldLoc.NECORNER,
+         FieldType.SCALAR, None, 1.0),
+        (slice(nC + nM + nS, nC + nM + nS + len(uvec)),
+         FieldLoc.NECORNER, FieldType.VECTOR, None, 1.0),
+    ]
+    SW = extend_wide_groups(torch.stack(centerA + centerM + uscal + uvec),
+                            topo, W, groups)
+    topoI = Topology(ew="open", ns="open")   # inner: no exchange, zero rims
+    met_names = ("dxt", "dyt", "tarear", "tinyarea", None, None,
+                 "dxhy", "dyhx", "cxp", "cyp", "cxm", "cym")
+    gRw = {k: extend(SW[i], topoI)[1:, 1:]
+           for i, k in enumerate(met_names) if k is not None}
+    strengthRw = extend(SW[4], topoI)[1:, 1:]
+    maskRw = extend(SW[5], topoI)[1:, 1:] > 0.5
+    o = nC + nM
+    umassdtiW, fmW, uarearW = SW[o], SW[o + 1], SW[o + 2]
+    icem_uW = SW[o + 3] > 0.5
+    aiuW = SW[o + 4]
+    CwW = SW[o + 5] if cw_plane else Cw
+    o += nS
+    uocnW, vocnW = SW[o], SW[o + 1]
+    waterxW, wateryW = SW[o + 2], SW[o + 3]
+    forcexW, forceyW = SW[o + 4], SW[o + 5]
+    uvel_initW, vvel_initW = SW[o + 6], SW[o + 7]
+
+    def crop(a):
+        return a[..., W:W + ny, W:W + nx]
+
+    tri = topo.ns == "tripole"
+    u, v = pts["uvel"], pts["vvel"]
+    stress = torch.cat([stressp, stressm, stress12], dim=0)
+    for _ in range(nchunks):
+        S = torch.cat([u[None], v[None], stress])
+        if tri:
+            SE = extend_wide_groups(S, topo, W, [
+                (slice(0, 2), FieldLoc.NECORNER, FieldType.VECTOR, None,
+                 1.0),
+                (slice(2, 14), FieldLoc.CENTER, FieldType.SCALAR,
+                 _fold_partner_stress(stress), 1.0)])
+        else:
+            SE = extend_wide(S, topo, W)     # one exchange per chunk
+        uW, vW = SE[0], SE[1]
+        stressRW = torch.where(maskRw[None],
+                               extend(SE[2:], topoI)[:, 1:, 1:], 0.0)
+        for _ in range(K):
+            uvE = extend(torch.stack([uW, vW]), topoI)
+            r = stress_kernel(p, uvE[0], uvE[1], stressRW, maskR=maskRw,
+                              strengthR=strengthRw, gR=gRw)
+            st = dyn.stepu(p, icemask=icem_uW, aiu=aiuW, strE=r.str8,
+                           uocn=uocnW, vocn=vocnW, waterx=waterxW,
+                           watery=wateryW, forcex=forcexW, forcey=forceyW,
+                           umassdti=umassdtiW, fm=fmW, uarear=uarearW,
+                           uvel_init=uvel_initW, vvel_init=vvel_initW,
+                           uvel=uW, vvel=vW, Cw=CwW)
+            uW, vW, stressRW = st.uvel, st.vvel, r.stress
+        u, v, stress = crop(uW), crop(vW), crop(stressRW)
+        diags = [crop(d) for d in (r.divu, r.shear, r.rdg_conv,
+                                   r.rdg_shear, r.prs_sig, st.strintx,
+                                   st.strinty)]
+    divu, shear, rconv, rshear, prs, strintx, strinty = diags
+
+    strocnx, strocny, sTx_u, sTy_u = dyn.evp_finish(
+        p, icemask=icem_u, uvel=u, vvel=v, uocn=pts["uocn"],
+        vocn=pts["vocn"], aiu=pts["aiu"], fm=pts["fm"], Cw=Cw)
+    return EVPResult(
+        uvel=u, vvel=v, stressp=stress[0:4], stressm=stress[4:8],
+        stress12=stress[8:12], iceumask=icem_u.to(dtype),
+        strocnx=strocnx, strocny=strocny,
+        strocnxT=dyn.to_tgrid(sTx_u, grid, topo),
+        strocnyT=dyn.to_tgrid(sTy_u, grid, topo),
+        strintx=strintx, strinty=strinty, divu=divu, shear=shear,
+        rdg_conv=rconv, rdg_shear=rshear, prs_sig=prs, fm=pts["fm"],
+        **forcing)

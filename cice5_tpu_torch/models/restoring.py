@@ -6,8 +6,8 @@ restart) state of the cells surrounding the grid and nudges the boundary
 cells toward it every step with timescale ``trestore`` days
 (ice_HaloRestore, :527-705). Fields here carry no ghost cells, so the
 equivalent is nudging the outermost physical row/column at each non-cyclic
-global edge. Single-device topologies only: the sharded form comes with
-the multi-GPU slice of the port.
+global edge. On a mesh of ranks each tile takes its part of the global
+edge mask.
 """
 from __future__ import annotations
 
@@ -18,7 +18,13 @@ from cice5_tpu_torch.parallel import Topology
 
 def edge_mask(shape, topo: Topology, dtype=torch.float32, device=None):
     """(ny, nx) mask of cells on non-cyclic global boundaries
-    (1.0 on the outermost row/column)."""
+    (1.0 on the outermost row/column); on a mesh, the tile's part of the
+    global mask."""
+    if topo.mesh is not None:
+        rows, cols = topo.mesh.slices()
+        full = edge_mask(topo.mesh.global_shape,
+                         Topology(ew=topo.ew, ns=topo.ns), dtype, device)
+        return full[rows, cols].contiguous()
     m = torch.zeros(shape, dtype=dtype, device=device)
     if topo.ew != "cyclic":
         m[:, 0] = 1.0

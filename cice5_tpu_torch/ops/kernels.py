@@ -25,7 +25,9 @@ catching an error.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import functools
 import os
 import re
@@ -95,9 +97,9 @@ class CudaKernel:
     def library(self) -> Path:
         return build_dir() / f"lib{self.source.stem}.so"
 
-    def build_command(self) -> list[str]:
+    def build_command(self, out: Path | None = None) -> list[str]:
         return [_nvcc(), *NVCC_FLAGS, "--resource-usage", "-o",
-                str(self.library), str(self.source)]
+                str(out or self.library), str(self.source)]
 
     def headers(self) -> list[Path]:
         """The ``csrc`` headers the source includes."""
@@ -115,8 +117,9 @@ class CudaKernel:
 
     def lib(self):
         if self._lib is None:
-            if self.needs_build():
-                build_all([self])
+            with _build_lock():
+                if self.needs_build():
+                    build_all([self])
             lib = ctypes.CDLL(str(self.library))
             for dt in ("f32", "f64"):
                 fn = getattr(lib, f"{self.name}_{dt}")
@@ -149,14 +152,34 @@ KERNELS = {k.name: k for k in (
     CudaKernel("remap_flux_edge"))}
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """An exclusive lock on the build directory, held while a process
+    checks and builds its libraries: several ranks of a mesh on one
+    machine load the kernels at once. The lock is a ``flock``, which the
+    system drops when its process ends."""
+    build_dir().mkdir(parents=True, exist_ok=True)
+    with open(build_dir() / ".lock", "w") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
+
+
 def build_all(kernels=None) -> float:
     """Compile every kernel (or the given ones), one nvcc process per
-    source, all started together. Returns the wall seconds taken."""
+    source, all started together; each library is written under a name of
+    this process and renamed into place, so a process that loads it never
+    sees a part-written file. Returns the wall seconds taken."""
     ks = list(KERNELS.values()) if kernels is None else list(kernels)
     ks = list({k.source: k for k in ks}.values())     # one build per source
     build_dir().mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    procs = [(k, subprocess.Popen(k.build_command(), stdout=subprocess.PIPE,
+    tmp = {k: k.library.with_name(f"{k.library.name}.{os.getpid()}.tmp")
+           for k in ks}
+    procs = [(k, subprocess.Popen(k.build_command(tmp[k]),
+                                  stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True))
              for k in ks]
     failed = []
@@ -164,6 +187,9 @@ def build_all(kernels=None) -> float:
         out, _ = p.communicate()
         if p.returncode != 0:
             failed.append(f"{k.source.name}:\n{out}")
+            tmp[k].unlink(missing_ok=True)
+        else:
+            os.replace(tmp[k], k.library)
         for other in KERNELS.values():
             if other.source == k.source:
                 other.build_log = out

@@ -1,6 +1,6 @@
 from cice5_tpu_torch.parallel.halo import (Topology, extend, extend_wide,
-                                           global_min, global_sum, interior,
-                                           shifted)
+                                           extend_wide_groups, global_min,
+                                           global_sum, interior, shifted)
 
-__all__ = ["Topology", "extend", "extend_wide", "interior", "shifted",
-           "global_sum", "global_min"]
+__all__ = ["Topology", "extend", "extend_wide", "extend_wide_groups",
+           "interior", "shifted", "global_sum", "global_min"]

@@ -1,14 +1,26 @@
-"""Ghost rings on one device (PyTorch port of ``cice5_tpu/parallel/halo.py``).
+"""Ghost rings on one device or a mesh of ranks (PyTorch port of
+``cice5_tpu/parallel/halo.py``).
 
 A field never stores ghost cells; ``extend(field, topo)`` returns the field
 with a ghost ring filled by the global boundary conditions
-(mpi/ice_boundary.F90 ice_HaloUpdate, serial twin): cyclic boundaries wrap,
-open and closed boundaries hold zeros, and a tripole north seam
+(mpi/ice_boundary.F90 ice_HaloUpdate): cyclic boundaries wrap, open and
+closed boundaries hold zeros (or, with ``open_fill="extrapolate"``, the
+linear extrapolation of ice_HaloExtrapolate), and a tripole north seam
 (``ns="tripole"`` U-fold, ``"tripoleT"`` T-fold) fills its ghost rows with
 the fold image of the top rows (mpi/ice_boundary.F90:1494-1596), with the
 staggering (``loc``) and parity (``kind``) of the field. The x-extension
 happens first and whole extended rows are then added in y, so corners
-follow the same rule as the JAX package. Multi-GPU halos come later.
+follow the same rule as the JAX package.
+
+On a mesh of ranks (``Topology.mesh``, ``parallel/mesh.py``) each rank
+holds one tile, and the ring comes from its neighbours: one exchange per
+mesh axis (``distributed.shift_pair``, the ppermute pairs of the JAX
+package), zeros past a non-cyclic edge. The top row of ranks also
+exchanges the top rows of its tiles within the row
+(``distributed.row_gather``) and folds the global rows as one device
+does, so a seam's ghosts and symmetrized top row equal the one-device
+values bit for bit; the T-fold's self-image columns are global columns.
+Every rank of the mesh must make the same calls in the same order.
 
 All functions accept arbitrary leading batch axes: (..., ny, nx) ->
 (..., ny+2W, nx+2W).
@@ -20,6 +32,8 @@ from dataclasses import dataclass
 import torch
 
 from cice5_tpu_torch.constants import FieldLoc, FieldType
+from cice5_tpu_torch.parallel import distributed as pdist
+from cice5_tpu_torch.parallel.distributed import AXIS_X, AXIS_Y
 
 _TRIPOLE = ("tripole", "tripoleT")
 
@@ -27,9 +41,20 @@ _TRIPOLE = ("tripole", "tripoleT")
 @dataclass(frozen=True)
 class Topology:
     """How (ny, nx) arrays are laid out: the global boundary types
-    ("cyclic" | "open" | "closed" | "tripole" | "tripoleT")."""
+    ("cyclic" | "open" | "closed" | "tripole" | "tripoleT"), and the mesh
+    of ranks whose tiles they are (None: one device holds the grid)."""
     ew: str = "cyclic"
     ns: str = "open"
+    mesh: object = None
+
+    @property
+    def sharded(self) -> bool:
+        return self.mesh is not None
+
+    @property
+    def is_top(self) -> bool:
+        """Does this device's array hold the global top row?"""
+        return self.mesh is None or self.mesh.is_top
 
 
 # fold (ioffset, joffset) per staggering (mpi/ice_boundary.F90:1494-1596):
@@ -110,24 +135,75 @@ def _tripole_ghost_wide(f, topo: Topology, loc: FieldLoc, kind: FieldType,
     return sgn * _fold_map(rows, ioff), top_sym
 
 
-def _assemble(f, topo: Topology, W: int, tghost):
-    """Ring of width W around f: x first (cyclic or zero), then whole
-    extended rows in y; a tripole seam puts the cyclically x-extended fold
-    rows ``tghost`` at the north edge."""
-    if topo.ew == "cyclic":
+def _fold_rows(f, topo: Topology, W: int, loc: FieldLoc, kind: FieldType,
+               fold_partner=None, fold_sign: float = 1.0):
+    """The tripole fold of a device's array: (the W north ghost rows,
+    x-extended by W columns as the cyclic seam is, (..., W, nx+2W); the
+    symmetrized top row or None). On a mesh only the top row of ranks
+    calls it: it gathers the top rows of the row's tiles (and of the
+    partner) and folds the global rows."""
+    mesh = topo.mesh
+    if mesh is not None:
+        k = min(f.shape[-2], W + 1)        # rows ny-W-joff .. ny-1
+        tops = [f[..., -k:, :]]
+        if fold_partner is not None:
+            tops.append(fold_partner[..., -k:, :])
+        rows = pdist.row_gather(torch.stack(tops), mesh)
+        f = rows[0]
+        fold_partner = rows[1] if fold_partner is not None else None
+    ghost, top_sym = _tripole_ghost_wide(f, topo, loc, kind, W,
+                                         fold_partner=fold_partner,
+                                         fold_sign=fold_sign)
+    nx = ghost.shape[-1]
+    i0, nt = 0, nx
+    if mesh is not None:
+        cols = mesh.slices()[1]
+        i0, nt = cols.start, cols.stop - cols.start
+        if top_sym is not None:
+            top_sym = top_sym[..., i0:i0 + nt]
+    ext = torch.cat([ghost, ghost, ghost], dim=-1)[
+        ..., nx + i0 - W:nx + i0 + nt + W]
+    return ext, top_sym
+
+
+def _assemble(f, topo: Topology, W: int, tg_ext, open_fill: str = "zero"):
+    """Ring of width W around f: x first, then whole extended rows in y
+    (cyclic, zeros, or at W=1 the linear extrapolation of
+    ``open_fill="extrapolate"`` at non-cyclic global edges); a tripole
+    seam puts the x-extended fold rows ``tg_ext`` at the north edge of the
+    top row of ranks."""
+    mesh = topo.mesh
+    cyc_x, cyc_y = topo.ew == "cyclic", topo.ns == "cyclic"
+    extrap = open_fill == "extrapolate"
+    if mesh is not None:
+        wv, ev = pdist.shift_pair(f[..., :, :W], f[..., :, -W:], mesh,
+                                  AXIS_X, cyc_x)
+    elif cyc_x:
         wv, ev = f[..., :, -W:], f[..., :, :W]
     else:
         wv = torch.zeros_like(f[..., :, -W:])
         ev = torch.zeros_like(f[..., :, :W])
+    if extrap and not cyc_x:
+        if mesh is None or mesh.ix == 0:
+            wv = 2.0 * f[..., :, :1] - f[..., :, 1:2]
+        if mesh is None or mesh.ix == mesh.px - 1:
+            ev = 2.0 * f[..., :, -1:] - f[..., :, -2:-1]
     fx = torch.cat([wv, f, ev], dim=-1)
-    if topo.ns == "cyclic":
+    if mesh is not None:
+        sv, nv = pdist.shift_pair(fx[..., :W, :], fx[..., -W:, :], mesh,
+                                  AXIS_Y, cyc_y)
+    elif cyc_y:
         sv, nv = fx[..., -W:, :], fx[..., :W, :]
     else:
         sv = torch.zeros_like(fx[..., -W:, :])
         nv = torch.zeros_like(fx[..., :W, :])
-    if tghost is not None:
-        nv = torch.cat([tghost[..., :, -W:], tghost, tghost[..., :, :W]],
-                       dim=-1)
+    if extrap and not cyc_y and topo.ns not in _TRIPOLE:
+        if mesh is None or mesh.iy == 0:
+            sv = 2.0 * fx[..., :1, :] - fx[..., 1:2, :]
+        if topo.is_top:
+            nv = 2.0 * fx[..., -1:, :] - fx[..., -2:-1, :]
+    if tg_ext is not None:
+        nv = tg_ext
     return torch.cat([sv, fx, nv], dim=-2)
 
 
@@ -140,9 +216,15 @@ def _with_top(f, top_sym):
 def extend(f: torch.Tensor, topo: Topology,
            loc: FieldLoc = FieldLoc.CENTER,
            kind: FieldType = FieldType.SCALAR,
+           open_fill: str = "zero",
            fold_partner: torch.Tensor | None = None,
            fold_sign: float = 1.0) -> torch.Tensor:
     """Add a 1-cell ghost ring: (..., ny, nx) -> (..., ny+2, nx+2).
+
+    open_fill: what non-cyclic (open/closed) global-boundary ghosts hold:
+    "zero" (the ice_HaloUpdate default fill) or "extrapolate" (ghost =
+    2*edge - inner, ice_HaloExtrapolate, mpi/ice_boundary.F90:7070-7172;
+    not at a tripole seam, whose north ghosts are the fold image).
 
     fold_partner/fold_sign: on tripole topologies, build the north ghost
     row from ``fold_sign * fold(fold_partner)`` instead of the field
@@ -152,51 +234,64 @@ def extend(f: torch.Tensor, topo: Topology,
     staggering the ghost row is the partner's image of the top row and
     the field's own top row is kept as it is (the T-fold's CENTER metrics
     of the EVP region); the JAX package's ``extend`` raises there."""
+    if open_fill not in ("zero", "extrapolate"):
+        raise ValueError(f"open_fill={open_fill!r}: 'zero' or "
+                         "'extrapolate'")
     return extend_wide(f, topo, 1, loc=loc, kind=kind,
-                       fold_partner=fold_partner, fold_sign=fold_sign)
+                       fold_partner=fold_partner, fold_sign=fold_sign,
+                       open_fill=open_fill)
 
 
 def extend_wide(f: torch.Tensor, topo: Topology, W: int,
                 loc: FieldLoc = FieldLoc.CENTER,
                 kind: FieldType = FieldType.SCALAR,
                 fold_partner: torch.Tensor | None = None,
-                fold_sign: float = 1.0) -> torch.Tensor:
-    """Add a W-cell ghost ring: (..., ny, nx) -> (..., ny+2W, nx+2W)
-    (the remap kernel's W=2 window of raw fields). A tripole seam fills
-    the W ghost rows with the fold image of the top W rows."""
+                fold_sign: float = 1.0, open_fill: str = "zero"
+                ) -> torch.Tensor:
+    """Add a W-cell ghost ring: (..., ny, nx) -> (..., ny+2W, nx+2W) in one
+    exchange per mesh axis (the remap kernel's W=2 window of raw fields,
+    the chunked EVP's K-wide margin). A tripole seam fills the W ghost
+    rows with the fold image of the top W rows. Extrapolation
+    (``open_fill``) is defined at W=1 only."""
     _check(topo)
-    tghost = None
-    if topo.ns in _TRIPOLE:
-        tghost, top_sym = _tripole_ghost_wide(
-            f, topo, loc, kind, W, fold_partner=fold_partner,
-            fold_sign=fold_sign)
+    if open_fill == "extrapolate" and W != 1:
+        raise ValueError("open_fill='extrapolate' extends by one cell")
+    tg_ext = None
+    if topo.ns in _TRIPOLE and topo.is_top:
+        tg_ext, top_sym = _fold_rows(f, topo, W, loc, kind,
+                                     fold_partner=fold_partner,
+                                     fold_sign=fold_sign)
         f = _with_top(f, top_sym)
-    return _assemble(f, topo, W, tghost)
+    return _assemble(f, topo, W, tg_ext, open_fill)
 
 
 def extend_wide_groups(f: torch.Tensor, topo: Topology, W: int,
                        groups) -> torch.Tensor:
     """extend_wide for a (C, ny, nx) stack whose entries need different
-    tripole fold treatments.
+    tripole fold treatments but share one exchange per mesh axis.
 
     groups: list of (channel_slice, loc, kind, fold_partner, fold_sign)
     covering 0..C in order; fold_partner is a (len, ny, nx) stack or None.
-    Non-tripole topologies ignore the groups (one extend_wide)."""
+    Non-tripole topologies ignore the groups (one extend_wide). The
+    chunked EVP's caller: (u, v) fold as NECORNER vectors while the 12
+    stress components fold through the corner-partner permutation
+    (ice_HaloUpdate_stress, mpi/ice_boundary.F90:5564)."""
     if topo.ns not in _TRIPOLE:
         return extend_wide(f, topo, W)
     if topo.ns == "tripoleT":
         raise NotImplementedError("extend_wide_groups: T-fold grids")
     _check(topo)
-    ghosts, parts = [], []
-    for sl, loc, kind, fpart, fsign in groups:
-        sub = f[sl]
-        g, top_sym = _tripole_ghost_wide(sub, topo, loc, kind, W,
-                                         fold_partner=fpart,
-                                         fold_sign=fsign)
-        ghosts.append(g)
-        parts.append(_with_top(sub, top_sym))
-    return _assemble(torch.cat(parts, dim=0), topo, W,
-                     torch.cat(ghosts, dim=0))
+    tg_ext = None
+    if topo.is_top:
+        ghosts, parts = [], []
+        for sl, loc, kind, fpart, fsign in groups:
+            sub = f[sl]
+            g, top_sym = _fold_rows(sub, topo, W, loc, kind,
+                                    fold_partner=fpart, fold_sign=fsign)
+            ghosts.append(g)
+            parts.append(_with_top(sub, top_sym))
+        f, tg_ext = torch.cat(parts, dim=0), torch.cat(ghosts, dim=0)
+    return _assemble(f, topo, W, tg_ext)
 
 
 def interior(F):
@@ -212,11 +307,24 @@ def shifted(F, di: int, dj: int):
 
 
 def global_sum(x, topo: Topology):
-    """Global sum (the global_sum analog, mpi/ice_global_reductions.F90);
-    one device, so a plain reduction."""
-    return x.sum()
+    """Global sum (the global_sum analog, mpi/ice_global_reductions.F90).
+    On a mesh every rank's partial sum is gathered and added in rank
+    order, so the result is the same on every rank and from run to run,
+    whatever the backend (the bfbflag ordered sum, :142-267)."""
+    s = x.sum()
+    if topo.mesh is None:
+        return s
+    parts = pdist.all_gather(s.reshape(1), topo.mesh)
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    return total.reshape(())
 
 
 def global_min(x, topo: Topology):
-    """Global minimum (mpi/ice_global_reductions.F90:1453 global_minval)."""
-    return x.min()
+    """Global minimum (mpi/ice_global_reductions.F90:1453 global_minval):
+    an all-reduce with MIN on a mesh."""
+    s = x.min()
+    if topo.mesh is None:
+        return s
+    return pdist.all_reduce_min(s, topo.mesh)

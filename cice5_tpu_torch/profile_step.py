@@ -12,10 +12,11 @@ per-category mechred diagnostics (``gx1_eap``), with the aerosol, brine
 and skeletal-BGC tracers (``gx1_bgc``: 39 tracers), the BL99 model with
 upwind transport (``bl99_upwind``), CICE's gx3 test configuration (``gx3``: 116x100, nilyr=7,
 open north, on ``synth_gx1_grid``'s mesh at that shape, the arrays that
-chip_smoke writes to its gx3 grid files) or the ACCESS-OM 0.25-degree one
+chip_smoke writes to its gx3 grid files), the ACCESS-OM 0.25-degree one
 (``auscom_025``: the gx1-parity physics at 1080x1440 with the coupled
-radiation ordering of the coupled model), float32, ndte=120, on the GPU;
-``--ny``/``--nx`` default to the configuration's grid;
+radiation ordering of the coupled model) or the 0.1-degree one (``tx01``:
+the gx1-parity physics at 3600x2700, on one card), float32, ndte=120, on
+the GPU; ``--ny``/``--nx`` default to the configuration's grid;
 ``--evp-algorithm pallas`` takes the fused EVP sweep (kernel evp_fused)
 where the step does (not on the tripole seam). Prints one JSON line with
 
@@ -41,9 +42,14 @@ where the step does (not on the tripole seam). Prints one JSON line with
   (``run_split``), over 4 steps with a history stream of every available
   field written once and the state checked every step;
 - the thermo solver's passes (BL99 or mushy Picard, both stages) and the
-  ridging passes of the last step.
+  ridging passes of the last step;
+- ``peak_memory_bytes``: the device memory peak
+  (``torch.cuda.max_memory_allocated``) of the graph rollout and
+  everything before it.
 
-It needs a CUDA device and fails without one.
+It needs a CUDA device and fails without one. A run that exhausts the
+card's memory prints one JSON line with ``out_of_memory``: the stage it
+stopped in, the bytes allocated and the peak there, and exits 1.
 """
 from __future__ import annotations
 
@@ -57,7 +63,8 @@ from collections import defaultdict
 import torch
 
 from cice5_tpu_torch.config import (auscom_025_config, bench_easy_config,
-                                    gx1_parity_config, gx3_config)
+                                    gx1_parity_config, gx3_config,
+                                    tx01_config)
 from cice5_tpu_torch.driver import step as step_mod
 from cice5_tpu_torch.driver.model import Model
 from cice5_tpu_torch.grid import synth_gx1_grid
@@ -112,6 +119,7 @@ CONFIGS = {
                                  dyn=dict(advection="upwind")),
     "gx3": gx3_config,
     "auscom_025": lambda: auscom_025_config(coupled_radiation=True),
+    "tx01": tx01_config,
 }
 
 
@@ -272,7 +280,24 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
+    stage = ["setup"]
+    try:
+        profile(args, stage)
+    except torch.cuda.OutOfMemoryError as e:
+        print(json.dumps(dict(
+            config=args.config, grid=[args.ny, args.nx],
+            card=torch.cuda.get_device_name(0),
+            out_of_memory=dict(
+                stage=stage[0],
+                allocated_bytes=torch.cuda.memory_allocated(),
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                card_bytes=torch.cuda.get_device_properties(0).total_memory,
+                message=str(e).splitlines()[0]))))
+        raise SystemExit(1)
 
+
+def profile(args, stage):
+    """The measurements of ``main``; ``stage[0]`` names the one running."""
     cfg = CONFIGS[args.config]()
     args.ny = args.ny or cfg.grid.ny
     args.nx = args.nx or cfg.grid.nx
@@ -286,6 +311,7 @@ def main(argv=None):
         m = Model(cfg)
         st = m.init_state(ice_mask=m.grid.tmask)
     f = m.forcing_at(0)
+    stage[0] = "first rollout (eager step, graph capture)"
     st, _ = m.rollout(st, f, 2)         # the first call captures the graphs
     torch.cuda.synchronize()
     (g,) = m.graphs.values()
@@ -330,16 +356,11 @@ def main(argv=None):
             device_busy_share=busy / (1e3 * wall_prof),
             host_syncs_per_step=syncs / args.steps)
 
+    stage[0] = "eager steps"
     _, eager_out = profiled(eager)
     replays, reads = g.replays, g.flag_reads
+    stage[0] = "graph rollout"
     diag, graph_out = profiled(lambda s, n: m.rollout(s, f, n))
-    with tempfile.TemporaryDirectory(prefix="profile_step_") as tmp:
-        from cice5_tpu_torch.io import history as hist
-        stream = hist.HistoryStream(hist.available_fields(m.cfg, m.tr),
-                                    freq="1", freq_n=4)
-        _, split = run_split(m, st, 4, start_step=2, check_every=1,
-                             history=stream, history_dir=tmp,
-                             log=lambda *a: None)
     graph_out.update(
         replays_per_step=(g.replays - replays) / (2 * args.steps),
         flag_reads_per_step=(g.flag_reads - reads) / (2 * args.steps),
@@ -349,10 +370,20 @@ def main(argv=None):
         grid=[args.ny, args.nx], steps=args.steps,
         card=torch.cuda.get_device_name(0),
         eager=eager_out, graph=graph_out,
-        phase_device=phase_device(m, st, f),
-        history_device=history_device(m, st, f), run_split=split,
+        peak_memory_bytes=torch.cuda.max_memory_allocated(),
         thermo_passes_last_step=int(diag.niter_thermo),
         ridging_passes_last_step=int(diag.niter_ridge))
+    stage[0] = "run_split"
+    with tempfile.TemporaryDirectory(prefix="profile_step_") as tmp:
+        from cice5_tpu_torch.io import history as hist
+        stream = hist.HistoryStream(hist.available_fields(m.cfg, m.tr),
+                                    freq="1", freq_n=4)
+        _, split = run_split(m, st, 4, start_step=2, check_every=1,
+                             history=stream, history_dir=tmp,
+                             log=lambda *a: None)
+    stage[0] = "phase_device, history_device"
+    out.update(phase_device=phase_device(m, st, f),
+               history_device=history_device(m, st, f), run_split=split)
     print(json.dumps(out))
 
 

@@ -27,7 +27,7 @@ from cice5_tpu_torch.state import build_tracer_registry as tbuild
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "cice5_tpu_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_sharded_worker.py"]
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -78,7 +78,6 @@ def _unsupported():
     base = tconfig.rect_config(ny=8, nx=8)
     r = dataclasses.replace
     return {
-        "chunked": base.replace(dyn=r(base.dyn, evp_algorithm="chunked")),
         "compact": base.replace(grid=r(base.grid, compact_columns="on")),
         "grid_type_unknown": base.replace(grid=r(base.grid,
                                                  grid_type="bipolar")),
@@ -107,6 +106,9 @@ def _ported():
         "bench_easy_fused": easy.replace(dyn=r(easy.dyn,
                                                evp_algorithm="pallas")),
         "rect": tconfig.rect_config(ny=8, nx=8),
+        # K subcycles per halo exchange, on one device or a mesh of ranks
+        # (tests/test_torch_sharded.py holds it against JAX)
+        "chunked": base.replace(dyn=r(base.dyn, evp_algorithm="chunked")),
         # the coupled-mode options, alone and together
         "formdrag": easy.replace(forcing=r(easy.forcing, formdrag=True)),
         "highfreq": parity.replace(forcing=r(parity.forcing,

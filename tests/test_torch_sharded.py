@@ -1,0 +1,591 @@
+"""The port on a mesh of ranks: ``ShardedModel``, the distributed halo and
+reductions, ``run_loop`` over tiles and the per-rank files, against the
+one-device port and the JAX package.
+
+Each mesh test launches 4 gloo ranks on the CPU (``torch_sharded_worker``,
+one thread each, a ``file://`` store in ``tmp_path``, each rank's output in
+a file there) on the 2x2, 1x4 and 4x1 meshes. Tolerances:
+
+- halos only move values: every rank's extended tile equals the slice of
+  the one-device extension at 0.0, for every topology, (loc, kind),
+  width, fold partner, ``open_fill`` and group layout; ``global_sum`` is
+  the rank-ordered sum of the tiles' sums, bit for bit on every rank;
+- ``ShardedModel``, two float64 steps of the rectangular basin of
+  tests/test_sharded_model.py (16x32, ndte=15, after a JAX warm-up step)
+  and of gx1-parity on a 24x16 tripole grid with land on the seam
+  (ndte=8, from the warmed-up state of test_torch_parity_step.npz):
+  against the one-device ``Model``
+  and against the JAX ``ShardedModel`` on the same mesh shape where it
+  runs here (the basin on 2x2 and 1x4: ``JAX_RUNS``), the tripole case
+  against the JAX one-device steps of test_torch_parity_step.npz (the JAX
+  ``ShardedModel`` equals its one-device Model, tests/
+  test_sharded_model.py); vicen
+  and uvel within 1e-8 absolute, fhocn within 1e-5 (tests/
+  test_sharded_model.py:23-44);
+- ``run_loop`` on the 2x2 mesh (history, restarts, diagnostics, state
+  checks, ice restoring) against the one-device run; the per-rank restart
+  files restored bit for bit by either package, the assembled history
+  byte for byte the JAX assembler's.
+
+The JAX ``ShardedModel`` steps are recorded in test_torch_sharded.npz
+(``make_reference``, under a SHA-256 of their inputs): a JAX ``shard_map``
+step compiles for minutes here. The test marked slow recomputes them;
+``JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8
+PYTHONPATH=.:tests python tests/test_torch_sharded.py`` rewrites the file
+(one process per case and mesh, ~2-5 min each here).
+"""
+import dataclasses
+import filecmp
+import hashlib
+import inspect
+import json
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import torch_sharded_worker as worker
+from cice5_tpu_torch import convert
+from cice5_tpu_torch.driver.model import Model
+from cice5_tpu_torch.io import history as hmod
+from cice5_tpu_torch.io import shard_io
+from cice5_tpu_torch.parallel import Topology
+from cice5_tpu_torch.parallel.mesh import best_mesh_shape
+from torch_port_util import (PARITY_REFERENCE, XLA_FAST_COMPILE,
+                             assert_same_history_file, jax_config,
+                             load_parity_reference, parity_reference_key)
+
+REFERENCE = Path(__file__).with_name("test_torch_sharded.npz")
+MESHES = ((2, 2), (1, 4), (4, 1))
+# the JAX ShardedModel runs recorded: on this CPU the 4x1 mesh of 4
+# devices and the tripole case abort in XLA's collective rendezvous (jax
+# 0.9: "Unexpected number of participants: collective permute ... (8 vs.
+# 4)"; "Termination timeout for collective permute ... exceeded", the
+# devices at different collectives; the tripole case on 1x4 ran once in
+# five tries), so those are held against the one-device Model, and the
+# tripole case on every mesh also against the JAX one-device steps of
+# test_torch_parity_step.npz
+JAX_RUNS = (("rect", (2, 2)), ("rect", (1, 4)))
+CASES = ("rect", "tripole")
+STATE = ("aicen", "vicen", "uvel", "vvel")
+
+
+def _arrays(obj):
+    return {f.name: np.asarray(getattr(obj, f.name))
+            for f in dataclasses.fields(obj)
+            if getattr(obj, f.name) is not None}
+
+
+def case_inputs(name):
+    """JAX objects (config, grid, initial state, two forcings) of a
+    case, each from a warmed-up state (from rest the EVP is ill-conditioned:
+    a 1-ulp change of the wind moves uvel by 3e-3 after one step; after a
+    warm-up step, by 1.5e-13): "rect" from one jitted step of the JAX Model
+    from its initial state, then the forcings of steps 1 and 2; "tripole"
+    from the warmed-up state and rainy forcing of
+    test_torch_parity_step.npz."""
+    import jax.numpy as jnp
+    from functools import partial
+    from cice5_tpu.driver.model import Model as JModel
+    from cice5_tpu.driver.step import step as jstep_fn
+    from cice5_tpu.forcing import Forcing as JForcing
+    from cice5_tpu.grid import popgrid_np
+    from cice5_tpu.state import State as JState
+    from torch_port_util import jit_fast, parity_grid_arrays
+    jcfg = jax_config(worker.case_config(name))
+    if name == "rect":
+        jm = JModel(jcfg)
+        step = jit_fast(partial(jstep_fn, cfg=jm.cfg, tr=jm.tr, topo=jm.topo,
+                                hin_max=jm.hin_max, salinz=jm.salinz))
+        st0, _ = step(jm.init_state(ice_mask=np.asarray(jm.grid.tmask)),
+                      jm.forcing_at(0), jm.grid)
+        return jcfg, jm.grid, st0, [jm.forcing_at(1), jm.forcing_at(2)]
+    grid = popgrid_np(jcfg, *parity_grid_arrays())
+    ref = load_parity_reference()
+    part = lambda pre: {k[len(pre) + 1:]: jnp.asarray(v)
+                        for k, v in ref.items() if k.startswith(pre + "/")}
+    f0 = JForcing(**part("forcing"))
+    return jcfg, grid, JState(**part("in")), [f0, f0]
+
+
+def make_reference(runs=JAX_RUNS) -> dict:
+    """Record each case's inputs ("<case>/grid|st0|f0|f1/<field>") and, for
+    each (case, mesh) of ``runs``, two steps of the JAX ShardedModel on
+    that mesh of 4 of the 8 CPU devices ("<case>/<py>x<px>/<field>":
+    STATE and fhocn)."""
+    import jax
+    from cice5_tpu.driver.sharded import ShardedModel as JSharded
+    out = {}
+    for name in CASES:
+        jcfg, grid, st0, forcings = case_inputs(name)
+        for pre, obj in [("grid", grid), ("st0", st0)] + [
+                (f"f{k}", f) for k, f in enumerate(forcings)]:
+            out.update({f"{name}/{pre}/{k}": v
+                        for k, v in _arrays(obj).items()})
+        for mesh in [m for n, m in runs if n == name]:
+            sm = JSharded(jcfg, devices=jax.devices()[:4], mesh_shape=mesh,
+                          grid=grid)
+            st = sm.put(st0)
+            fs = [sm.put(f) for f in forcings]
+            step = jax.jit(sm._jstep.__wrapped__,
+                           compiler_options=XLA_FAST_COMPILE)
+            for f in fs:
+                st, diag = step(st, f, sm._grid_dev)
+                # put again: the same input shardings, no second compile
+                st = sm.put(jax.tree.map(np.asarray, st))
+            tag = f"{name}/{mesh[0]}x{mesh[1]}"
+            for k in STATE:
+                out[f"{tag}/{k}"] = np.asarray(getattr(st, k))
+            out[f"{tag}/fhocn"] = np.asarray(diag.fhocn)
+    return out
+
+
+def reference_key() -> str:
+    """SHA-256 of what the recorded reference depends on: every source
+    file of the JAX package, the parity reference it starts from, the
+    configurations and the recipe."""
+    h = hashlib.sha256(parity_reference_key().encode())
+    root = Path(__file__).resolve().parents[1] / "cice5_tpu"
+    for path in sorted(root.rglob("*.py")):
+        h.update(path.relative_to(root).as_posix().encode())
+        h.update(path.read_bytes())
+    for name in CASES:
+        h.update(json.dumps(dataclasses.asdict(worker.case_config(name)),
+                            sort_keys=True, default=repr).encode())
+    for fn in (case_inputs, make_reference, _arrays):
+        h.update(inspect.getsource(fn).encode())
+    h.update(repr((JAX_RUNS, CASES, STATE)).encode())
+    return h.hexdigest()
+
+
+@pytest.fixture(scope="module")
+def recorded():
+    with np.load(REFERENCE) as z:
+        return {k: z[k] for k in z.files}
+
+
+@pytest.fixture(scope="module", params=MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+def mesh_run(request, tmp_path_factory):
+    """The halo and model tasks on one mesh shape of 4 ranks."""
+    tmp = tmp_path_factory.mktemp("mesh")
+    out = worker.launch(tmp, dict(mesh=list(request.param),
+                                  tasks=["halo", "model"],
+                                  reference=str(REFERENCE),
+                                  cases=list(CASES)))
+    return request.param, out
+
+
+def _one_device_step(recorded, name):
+    """Two steps of the port's one-device Model from the case's inputs."""
+    part = lambda pre: worker.recorded(recorded, f"{name}/{pre}")
+    m = Model(worker.case_config(name), device="cpu",
+              grid=convert.grid_from_arrays(part("grid"), device="cpu"))
+    st = convert.state_from_arrays(part("st0"), device="cpu")
+    for k in range(2):
+        st, diag = m.step(st, convert.forcing_from_arrays(
+            part(f"f{k}"), device="cpu"))
+    return convert.to_numpy(st), convert.to_numpy(diag)
+
+
+@pytest.fixture(scope="module")
+def one_device(recorded):
+    """_one_device_step of each case, made when a test first asks."""
+    steps = {}
+
+    def get(name):
+        if name not in steps:
+            steps[name] = _one_device_step(recorded, name)
+        return steps[name]
+    return get
+
+
+# --- the mesh -------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 6, 8, 12, 16])
+def test_best_mesh_shape_matches_jax(n):
+    from cice5_tpu.parallel.mesh import best_mesh_shape as jbest
+    for ny, nx in ((16, 32), (384, 320), (2700, 3600), (24, 16), (7, 5),
+                   (12, 18)):
+        try:
+            want = jbest(n, ny, nx)
+        except ValueError:
+            with pytest.raises(ValueError):
+                best_mesh_shape(n, ny, nx)
+            continue
+        assert best_mesh_shape(n, ny, nx) == want, (n, ny, nx)
+
+
+def test_initialize_distributed(tmp_path, monkeypatch):
+    """NCCL refuses two ranks on one card, naming gloo; an unknown backend
+    and a store without a rank raise; a second call does nothing."""
+    import torch.distributed as dist
+    from cice5_tpu_torch.parallel import distributed as pdist
+    store = f"file://{tmp_path}/store"
+    with monkeypatch.context() as mp:
+        mp.setattr(torch.cuda, "is_available", lambda: True)
+        mp.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(RuntimeError, match="backend='gloo'"):
+            pdist.initialize_distributed("nccl", init_method=store, rank=0,
+                                         world_size=2)
+    with pytest.raises(ValueError, match="gloo"):
+        pdist.initialize_distributed("mpi", init_method=store, rank=0,
+                                     world_size=1)
+    with pytest.raises(ValueError, match="rank"):
+        pdist.initialize_distributed("gloo", init_method=store)
+    assert not dist.is_initialized() and pdist.is_primary()
+    pdist.initialize_distributed("gloo", init_method=store, rank=0,
+                                 world_size=1)
+    try:
+        pdist.initialize_distributed("gloo", init_method=store, rank=0,
+                                     world_size=1)
+        assert dist.get_world_size() == 1 and pdist.is_primary()
+    finally:
+        dist.destroy_process_group()
+
+
+def test_topology_without_a_mesh_is_one_device():
+    t = Topology(ew="cyclic", ns="tripole")
+    assert not t.sharded and t.is_top and t.mesh is None
+
+
+# --- the halo ---------------------------------------------------------------
+
+@pytest.mark.parametrize("ew, ns", worker.HALO_TOPOLOGIES[:4])
+def test_one_device_halo_matches_jax(ew, ns):
+    """The port's one-device extend equals the JAX package's at 0.0 for
+    every (loc, kind), zero and extrapolated open fills included."""
+    import jax.numpy as jnp
+    from cice5_tpu.parallel import Topology as JTopology
+    from cice5_tpu.parallel import extend as jextend
+    from cice5_tpu_torch.parallel import extend
+    x, _ = worker.halo_field()
+    xj = jnp.asarray(x.numpy())
+    for loc in worker.LOCS:
+        for kind in worker.KINDS:
+            for fill in ("zero", "extrapolate"):
+                want = np.asarray(jextend(xj, JTopology(ew=ew, ns=ns), loc=loc,
+                                          kind=kind, open_fill=fill))
+                got = extend(x, Topology(ew=ew, ns=ns), loc=loc, kind=kind,
+                             open_fill=fill).numpy()
+                np.testing.assert_array_equal(got, want,
+                                              err_msg=f"{loc} {kind} {fill}")
+
+
+def _halo_reference():
+    x, p = worker.halo_field()
+    return {name: fn(Topology(ew, ns), x, p).numpy()
+            for name, (ew, ns, fn) in worker.halo_cases(x, p).items()}
+
+
+@pytest.mark.parametrize("topology", [f"{ew}-{ns}" for ew, ns in
+                                      worker.HALO_TOPOLOGIES])
+def test_halo_equals_one_device(mesh_run, topology):
+    """Every case of the topology: each rank's ring is the slice of the
+    one-device ring at its tile, at 0.0."""
+    (py, px), out = mesh_run
+    ny, nx = worker.HALO_NY // py, worker.HALO_NX // px
+    ref = _halo_reference()
+    names = [n for n in ref if n.split("/")[1].startswith(topology)]
+    assert len(names) >= 9
+    for r, got in enumerate(out["halo"]):
+        j0, i0 = (r // px) * ny, (r % px) * nx
+        for name in names:
+            W = (ref[name].shape[-1] - worker.HALO_NX) // 2
+            want = ref[name][..., j0:j0 + ny + 2 * W, i0:i0 + nx + 2 * W]
+            np.testing.assert_array_equal(got[name], want,
+                                          err_msg=f"{name} rank {r}")
+
+
+def test_global_reductions(mesh_run):
+    """global_sum: the tiles' sums added in rank order, the same bits on
+    every rank and at every call; the int count and global_min exact."""
+    (py, px), out = mesh_run
+    x, _ = worker.halo_field()
+    ny, nx = worker.HALO_NY // py, worker.HALO_NX // px
+    parts = [x[..., (r // px) * ny:(r // px + 1) * ny,
+               (r % px) * nx:(r % px + 1) * nx].contiguous().sum()
+             for r in range(4)]
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    for got in out["halo"]:
+        assert got["global_sum"].tolist() == [float(total)] * 2
+        assert int(got["global_sum_int"]) == int((x > 0).sum())
+        assert float(got["global_min"]) == float(x.min())
+
+
+def test_gather_and_scatter_xyt_roundtrip(mesh_run):
+    x, _ = worker.halo_field()
+    for got in mesh_run[1]["halo"]:
+        np.testing.assert_array_equal(got["gathered"], x.numpy())
+        np.testing.assert_array_equal(got["xyt_roundtrip"], x.numpy())
+
+
+# --- ShardedModel -----------------------------------------------------------
+
+@pytest.mark.parametrize("name", CASES)
+def test_sharded_model_matches_one_device(mesh_run, one_device, name):
+    st, diag = one_device(name)
+    got = mesh_run[1]["model"][0]
+    for k in ("vicen", "uvel"):
+        np.testing.assert_allclose(got[f"{name}/state/{k}"], st[k],
+                                   atol=1e-8, rtol=0, err_msg=k)
+    np.testing.assert_allclose(got[f"{name}/diag/fhocn"], diag["fhocn"],
+                               atol=1e-5, rtol=0)
+    assert int(got[f"{name}/diag/state_bad"]) == 0
+    # every rank gathers the same global state
+    for other in mesh_run[1]["model"][1:]:
+        np.testing.assert_array_equal(other[f"{name}/state/vicen"],
+                                      got[f"{name}/state/vicen"])
+
+
+@pytest.mark.parametrize("mesh_run, name", [(m, n) for n, m in JAX_RUNS],
+                         indirect=["mesh_run"],
+                         ids=[f"{n}-{m[0]}x{m[1]}" for n, m in JAX_RUNS])
+def test_sharded_model_matches_jax(mesh_run, recorded, name):
+    (py, px), out = mesh_run
+    got, tag = out["model"][0], f"{name}/{py}x{px}"
+    for k in ("vicen", "uvel", "aicen", "vvel"):
+        np.testing.assert_allclose(got[f"{name}/state/{k}"],
+                                   recorded[f"{tag}/{k}"], atol=1e-8,
+                                   rtol=0, err_msg=k)
+    np.testing.assert_allclose(got[f"{name}/diag/fhocn"],
+                               recorded[f"{tag}/fhocn"], atol=1e-5, rtol=0)
+
+
+def test_tripole_sharded_matches_jax_one_device(mesh_run):
+    """The tripole case on each mesh against the JAX package's one-device
+    steps from the same state and forcing (test_torch_parity_step.npz),
+    the JAX ShardedModel being decomposition-invariant
+    (tests/test_sharded_model.py)."""
+    ref = load_parity_reference()
+    got = mesh_run[1]["model"][0]
+    for k in ("vicen", "uvel", "aicen", "vvel"):
+        np.testing.assert_allclose(got[f"tripole/state/{k}"],
+                                   ref[f"out/{k}"], atol=1e-8, rtol=0,
+                                   err_msg=k)
+    np.testing.assert_allclose(got["tripole/diag/fhocn"],
+                               ref["diag/fhocn"], atol=1e-5, rtol=0)
+
+
+def test_halo_traffic(mesh_run):
+    """Every rank exchanges halos in the step; a 1-rank mesh axis is
+    served locally, so a 1x4 or 4x1 mesh exchanges on one axis only."""
+    for got in mesh_run[1]["model"]:
+        assert int(got["rect/traffic/exchanges"]) > 0
+        assert int(got["rect/traffic/bytes"]) > 0
+        assert int(got["rect/traffic/collectives"]) > 0
+
+
+# --- run_loop and the per-rank files ----------------------------------------
+
+@pytest.fixture(scope="module")
+def run_2x2(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("run")
+    out = worker.launch(tmp, dict(mesh=[2, 2], tasks=["run"],
+                                  run_cases=["small", "small_restore"]))
+    return tmp, out["run"]
+
+
+@pytest.fixture(scope="module")
+def one_device_runs(tmp_path_factory):
+    """_one_device_run of each run case, made when a test first asks."""
+    runs = {}
+
+    def get(name):
+        if name not in runs:
+            tmp = tmp_path_factory.mktemp(f"one_device_{name}")
+            runs[name] = (tmp, *_one_device_run(name, tmp))
+        return runs[name]
+    return get
+
+
+def _one_device_run(name, tmp):
+    """The one-device run of the run task, its files in ``tmp``; then the
+    history of 2 more steps written by write_netcdf."""
+    m = Model(worker.case_config(name), device="cpu")
+    st = m.init_state(ice_mask=m.grid.tmask)
+    fields = hmod.available_fields(m.cfg, m.tr)
+    hs = hmod.HistoryStreams([hmod.HistoryStream(fields, freq="1",
+                                                 freq_n=2, suffix="inst")])
+    logs = []
+    st = m.run(st, nsteps=2, diag_every=1, history=hs,
+               history_dir=str(tmp / "hist"), restart_every=2,
+               restart_dir=str(tmp / "rest"), check_every=1,
+               log=logs.append)
+    final = convert.to_numpy(st)
+    stream = hmod.HistoryStream(fields, freq="1", freq_n=2)
+    for k in range(2, 4):
+        f = m.forcing_at(k)
+        st, diag = m.step(st, f)
+        stream.accum(hmod.diag_to_values(diag, st, m.grid, m.tr, f,
+                                         m.cfg.nilyr, m.cfg.nslyr),
+                     (k + 1) * 3600.0)
+    hmod.write_netcdf(stream, m.grid, m.calendar.info(4, 3600.0),
+                      str(tmp / "tiles_ref.nc"))
+    return m, final, logs
+
+
+@pytest.mark.parametrize("name", ["small", "small_restore"])
+def test_run_loop_matches_one_device(run_2x2, one_device_runs, name):
+    """The state, the log lines (diagnostics), the history file and the
+    restart of run_loop over the 2x2 mesh equal the one-device run's;
+    only rank 0 wrote them."""
+    tmp, out = run_2x2
+    tmp_path, _, final, logs = one_device_runs(name)
+    got = out[0]
+    for k, v in final.items():
+        np.testing.assert_array_equal(got[f"{name}/state/{k}"], v,
+                                      err_msg=k)
+    assert [x.replace(str(tmp / name), "DIR") for x in json.loads(
+        str(got[f"{name}/log"]))] == [x.replace(str(tmp_path), "DIR")
+                                      for x in logs]
+    for r in range(1, 4):
+        assert json.loads(str(out[r][f"{name}/log"])) == []
+    for sub in ("hist", "rest"):
+        files = sorted(p.name for p in (tmp / name / sub).iterdir())
+        assert files == sorted(p.name for p in (tmp_path / sub).iterdir())
+    (hist,) = [p for p in (tmp / name / "hist").iterdir()]
+    assert_same_history_file(tmp_path / "hist" / hist.name, hist)
+    (rst,) = [p for p in (tmp / name / "rest").glob("*.npz")]
+    with np.load(rst) as a, np.load(tmp_path / "rest" / rst.name) as b:
+        for k in b.files:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def test_port_dump_restored_by_both_packages(run_2x2):
+    """dump_sharded's 4 files: the JAX restore_sharded and the port's give
+    the gathered state bit for bit, and the manifest is the JAX one's."""
+    from cice5_tpu.io.shard_io import restore_sharded as jrestore
+    tmp, out = run_2x2
+    d = tmp / "small" / "shards"
+    assert sorted(p.name for p in d.iterdir()) == [
+        "manifest.json"] + [f"shards.p{r:03d}.npz" for r in range(4)]
+    jst, jmeta = jrestore(str(d))
+    tst, tmeta = shard_io.restore_sharded(str(d))
+    assert jmeta == tmeta
+    assert tmeta["num_processes"] == 4 and tmeta["istep"] == 2
+    for f in dataclasses.fields(tst):
+        want = out[0][f"small/state/{f.name}"]
+        np.testing.assert_array_equal(np.asarray(getattr(jst, f.name)),
+                                      want, err_msg=f.name)
+        np.testing.assert_array_equal(getattr(tst, f.name).numpy(), want,
+                                      err_msg=f.name)
+        assert getattr(tst, f.name).numpy().dtype == want.dtype
+
+
+def test_jax_dump_restored_by_port(run_2x2, tmp_path):
+    """A JAX dump of a state put on the 8-device CPU mesh (one file of 8
+    shards per field) restores into the port bit for bit."""
+    import jax
+    from cice5_tpu.io.shard_io import dump_sharded as jdump
+    from cice5_tpu.parallel.mesh import make_mesh
+    from cice5_tpu.state import State as JState
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    want = {k[len("small/state/"):]: v for k, v in run_2x2[1][0].items()
+            if k.startswith("small/state/")}
+    mesh = make_mesh(ny=8, nx=16, shape=(2, 4))
+    put = lambda a: jax.device_put(a, NamedSharding(
+        mesh, P(*([None] * (a.ndim - 2)), "Y", "X")))
+    jst = JState(**{k: put(v) for k, v in want.items()})
+    jdump(jst, str(tmp_path / "j"), istep=2, time=7200.0)
+    st, meta = shard_io.restore_sharded(str(tmp_path / "j"))
+    assert meta["num_processes"] == 1 and meta["istep"] == 2
+    for k, v in want.items():
+        np.testing.assert_array_equal(getattr(st, k).numpy(), v, err_msg=k)
+
+
+def test_assembled_history_is_the_jax_assemblers(run_2x2, one_device_runs,
+                                                 tmp_path):
+    """The per-rank history tiles assembled by the port and by the JAX
+    package: the same file, byte for byte, holding the one-device
+    write_netcdf's values."""
+    from cice5_tpu.grid import rectgrid
+    from cice5_tpu.io.shard_io import assemble_history as jassemble
+    tmp, _ = run_2x2
+    tiles = tmp / "small" / "hist_tiles"
+    assert sorted(p.name for p in tiles.iterdir()) == [
+        "hist.p000.npz", "hist.p001.npz", "hist.p002.npz", "hist.p003.npz",
+        "hist_manifest.json"]
+    ref_dir, m, _, _ = one_device_runs("small")
+    ours = shard_io.assemble_history(str(tiles), m.grid,
+                                     str(tmp_path / "port.nc"))
+    jgrid = rectgrid(jax_config(m.cfg))
+    theirs = jassemble(str(tiles), jgrid, str(tmp_path / "jax.nc"))
+    assert filecmp.cmp(ours, theirs, shallow=False)
+    with open(ours, "rb") as fh:
+        assert len(fh.read()) > 10000
+    from scipy.io import netcdf_file
+    with netcdf_file(ours, "r", mmap=False) as a, \
+            netcdf_file(ref_dir / "tiles_ref.nc", "r", mmap=False) as b:
+        for name in b.variables:
+            if name == "time":
+                continue
+            np.testing.assert_array_equal(np.asarray(a.variables[name][:]),
+                                          np.asarray(b.variables[name][:]),
+                                          err_msg=name)
+
+
+# --- the recorded reference -------------------------------------------------
+
+def test_recorded_reference_matches_its_inputs():
+    """The recorded JAX steps were made from the JAX package, the parity
+    reference (test_torch_parity_step.npz), the configurations and the
+    recipe as they are now."""
+    assert PARITY_REFERENCE.exists()
+    with np.load(REFERENCE) as z:
+        assert str(z["key"]) == reference_key(), (
+            "test_torch_sharded.npz is stale: rewrite it with "
+            "JAX_PLATFORMS=cpu PYTHONPATH=.:tests python "
+            "tests/test_torch_sharded.py")
+
+
+def record_parts(directory) -> dict:
+    """``make_reference`` of every run in ``JAX_RUNS``, each in a process of
+    its own (``python tests/test_torch_sharded.py CASE MESH OUT``), merged.
+    XLA's CPU collectives abort now and then on a loaded machine: a part
+    is tried up to three times."""
+    import subprocess
+    import sys
+    parts = {}
+    for name, (py, px) in JAX_RUNS:
+        out = f"{directory}/{name}_{py}x{px}.npz"
+        for _ in range(3):
+            if subprocess.run([sys.executable, __file__, name, f"{py}x{px}",
+                               out], capture_output=True).returncode == 0:
+                break
+        else:
+            raise RuntimeError(f"{name} {py}x{px}: failed 3 times")
+        with np.load(out) as z:
+            parts.update({k: z[k] for k in z.files})
+    return parts
+
+
+@pytest.mark.slow
+def test_recorded_reference_is_current(tmp_path):
+    """Recompute the JAX ShardedModel steps (minutes of compile) and hold
+    the recorded arrays to them."""
+    fresh = record_parts(tmp_path)
+    with np.load(REFERENCE) as z:
+        assert sorted(fresh) == sorted(k for k in z.files if k != "key")
+        for k, a in fresh.items():
+            np.testing.assert_allclose(a, z[k], rtol=1e-12, atol=1e-300,
+                                       err_msg=k)
+
+
+if __name__ == "__main__":
+    # one process per (case, mesh): each compiles one sharded step
+    import sys
+    import tempfile
+    if len(sys.argv) == 4:
+        import jax
+        jax.config.update("jax_enable_x64", True)
+        mesh = tuple(int(n) for n in sys.argv[2].split("x"))
+        np.savez(sys.argv[3], **make_reference([(sys.argv[1], mesh)]))
+    else:
+        with tempfile.TemporaryDirectory() as d:
+            parts = record_parts(d)
+        np.savez_compressed(REFERENCE, key=np.array(reference_key()),
+                            **parts)
+        print(f"wrote {REFERENCE}")

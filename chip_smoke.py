@@ -7,9 +7,11 @@ toolkit. Phases (any failure exits non-zero):
 
 1. Print the card's name and power limit (nvidia-smi) and build every
    hand-written kernel from ``cice5_tpu_torch/csrc`` with nvcc, one
-   process per source, all started together; print ptxas's report of
-   kernels B and C (registers, stack, spills of each instantiation) and
-   fail if B spills or uses stack, or C spills.
+   process per library, all started together (kernel C twice: the
+   default library of (nilyr, nslyr) = (4, 1) and (7, 1), and CESM2's
+   (8, 3)); print ptxas's report of kernels B and E (one source) and C
+   (registers, stack, spills of each instantiation) and fail if B or E
+   spills or uses stack, or C spills.
 2. Hold each kernel against its plain PyTorch version on the same CUDA
    tensors, at the shapes of the main paths (384x320), on inputs captured
    from one step of each model: the EVP sweep (float64 at ndte=1 and 120,
@@ -26,9 +28,9 @@ toolkit. Phases (any failure exits non-zero):
    against its plain version and against the EVP sweep kernel; the
    single-edge remap kernel E (both edges, float64 and float32, both
    tracer tables, with the ice-free band) against its plain version and
-   against the same edge set of B, which must equal it bit for bit (E
-   keeps the device code of B's first version, whose arithmetic B
-   repeats in the same order). Kernel and plain times come from CUDA
+   against the same edge set of B, which must equal it bit for bit (E is
+   B's one-edge mode: the same blocks, pipeline and per-edge code), with
+   E's and B's times on the same inputs. Kernel and plain times come from CUDA
    events. Both EVP kernels are one engine (csrc/evp_resident.cu): its
    forced device-memory branch must equal the plain sweep bit for bit on
    the EVP sweep's inputs, and for each model the script prints the EVP
@@ -179,7 +181,22 @@ toolkit. Phases (any failure exits non-zero):
    equal, ms per append beside a synchronous ``write_netcdf`` of the same
    fields; ``prescribe_ice`` on the state in float64 on the card against
    the CPU at 0.0. One ``file_forcing:`` JSON line.
-12. The multi-GPU path (``sharded_phase``), in spawned processes
+12. CESM2's column (``cesm2_layers_phase``): ``gx1_parity_config(nilyr=8,
+   nslyr=3)`` at 384x320, float32, ndte=120 (27 tracers) through
+   ``Model.run`` with a history stream of every field, the layered 4Di
+   and 4Ds ones among them (4 steps after 2: A, B and C once per step,
+   launch counters set to 0 just before and read just after), the
+   bench.py guards, peak memory, the graph rollout against the eager step
+   at 0.0 and its ms/step; the history file read back on 8 ice and 3
+   snow levels; a CICE 5 dump at step 2 of 4 restored into a fresh Model
+   whose run equals the continuous one at 0.0; B on the 27-tracer table
+   and C at 8/3 against their plain versions on the path's inputs (C in
+   float64 within 1e-12 of scale, with level ponds too, every snow layer
+   absorbing; in float32 no farther from float64 than the plain float32
+   beyond DEDD_F32_TOL), with C's time, bound and resident blocks per SM;
+   the small float64 ``cesm2_layers`` sets (mushy and BL99) on the card
+   against the CPU. One ``cesm2_layers:`` JSON line.
+13. The multi-GPU path (``sharded_phase``), in spawned processes
    (``chip_smoke.py --sharded-rank`` / ``--nccl-rank``) whose output is
    printed here: 4 gloo ranks sharing the card on a 2x2 mesh run the
    gx1-parity model at 384x320 (float32, ndte=120, a 192x160 tile per
@@ -195,11 +212,12 @@ toolkit. Phases (any failure exits non-zero):
    reductions and a 1x1-mesh step against ``Model``'s eager step at 0.0.
    One ``sharded:`` JSON line; four processes on one card are a
    correctness run, not a multi-GPU speed.
-13. Print one JSON line with every kernel (launches from the gx1-parity
+14. Print one JSON line with every kernel (launches from the gx1-parity
    main path, the fused kernel's from the fused path, and each path's
    launches per step, the sharded path's per rank; times on the
-   gx1-parity inputs, the fused kernel's on the BL99 ones; A's T-fold and
-   B's gx1_bgc launches and times beside), then the card line, then
+   gx1-parity inputs, the fused kernel's on the BL99 ones; A's T-fold,
+   B's gx1_bgc and cesm2_layers and C's cesm2_layers launches and times
+   beside, E's beside B's on the same inputs), then the card line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 """
 from __future__ import annotations
@@ -230,8 +248,14 @@ RM_FLOP_EDGE, RM_FLOP_EDGE_TRACER, RM_FLOP_EDGE_PARENT = 320, 30, 200
 # as one operation: 30 layer-property sets (ice 4, snow 2, pond 4 per band)
 # of ~480 each with the 8-point Gaussian re-integration (~14.4k), 6
 # Fresnel layers (~0.2k), 9 adding sweeps with their interface fluxes
-# (~3.1k), 9 snow-table lookups (~1.7k), partition and mix (~0.6k)
-DEDD_OPS_LIT_COLUMN = 20000
+# (~3.1k over 7 layers), 9 snow-table lookups (~1.7k), partition and mix
+# (~0.6k). Each further layer adds its step of the 9 sweeps and its
+# partition terms (~450); more than one snow layer adds a third snow
+# property set per band (3 x 480)
+DEDD_OPS_LIT_COLUMN, DEDD_OPS_LAYER, DEDD_OPS_PROPS = 20000, 450, 480
+# CESM2's sea-ice column: 8 ice and 3 snow layers (CICE 5.1.2 with mushy
+# thermodynamics; Bailey et al. 2020, JAMES)
+CESM2_LAYERS = (8, 3)
 # float32 bound of shortwave_dedd against its plain version, each field on
 # its own scale: ~3x the 1.6e-5 this script measured at 384x320
 # (fswsfcn) on an NVIDIA H100 80GB HBM3 at 700 W
@@ -252,28 +276,35 @@ def card_line() -> str:
 
 
 def ptxas_phase():
-    """ptxas's report of kernels B (csrc/remap_tiles.cu) and C
-    (csrc/shortwave_dedd.cu) from the build: registers, stack frame and
-    spills of each instantiation. B must have no spills and no stack, C no
-    spills."""
+    """ptxas's report of kernels B and E (csrc/remap_tiles.cu: both edge
+    sets, the north set, the east set) and C (csrc/shortwave_dedd.cu: the
+    default library's (nilyr, nslyr) = (4, 1) and (7, 1), and each library
+    built for another pair) from the build: registers, stack frame and
+    spills of each instantiation. B and E must have no spills and no
+    stack, C no spills."""
     import re
     from cice5_tpu_torch.ops import kernels
-    for name, no_stack in (("remap_flux_both", True),
-                           ("shortwave_dedd", False)):
-        k = kernels.KERNELS[name]
+    c = kernels.KERNELS["shortwave_dedd"]
+    for k, no_stack in ((kernels.KERNELS["remap_flux_both"], True),
+                        *((v, False) for v in (c, *c.variants()))):
         entries = kernels.ptxas_entries(k.build_log)
         if not entries:
-            fail(f"no ptxas report for {k.source.name}")
+            fail(f"no ptxas report for {k.library.name}")
         for e in entries:
-            dt = "f32" if re.search(r"I[f]E|If(Li|E)", e["name"]) else "f64"
-            nl = re.search(r"Li(\d+)ELi1E", e["name"])
-            tag = f"{dt}" + (f" nilyr={nl.group(1)}" if nl else "")
-            print(f"ptxas {k.source.name} {tag}: {e['registers']} registers, "
-                  f"{e['stack']} B stack, {e['spill_stores']} B spill stores, "
-                  f"{e['spill_loads']} B spill loads", flush=True)
+            t = re.search(r"I([fd])((?:Li\d+E)+)E", e["name"])
+            if not t:
+                fail(f"{k.library.name}: unexpected entry {e['name']}")
+            dt = "f32" if t.group(1) == "f" else "f64"
+            args = [int(a) for a in re.findall(r"Li(\d+)E", t.group(2))]
+            tag = (f"{dt} nilyr={args[0]} nslyr={args[1]}" if len(args) == 2
+                   else f"{dt} edges={('north', 'east', 'both')[args[0]]}")
+            print(f"ptxas {k.library.name} {tag}: {e['registers']} "
+                  f"registers, {e['stack']} B stack, {e['spill_stores']} B "
+                  f"spill stores, {e['spill_loads']} B spill loads",
+                  flush=True)
             if e["spill_stores"] or e["spill_loads"] or \
                     (no_stack and e["stack"]):
-                fail(f"{k.source.name} {tag} spills or uses stack: {e}")
+                fail(f"{k.library.name} {tag} spills or uses stack: {e}")
 
 
 def cuda_time_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -638,12 +669,13 @@ def remap_bound(args, edges):
 
 def remap_edge_phase(args64, args32, label):
     """Kernel E (remap_flux_edge: the reconstruction and ONE edge set's
-    integrals) against its plain version remap_flux_edge_plain and against
-    the same edge set of kernel B, for both edges, with the ice-free band,
-    each flux against its own scale. E keeps the device code of B's first
-    version, whose arithmetic B's tile-resident redesign
-    (csrc/remap_tiles.cu) repeats in the same order, so B's half must equal
-    E bit for bit."""
+    integrals, the one-edge mode of csrc/remap_tiles.cu) against its plain
+    version remap_flux_edge_plain and against the same edge set of kernel
+    B, for both edges, with the ice-free band, each flux against its own
+    scale. E runs B's blocks and pipeline and computes each edge with B's
+    code, so B's half must equal E bit for bit. Times E's north edges
+    and B's two sets on the same float32 inputs as CUDA graph replays, in
+    turns (E, B, B, E)."""
     import torch
     from cice5_tpu_torch.models.transport import remap as trm
     from cice5_tpu_torch.ops import check
@@ -671,18 +703,30 @@ def remap_edge_phase(args64, args32, label):
             if not (rp <= tol and eb == 0.0):
                 bad.append(f"{tag} {edge}")
     if bad:
-        fail(f"remap_flux_edge disagrees with its plain version or B's half "
-             f"is not bit-equal to it ({label}): {bad}")
-    geomN, _, mm, tm, hm, tt, par, ny, nx = args32
+        fail(f"remap_flux_edge disagrees with its plain version or with "
+             f"B's half ({label}): {bad}")
+    geomN, geomE, mm, tm, hm, tt, par, ny, nx = args32
     call = ("north", geomN, mm, tm, hm, tt, par, ny, nx)
     ms = cuda_time_ms(lambda: trm.remap_flux_edge(*call), reps=10)
+    times = {"E north": [], "E east": [], "B": []}
+    fns = {"E north": lambda: trm.remap_flux_edge(*call),
+           "E east": lambda: trm.remap_flux_edge(
+               "east", geomE, mm, tm, hm, tt, par, ny, nx),
+           "B": lambda: trm.remap_flux_both(*args32)}
+    for k in ("E north", "E east", "B", "B", "E east", "E north"):
+        times[k].append(graph_ms(fns[k], reps=50)[0])
+    g = {k: min(v) for k, v in times.items()}
     plain_ms = cuda_time_ms(lambda: trm.remap_flux_edge_plain(*call), reps=3)
     bound_ms, bound_by, what = remap_bound(args32, ("north",))
-    print(f"remap_flux_edge {label} f32 north edges at {ny}x{nx}: kernel "
-          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-          f"({what})")
-    return dict(err=max(errs[("f32", e)] for e in ("north", "east")), ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    print(f"remap_flux_edge {label} f32 at {ny}x{nx}: north edges "
+          f"{g['E north']:.4f} ms in a CUDA graph (eager {ms:.4f} ms), east "
+          f"edges {g['E east']:.4f} ms, B (both sets, same inputs) "
+          f"{g['B']:.4f} ms (replays in turns: {json.dumps(times)}); plain "
+          f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({what})", flush=True)
+    return dict(err=max(errs[("f32", e)] for e in ("north", "east")),
+                ms=g["E north"], eager_ms=ms, east_ms=g["E east"],
+                b_ms=g["B"], plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
 
 
 def small_reference_check(evp_algorithm="auto", ndte=8):
@@ -841,19 +885,21 @@ def dedd_phase(kw64, kw32):
 
 def dedd_bound(kw):
     """(bound ms, "bytes"/"operations", text) of the float32 dEdd kernel
-    on these inputs at their nilyr: every column reads aicen and writes
-    all its planes, every cell reads coszen and the four shortwave planes;
-    only a lit column reads the other five category inputs, and only a
-    cell with one reads fnidr. Operations: DEDD_OPS_LIT_COLUMN per lit
-    column at nilyr=4, and per further ice layer its three bands' layer
-    property sets (~480 operations each)."""
+    on these inputs at their nilyr and nslyr: every column reads aicen and
+    writes all its planes, every cell reads coszen and the four shortwave
+    planes; only a lit column reads the other five category inputs, and
+    only a cell with one reads fnidr. Operations: DEDD_OPS_LIT_COLUMN per
+    lit column at 4/1, DEDD_OPS_LAYER per further layer, and with more
+    than one snow layer the third snow property set of each band."""
     ncat, ny, nx = kw["aicen"].shape
-    nout = 11 + kw["nslyr"] + 2 * kw["nilyr"] + 1
+    nilyr, nslyr = kw["nilyr"], kw["nslyr"]
+    nout = 11 + nslyr + 2 * nilyr + 1
     lit = dedd_lit(kw)
     nlit, nlit_cells = int(lit.sum()), int(lit.any(0).sum())
     nbytes = 4 * (ncat * ny * nx * (1 + nout) + 5 * ny * nx + 5 * nlit
                   + nlit_cells)
-    ops = (DEDD_OPS_LIT_COLUMN + 3 * 480 * (kw["nilyr"] - 4)) * nlit
+    ops = (DEDD_OPS_LIT_COLUMN + DEDD_OPS_LAYER * (nilyr + nslyr - 5)
+           + (3 * DEDD_OPS_PROPS if nslyr > 1 else 0)) * nlit
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations",
@@ -3117,6 +3163,204 @@ def sharded_phase():
     return {"gx1-parity sharded 2x2 (per rank)": per_step}, \
         r0["tile_kernels"]
 
+def build_cesm2_layers(dtype="float32"):
+    """``gx1_parity_config(nilyr=8, nslyr=3)`` on synth_gx1_grid (384x320,
+    ndte=120): CESM2's column in the gx1-parity physics, the default
+    70N/60S ice edge, forcing of step 0."""
+    from cice5_tpu_torch.config import gx1_parity_config
+    from cice5_tpu_torch.driver.model import Model
+    from cice5_tpu_torch.grid import synth_gx1_grid
+    nilyr, nslyr = CESM2_LAYERS
+    cfg = gx1_parity_config(nilyr=nilyr, nslyr=nslyr, dtype=dtype,
+                            accum_dtype=dtype)
+    m = Model(cfg, grid=synth_gx1_grid(cfg, device="cuda"))
+    return m, m.init_state(), m.forcing_at(0)
+
+
+def dedd_layers_check(kw64, kw32, label):
+    """Kernel C at the layer counts of the captured arguments (float64
+    ``kw64``, float32 ``kw32``): in float64 on the captured inputs with
+    the ice-free and dark bands, and with level ponds on every ice column,
+    within 1e-12 of each field's (and layer's) scale, unlit columns exact
+    zeros; in float32 the kernel's result no farther from the float64 one
+    than the plain float32's beyond DEDD_F32_TOL of scale
+    (``dedd_full_size_check``). Times one float32 call as a CUDA graph
+    replay and eagerly, with the plain version's time, the bound and the
+    resident blocks per SM of both instantiations."""
+    import torch
+    from cice5_tpu_torch.models.radiation import dedd
+    from cice5_tpu_torch.ops import check, kernels
+    nilyr, nslyr = kw32["nilyr"], kw32["nslyr"]
+    bad = []
+    for tag, kw in (("f64", kw64), ("f64 lvl ponds", with_ponds(kw64))):
+        kw = dedd_args_with_band(kw)
+        ref = dedd.shortwave_dEdd_plain(**kw)
+        got = dedd.shortwave_dEdd_ncat(**kw)
+        torch.cuda.synchronize()
+        field, rel, err = check.worst(check.field_errors(
+            ref._asdict(), got._asdict()))
+        lit = dedd_lit(kw)
+        dark = bool(all(((x if x.dim() == 3 else x.movedim(1, 0))[
+            ..., ~lit] == 0).all() for x in got))
+        snow = [float(got.Sswabsn[:, k].abs().max()) for k in range(nslyr)]
+        print(f"shortwave_dedd {label} {tag} nilyr={nilyr} nslyr={nslyr}: "
+              f"max abs diff {err:.3e}; worst field {field}: rel diff "
+              f"{rel:.3e} (bound 1e-12 x the field's scale); lit columns "
+              f"{int(lit.sum())} of {lit.numel()}; unlit columns exact "
+              f"zeros: {dark}; max |Sswabsn| per snow layer {snow}",
+              flush=True)
+        if not (rel <= 1e-12 and dark and min(snow) > 0.0):
+            bad.append(tag)
+    c = dedd_full_size_check(kw32)
+    print(f"shortwave_dedd {label} f32 nilyr={nilyr} nslyr={nslyr}: vs the "
+          f"plain float32 worst field {c['f32'][0]}: rel diff "
+          f"{c['f32'][1]:.3e}; the kernel's float32 worst distance from the "
+          f"float64 result beyond the plain float32's {c['excess'][1]:.3e} "
+          f"of scale ({c['excess'][0]}; bound {DEDD_F32_TOL:.0e}); float64 "
+          f"of the same inputs worst {c['f64'][0]} {c['f64'][1]:.3e}; unlit "
+          f"exact zeros: {c['dark']}", flush=True)
+    if not (c["f64"][1] <= 1e-12 and c["excess"][1] <= DEDD_F32_TOL
+            and c["dark"]):
+        bad.append("f32")
+    if bad:
+        fail(f"shortwave_dedd disagrees with shortwave_dEdd_plain at "
+             f"nilyr={nilyr}, nslyr={nslyr} ({label}): {bad}")
+    kw = kw32
+    eager = dedd.shortwave_dEdd_ncat(**kw)
+    ms = cuda_time_ms(lambda: dedd.shortwave_dEdd_ncat(**kw), reps=20)
+    g_ms, out = graph_ms(lambda: dedd.shortwave_dEdd_ncat(**kw), reps=50)
+    if not all(torch.equal(x, y) for x, y in zip(eager, out)):
+        fail(f"shortwave_dedd's CUDA graph replay differs from the eager "
+             f"call ({label})")
+    blocks = {dt: kernels.dedd_blocks_per_sm(nilyr, nslyr, d)
+              for dt, d in (("f32", torch.float32), ("f64", torch.float64))}
+    bound_ms, bound_by, what = dedd_bound(kw)
+    ncat, ny, nx = kw["aicen"].shape
+    print(f"shortwave_dedd {label} f32 at {ny}x{nx}, ncat={ncat}, nilyr="
+          f"{nilyr}, nslyr={nslyr}: kernel {g_ms:.4f} ms in a CUDA graph "
+          f"(eager {ms:.4f} ms), plain {c['plain_ms']:.3f} ms, bound "
+          f"{bound_ms:.4f} ms ({what}); resident blocks per SM {blocks} "
+          f"(shared memory per block "
+          f"{kernels.dedd_smem_bytes(nilyr, nslyr, 4)} / "
+          f"{kernels.dedd_smem_bytes(nilyr, nslyr, 8)} B)", flush=True)
+    return dict(nilyr=nilyr, nslyr=nslyr, err=c["f32_abs"], ms=g_ms,
+                eager_ms=ms, plain_ms=c["plain_ms"], bound_ms=bound_ms,
+                bound_by=bound_by, blocks_per_sm=blocks)
+
+
+def cesm2_layers_phase():
+    """CESM2's column (``cesm2_layers``: ``gx1_parity_config(nilyr=8,
+    nslyr=3)``, 384x320, float32, ndte=120, 27 tracers) through
+    ``Model.run`` with a history stream of every available field (the
+    layered 4Di and 4Ds ones among them), 4 steps after 2: A, B and C once
+    per step, the bench.py guards, peak memory, the graph rollout against
+    the eager step at 0.0 and the rollout's ms/step; the history file read
+    back (8 ice and 3 snow levels, every variable finite); a CICE 5 dump at
+    step 2 of 4 restored into a fresh Model, whose run equals the
+    continuous one at 0.0 in every State field the dump carries. Then B
+    (the 27-tracer table) and C at 8/3 against their plain versions on the
+    path's inputs (``dedd_layers_check``), and the small float64 layer sets
+    of ``cice5_tpu_torch/small_sets.py`` on the card against the CPU.
+    Returns ({path: launches per step}, C's result, B's result)."""
+    import dataclasses
+    import tempfile
+    import numpy as np
+    import torch
+    from scipy.io import netcdf_file
+    from cice5_tpu_torch import small_sets
+    from cice5_tpu_torch.io import history as hist
+    from cice5_tpu_torch.io import restart_v5
+    from cice5_tpu_torch.state import State
+    nilyr, nslyr = CESM2_LAYERS
+    quiet = lambda *a: None
+    fresh_path()
+    m, st, _ = build_cesm2_layers()
+    if (m.cfg.nilyr, m.cfg.nslyr, m.tr.ntrcr) != (nilyr, nslyr, 27):
+        fail(f"cesm2_layers: nilyr={m.cfg.nilyr}, nslyr={m.cfg.nslyr}, "
+             f"{m.tr.ntrcr} tracers (expected {nilyr}, {nslyr}, 27)")
+    fields = hist.available_fields(m.cfg, m.tr)
+    layered = {f.name: f.dims for f in fields if f.dims in ("4Di", "4Ds")}
+    if sorted(set(layered.values())) != ["4Di", "4Ds"]:
+        fail(f"cesm2_layers: the history catalog's layered fields {layered}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cesm2_") as tmp:
+        def report(m, st, diag):
+            files = sorted(os.listdir(f"{tmp}/history"))
+            if len(files) != 1:
+                fail(f"cesm2_layers: history files {files}")
+            with netcdf_file(f"{tmp}/history/{files[0]}", "r",
+                             mmap=False) as nc:
+                levels = (nc.dimensions["nkice"], nc.dimensions["nksnow"])
+                for k, v in nc.variables.items():
+                    if not np.isfinite(np.asarray(v[:])).all():
+                        fail(f"cesm2_layers: history {k} is not finite")
+                tsnz = np.asarray(nc.variables["Tsnz"][:])
+            if levels != (nilyr, nslyr):
+                fail(f"cesm2_layers: history levels {levels}")
+            # the rollout over the run's forcing of step 6, graphs captured
+            f = m.forcing_at(6)
+            roll = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m.rollout(st, f, 4)
+                torch.cuda.synchronize()
+                roll.append((time.perf_counter() - t0) / 4 * 1e3)
+            # the CICE 5 dump at step 2 of 4, a fresh Model, 2 more steps
+            s0 = 6
+            cont = m.run(st, 4, start_step=s0, log=quiet)
+            half = m.run(st, 2, start_step=s0, log=quiet)
+            core = f"{tmp}/restart/iced.{s0 + 2:05d}"
+            paths = restart_v5.write_restart_v5(
+                half, core, m.cfg, m.tr, istep=s0 + 2,
+                time=(s0 + 2) * m.cfg.time.dt)
+            m2, _, _ = build_cesm2_layers()
+            st_r, meta = restart_v5.read_restart_v5(core, m2.cfg, m2.tr,
+                                                    device=m2.device)
+            if meta["istep"] != s0 + 2 or meta.get("missing_files"):
+                fail(f"cesm2_layers: v5 dump meta {meta}")
+            out = m2.run(st_r, 2, start_step=s0 + 2, log=quiet)
+            torch.cuda.synchronize()
+            carried = [fl.name for fl in dataclasses.fields(State)
+                       if fl.name != "mlt_onset"]
+            differ = [n for n in carried
+                      if not torch.equal(getattr(out, n), getattr(cont, n))]
+            diff = max(float((getattr(out, n).double()
+                              - getattr(cont, n).double()).abs().max())
+                       for n in carried if getattr(cont, n).numel())
+            if differ:
+                fail(f"cesm2_layers: the run restored from the CICE 5 dump "
+                     f"differs from the continuous run in {differ} (max abs "
+                     f"diff {diff:.3e})")
+            return dict(nslyr=nslyr, ntrcr=m.tr.ntrcr,
+                        ms_per_step_rollout=roll,
+                        history_fields=len(fields),
+                        layered_history_fields=layered,
+                        history_levels=list(levels),
+                        Tsnz_range=[float(tsnz.min()), float(tsnz.max())],
+                        v5_dump_bytes=sum(os.path.getsize(p) for p in paths),
+                        v5_restore_max_abs_diff=diff)
+
+        launches = {"cesm2_layers": option_path(
+            "cesm2_layers", m, st, 4,
+            dict(evp_sweep=1, remap_flux_both=1, shortwave_dedd=1),
+            drive="run", report=report, run_kw=dict(
+                history=hist.HistoryStream(fields, freq="1", freq_n=4),
+                history_dir=f"{tmp}/history"))}
+    del m, st
+    fresh_path()
+    caps = {dt: capture(build_cesm2_layers, dt)
+            for dt in ("float64", "float32")}
+    b = remap_phase(caps["float64"][1]["remap"], caps["float32"][1]["remap"],
+                    caps["float64"][0], caps["float32"][0], "cesm2_layers")
+    c = dedd_layers_check(caps["float64"][1]["dedd"],
+                          caps["float32"][1]["dedd"], "cesm2_layers")
+    del caps
+    fresh_path()
+    for label, cfg in small_sets.layer_option_sets().items():
+        small_option_check(label, cfg)
+    return launches, c, b
+
+
 def main():
     try:
         import torch
@@ -3136,10 +3380,11 @@ def main():
 
     card = card_line()
     print(f"card: {card}", flush=True)
-    t_build = kernels.build_all()
+    libs = [*kernels.KERNELS.values(), kernels.dedd_kernel(*CESM2_LAYERS)]
+    t_build = kernels.build_all(libs)
     print(f"kernel build: {t_build:.2f} s for "
-          f"{len({k.source for k in kernels.KERNELS.values()})} sources",
-          flush=True)
+          f"{len({k.library for k in libs})} libraries from "
+          f"{len({k.source for k in libs})} sources", flush=True)
     ptxas_phase()
 
     # slice 1: the BL99 model's kernel inputs (open boundaries, 18 tracers)
@@ -3202,6 +3447,8 @@ def main():
     bgc_launches, b_bgc = tracer_phase()
     by_path.update(bgc_launches)
     by_path.update(file_forcing_phase())
+    cesm2_launches, c_layers, b_layers = cesm2_layers_phase()
+    by_path.update(cesm2_launches)
     sharded_launches, tile = sharded_phase()
     by_path.update(sharded_launches)
     by_path.update({"gx1-parity": {k: v // 10 for k, v in launches.items()},
@@ -3234,7 +3481,13 @@ def main():
                           * 4, max_abs_err=b_bgc["err"], ms=b_bgc["ms"],
                           plain_ms=b_bgc["plain_ms"],
                           bound_ms=b_bgc["bound_ms"],
-                          bound_by=b_bgc["bound_by"])),
+                          bound_by=b_bgc["bound_by"]),
+             cesm2_layers=dict(
+                 launches=by_path["cesm2_layers"]["remap_flux_both"] * 4,
+                 max_abs_err=b_layers["err"], ms=b_layers["ms"],
+                 plain_ms=b_layers["plain_ms"],
+                 bound_ms=b_layers["bound_ms"],
+                 bound_by=b_layers["bound_by"])),
         dict(name="shortwave_dedd", route="cuda",
              source="cice5_tpu_torch/csrc/shortwave_dedd.cu",
              replaces="cice5_tpu/ops/pallas/dedd_fused.py:51",
@@ -3242,7 +3495,11 @@ def main():
              ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
              bound_by=c["bound_by"], library_ms=None,
              launches_per_step_by_path=per_path("shortwave_dedd"),
-             sharded_tile=tile["shortwave_dedd"]),
+             sharded_tile=tile["shortwave_dedd"],
+             cesm2_layers=dict(
+                 {k: v for k, v in c_layers.items() if k != "err"},
+                 launches=by_path["cesm2_layers"]["shortwave_dedd"] * 4,
+                 max_abs_err=c_layers["err"])),
         dict(name="evp_fused", route="cuda",
              source="cice5_tpu_torch/csrc/evp_resident.cu",
              replaces="cice5_tpu/ops/pallas/evp_fused.py:49",
@@ -3250,13 +3507,15 @@ def main():
              ms=d["ms"], plain_ms=d["plain_ms"], bound_ms=d["bound_ms"],
              bound_by=d["bound_by"], library_ms=None,
              launches_per_step_by_path=per_path("evp_fused")),
-        # no main path calls the single-edge kernel (0 launches on each)
+        # no main path calls the single-edge kernel (0 launches on each);
+        # its time beside B's on the same inputs
         dict(name="remap_flux_edge", route="cuda",
-             source="cice5_tpu_torch/csrc/remap_flux_edge.cu",
+             source="cice5_tpu_torch/csrc/remap_tiles.cu",
              replaces="cice5_tpu/ops/pallas/remap_flux.py:75",
              launches=launches["remap_flux_edge"], max_abs_err=e["err"],
              ms=e["ms"], plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
-             bound_by=e["bound_by"], library_ms=None,
+             bound_by=e["bound_by"], library_ms=None, eager_ms=e["eager_ms"],
+             east_ms=e["east_ms"], remap_flux_both_same_inputs_ms=e["b_ms"],
              launches_per_step_by_path=per_path("remap_flux_edge")),
     ]}
     print(json.dumps(line))

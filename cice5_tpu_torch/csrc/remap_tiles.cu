@@ -1,13 +1,14 @@
-// Incremental-remap reconstruction + transport integrals of both edge sets
-// for NVIDIA Hopper (sm_90a), one launch per call, the reconstruction of a
-// tile kept in shared memory.
+// Incremental-remap reconstruction + transport integrals of both edge sets,
+// or of one, for NVIDIA Hopper (sm_90a), one launch per call, the
+// reconstruction of a tile kept in shared memory.
 //
-// Replaces: the Pallas kernel integrals_tiled_both of the JAX package
-// (cice5_tpu/ops/pallas/remap_flux.py:163), exported as
-// remap_flux_both_<type>. From the RAW mass field mm (aicen), the
-// class-sorted tracer stack tm and the ocean mask hm, each with a W=2 ghost
-// ring (the tripole fold or the cyclic wrap is already in them), it
-// computes
+// Replaces: the Pallas kernels integrals_tiled_both (both edge sets,
+// exported as remap_flux_both_<type>) and integrals_tiled (one edge set,
+// exported as remap_flux_edge_<type>) of the JAX package
+// (cice5_tpu/ops/pallas/remap_flux.py:163 and :75). From the RAW mass field
+// mm (aicen), the class-sorted tracer stack tm and the ocean mask hm, each
+// with a W=2 ghost ring (the tripole fold or the cyclic wrap is already in
+// them), it computes
 //   1. the van-Leer limited linear reconstruction (centre value and x/y
 //      gradients) of the mass field and of every tracer
 //      (models/transport/remap.py:_reconstruct_ext; construct_fields,
@@ -28,6 +29,15 @@
 // memory once per call (the other categories find it in L2); a block
 // that skips reads none. Threads 0-255 own the north edges of the tile,
 // 256-511 its east edges.
+//   - One edge set (the template's EDGES 0 north, 1 east; 2 is both): the
+//     same blocks and pipeline, threads 0-255 own the tile's edges of the
+//     set and 256-511 take part in the loads and the reconstruction only.
+//     The pipeline's stages need 432 (raw window) and 340 (one-ring
+//     window) threads, so a 256-thread block would loop twice per stage,
+//     and a 16x32 tile of one set would need a 612-cell window; the idle
+//     half costs a skipped integration per step. Each edge is computed by
+//     the code that computes it in the two-set kernel, so the one-set
+//     kernel's fluxes equal that half of the two-set call bit for bit.
 //   - Ice skip first: the block reads its category's raw mm window
 //     ((8+4) x (32+4) cells, every cell a flux of the tile reaches through
 //     the reconstruction); if it holds no ice the block writes exact zeros
@@ -53,10 +63,8 @@
 //     is indexed at run time. A thread loads its raw window cell of the
 //     next tracer one step ahead, so the load's latency hides behind the
 //     step.
-// The arithmetic is that of the first version of this kernel (the
-// remap_recon and remap_flux<EDGE> code that csrc/remap_flux_edge.cu keeps
-// for kernel E), in the same order, built without FMA contraction,
-// so the two give the same bits.
+// The arithmetic is that of the plain version (remap.py:_reconstruct_ext,
+// _integrals) in the same order, built without FMA contraction.
 //
 // Bound on the H100: memory. At 384x320, ncat=5, ntrace=18, float32 the
 // call must read the raw fields (45 MB) and the triangle geometry of both
@@ -65,7 +73,8 @@
 // tenth of the ocean (gx1-parity) the reads shrink to the tiles within
 // reach of ice and the flux writes (exact zeros elsewhere) dominate. The
 // arithmetic (a few thousand operations per edge and category) is a few
-// tens of microseconds in float32.
+// tens of microseconds in float32. One edge set moves half the geometry
+// and the fluxes, and the same raw fields.
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -197,7 +206,7 @@ __host__ __device__ constexpr size_t smem_values(int nslot) {
   return (size_t)NW * (4 + nslot) + (size_t)NR * (5 + 6 + 5 * nslot);
 }
 
-template <typename T>
+template <typename T, int EDGES>
 __global__ void __launch_bounds__(THREADS, sizeof(T) == 4 ? 2 : 1)
 remap_tiles(int ncat, int ntrace, int ny, int nx, int ntx, Table tab,
             const T* __restrict__ mmE2, const T* __restrict__ tmE2,
@@ -233,13 +242,14 @@ remap_tiles(int ncat, int ntrace, int ny, int nx, int ntx, Table tab,
   const T mval = in_win ? mmE2[c * np2 + gw] : T(0);
   if (tid < NW) mmw[tid] = mval;
 
-  // this thread's edge: north (ny+1, nx) or east (ny, nx+1)
-  const bool east = tid >= NEDGE;
-  const int e = east ? tid - NEDGE : tid;
+  // this thread's edge: north (ny+1, nx) or east (ny, nx+1); with one
+  // edge set, threads NEDGE.. own none
+  const bool east = EDGES == 2 ? tid >= NEDGE : EDGES == 1;
+  const int e = tid >= NEDGE ? tid - NEDGE : tid;
   const int ly = e / TX, lx = e % TX;
   const int j = j0 + ly, i = i0 + lx;
   const int nyr = east ? ny : ny + 1, nxr = east ? nx + 1 : nx;
-  const bool valid = j < nyr && i < nxr;
+  const bool valid = (EDGES == 2 || tid < NEDGE) && j < nyr && i < nxr;
   const int npE = nyr * nxr;
   const int ke = j * nxr + i;                   // edge in its set's plane
   const int kt = c * ntrace * npE + ke;         // its tracer 0 flux
@@ -466,7 +476,7 @@ bool make_table(int ntrace, const int* ttype, const int* parent,
   return true;
 }
 
-template <typename T>
+template <typename T, int EDGES>
 int run(int ncat, int ntrace, int ny, int nx, const int* ttype,
         const int* parent, const T* mmE2, const T* tmE2, const T* hmE2,
         const int* dnN, const T* taN, const T* qxN, const T* qyN,
@@ -485,14 +495,14 @@ int run(int ncat, int ntrace, int ny, int nx, const int* ttype,
   static size_t smem_set = 48 * 1024;
   if (smem > smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        remap_tiles<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        remap_tiles<T, EDGES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
     smem_set = smem;
   }
   const int nty = (ny + 1 + TY - 1) / TY, ntx = (nx + 1 + TX - 1) / TX;
   const unsigned blocks = (unsigned)ncat * nty * ntx;
-  remap_tiles<T><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+  remap_tiles<T, EDGES><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
       ncat, ntrace, ny, nx, ntx, tab, mmE2, tmE2, hmE2, dnN, taN, qxN, qyN,
       dnE, taE, qxE, qyE, fn_mflx, fn_mtflx, fe_mflx, fe_mtflx);
   return (int)cudaGetLastError();
@@ -510,9 +520,9 @@ int remap_flux_both_f32(int ncat, int ntrace, int ny, int nx,
                         const float* taE, const float* qxE, const float* qyE,
                         float* fn_mflx, float* fn_mtflx, float* fe_mflx,
                         float* fe_mtflx, void* stream) {
-  return run<float>(ncat, ntrace, ny, nx, ttype, parent, mmE2, tmE2, hmE2,
-                    dnN, taN, qxN, qyN, dnE, taE, qxE, qyE, fn_mflx,
-                    fn_mtflx, fe_mflx, fe_mtflx, stream);
+  return run<float, 2>(ncat, ntrace, ny, nx, ttype, parent, mmE2, tmE2,
+                       hmE2, dnN, taN, qxN, qyN, dnE, taE, qxE, qyE, fn_mflx,
+                       fn_mtflx, fe_mflx, fe_mtflx, stream);
 }
 
 int remap_flux_both_f64(int ncat, int ntrace, int ny, int nx,
@@ -524,12 +534,48 @@ int remap_flux_both_f64(int ncat, int ntrace, int ny, int nx,
                         const double* qxE, const double* qyE,
                         double* fn_mflx, double* fn_mtflx, double* fe_mflx,
                         double* fe_mtflx, void* stream) {
-  return run<double>(ncat, ntrace, ny, nx, ttype, parent, mmE2, tmE2, hmE2,
-                     dnN, taN, qxN, qyN, dnE, taE, qxE, qyE, fn_mflx,
-                     fn_mtflx, fe_mflx, fe_mtflx, stream);
+  return run<double, 2>(ncat, ntrace, ny, nx, ttype, parent, mmE2, tmE2,
+                        hmE2, dnN, taN, qxN, qyN, dnE, taE, qxE, qyE, fn_mflx,
+                        fn_mtflx, fe_mflx, fe_mtflx, stream);
 }
 
 const char* remap_flux_both_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+// one edge set (east = 0: the north edges (ny+1, nx), 1: the east edges
+// (ny, nx+1)) with its geometry (dn, ta, qx, qy) and fluxes
+int remap_flux_edge_f32(int east, int ncat, int ntrace, int ny, int nx,
+                        const int* ttype, const int* parent,
+                        const float* mmE2, const float* tmE2,
+                        const float* hmE2, const int* dn, const float* ta,
+                        const float* qx, const float* qy, float* mflx,
+                        float* mtflx, void* stream) {
+  if (east)
+    return run<float, 1>(ncat, ntrace, ny, nx, ttype, parent, mmE2, tmE2,
+                         hmE2, nullptr, nullptr, nullptr, nullptr, dn, ta,
+                         qx, qy, nullptr, nullptr, mflx, mtflx, stream);
+  return run<float, 0>(ncat, ntrace, ny, nx, ttype, parent, mmE2, tmE2, hmE2,
+                       dn, ta, qx, qy, nullptr, nullptr, nullptr, nullptr,
+                       mflx, mtflx, nullptr, nullptr, stream);
+}
+
+int remap_flux_edge_f64(int east, int ncat, int ntrace, int ny, int nx,
+                        const int* ttype, const int* parent,
+                        const double* mmE2, const double* tmE2,
+                        const double* hmE2, const int* dn, const double* ta,
+                        const double* qx, const double* qy, double* mflx,
+                        double* mtflx, void* stream) {
+  if (east)
+    return run<double, 1>(ncat, ntrace, ny, nx, ttype, parent, mmE2, tmE2,
+                          hmE2, nullptr, nullptr, nullptr, nullptr, dn, ta,
+                          qx, qy, nullptr, nullptr, mflx, mtflx, stream);
+  return run<double, 0>(ncat, ntrace, ny, nx, ttype, parent, mmE2, tmE2,
+                        hmE2, dn, ta, qx, qy, nullptr, nullptr, nullptr,
+                        nullptr, mflx, mtflx, nullptr, nullptr, stream);
+}
+
+const char* remap_flux_edge_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 

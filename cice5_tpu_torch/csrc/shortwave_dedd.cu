@@ -44,6 +44,14 @@
 //     dedd.py:_interp_table computes them), the 31 clamp weights of a lane's
 //     grain radius are computed once for its three lookups, and the
 //     Gaussian points, weights and their sum are compile-time constants.
+//   - The layer counts are compile-time: the default build instantiates
+//     (nilyr, nslyr) = (4, 1) and (7, 1), and a build with -DDEDD_NI=<n>
+//     -DDEDD_NS=<m> instantiates that pair alone, into a library of its
+//     own (ops/kernels.py builds it at the pair's first use). A lane's slot
+//     grows with the layers (lane_values: 115 values at 8/3, 123 KB of
+//     shared memory per block in float64); the wrapper refuses a pair
+//     whose block does not fit the card's shared memory. Above 10 layers
+//     the adding state goes back through the lane's slot (reload_lane).
 // Every expression keeps the plain version's operation order (the build
 // turns off FMA contraction, ops/kernels.py NVCC_FLAGS), and each column
 // writes only its own outputs, so no result depends on the schedule.
@@ -305,6 +313,17 @@ struct PondStack {
   }
 };
 
+// a compiler barrier on memory for stacks of more than 10 layers (7/1's):
+// after it the lane's arrays are read back from shared memory, not
+// forwarded in registers from the stores before it. Forwarded, the
+// downward state and the interface fluxes of 13 layers (8/3) push the
+// float64 kernel past 255 registers into spills; behind the barrier it
+// takes 212
+template <int KL>
+__device__ __forceinline__ void reload_lane() {
+  if constexpr (KL > 10) asm volatile("" ::: "memory");
+}
+
 // adding method over the layer stack with the TRMIN gate (dedd.py:_adding)
 // and the net downward flux factors of every interface (dedd.py:_net_k),
 // KL layers and KL + 1 interfaces. The downward state of each interface
@@ -346,6 +365,7 @@ __device__ __forceinline__ void adding(const Stack& prop, T albo,
     const T f = trndif * (T(1) - rupdif) * refk;
     L[5 * N1 + k] = f < T(PUNY) ? T(0) : f;
   };
+  reload_lane<KL>();
   T rupdir = albo, rupdif = albo;
   flux(KL, rupdir, rupdif);
 #pragma unroll
@@ -390,6 +410,7 @@ __device__ __forceinline__ void partition_mix(const Lane<T>& L, bool leader,
   constexpr int ACC = 6 * N1;                 // the lane's output entries
   constexpr int NOUT = 11 + NS + NI + NI + 1;
   constexpr int ksrf = SRF == 1 ? 1 : NS + 2;
+  reload_lane<KLEV + 1>();
   const T r1 = __shfl_down_sync(FULL, rup0dir, 1);
   const T r2 = __shfl_down_sync(FULL, rup0dir, 2);
   const T f1 = __shfl_down_sync(FULL, rup0dif, 1);
@@ -440,7 +461,7 @@ __device__ __forceinline__ void partition_mix(const Lane<T>& L, bool leader,
                             + T(AWTVDF) * avdf + T(AWTIDF) * aidf;
 }
 
-// lanes per shared-memory slot of a thread: the adding arrays (6 x
+// values per shared-memory slot of a thread: the adding arrays (6 x
 // (klev+2)) and the outputs (11 + nslyr + 2 nilyr + 1)
 template <int NI, int NS>
 __host__ __device__ constexpr int lane_values() {
@@ -746,6 +767,32 @@ cudaError_t launch(int ncat, int ny, int nx, const Inputs<T>& in,
   return cudaGetLastError();
 }
 
+// resident blocks per SM of the instantiation <T, NI, NS> with its
+// shared memory (the cooperative launch's grid is that times the SMs)
+template <typename T, int NI, int NS>
+int blocks_per_sm(int* blocks) {
+  auto fn = shortwave_dedd_kernel<T, NI, NS>;
+  const size_t smem = NTABV * sizeof(double)
+                      + (size_t)lane_values<NI, NS>() * NT * sizeof(T);
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, NT,
+                                                            smem);
+}
+
+template <typename T>
+int occupancy(int nilyr, int nslyr, int* blocks) {
+#if defined(DEDD_NI) && defined(DEDD_NS)
+  if (nilyr == DEDD_NI && nslyr == DEDD_NS)
+    return blocks_per_sm<T, DEDD_NI, DEDD_NS>(blocks);
+#else
+  if (nslyr == 1 && nilyr == 4) return blocks_per_sm<T, 4, 1>(blocks);
+  if (nslyr == 1 && nilyr == 7) return blocks_per_sm<T, 7, 1>(blocks);
+#endif
+  return (int)cudaErrorInvalidValue;
+}
+
 template <typename T>
 int run(int ncat, int ny, int nx, int nilyr, int nslyr, const T* aicen,
         const T* vicen, const T* vsnon, const T* Tsfcn, const T* apnd,
@@ -761,10 +808,16 @@ int run(int ncat, int ny, int nx, int nilyr, int nslyr, const T* aicen,
   const cudaStream_t s = (cudaStream_t)stream;
   if ((size_t)ncat * ny * nx >= ((size_t)1 << 31))
     return (int)cudaErrorInvalidValue;
+#if defined(DEDD_NI) && defined(DEDD_NS)
+  if (nilyr == DEDD_NI && nslyr == DEDD_NS)
+    return (int)launch<T, DEDD_NI, DEDD_NS>(ncat, ny, nx, in, tab, prm, out,
+                                            work, s);
+#else
   if (nslyr == 1 && nilyr == 4)
     return (int)launch<T, 4, 1>(ncat, ny, nx, in, tab, prm, out, work, s);
   if (nslyr == 1 && nilyr == 7)
     return (int)launch<T, 7, 1>(ncat, ny, nx, in, tab, prm, out, work, s);
+#endif
   return (int)cudaErrorInvalidValue;
 }
 
@@ -804,6 +857,14 @@ int shortwave_dedd_f64(int ncat, int ny, int nx, int nilyr, int nslyr,
                      apnd, hpnd, coszen, fnidr, swvdr, swvdf, swidr, swidf,
                      tab, rsnw_nm, rsnw_mlt, dT_mlt, kalg, hs0, hs1,
                      pndaspect, pond_scheme, out, work, stream);
+}
+
+// resident blocks per SM of the (nilyr, nslyr) instantiation in float32
+// (f64 = 0) or float64 (f64 = 1)
+int shortwave_dedd_blocks_per_sm(int nilyr, int nslyr, int f64,
+                                 int* blocks) {
+  return f64 ? occupancy<double>(nilyr, nslyr, blocks)
+             : occupancy<float>(nilyr, nslyr, blocks);
 }
 
 const char* shortwave_dedd_error_string(int err) {

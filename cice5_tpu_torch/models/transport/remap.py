@@ -595,9 +595,10 @@ def remap_flux_edge_plain(edge: str, geom, mmE2, tmE2, hmE2, tracer_type,
 def remap_flux_edge(edge: str, geom, mmE2, tmE2, hmE2, tracer_type, parent,
                     ny: int, nx: int):
     """``remap_flux_edge_plain`` with the same signature and results: the
-    plain version for CPU tensors, the ``remap_flux_edge`` CUDA kernel
-    (csrc/remap_flux_edge.cu) for CUDA tensors. Nothing on the model's path
-    calls it (the step takes both edge sets in one ``remap_flux_both``)."""
+    plain version for CPU tensors, the ``remap_flux_edge`` CUDA kernel (the
+    one-edge mode of csrc/remap_tiles.cu) for CUDA tensors. Nothing on the
+    model's path calls it (the step takes both edge sets in one
+    ``remap_flux_both``)."""
     if mmE2.device.type == "cpu":
         return remap_flux_edge_plain(edge, geom, mmE2, tmE2, hmE2,
                                      tracer_type, parent, ny, nx)

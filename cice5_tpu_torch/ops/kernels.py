@@ -8,10 +8,12 @@ Nothing here runs when the module is imported, so the CPU tests import it
 on machines without CUDA.
 
 A source may export more than one kernel (``evp_resident.cu`` holds both
-EVP kernels), and a kernel's source may have another name than the kernel
-(``remap_flux_both`` is ``remap_tiles.cu``); a kernel is rebuilt when its
-source, or a ``csrc/*.cuh`` header the source includes, is newer than its
-library.
+EVP kernels, ``remap_tiles.cu`` both remap kernels), and a kernel's source
+may have another name than the kernel (``remap_flux_both`` is
+``remap_tiles.cu``); a kernel may be built in variants, each with its own
+macros and library (kernel C per pair of layer counts); a library is
+rebuilt when its source, or a ``csrc/*.cuh`` header the source includes,
+is newer than it.
 
 The launch functions take CUDA tensors only: they check device, dtype,
 shape and contiguity, allocate their outputs with ``torch.empty``, launch
@@ -77,28 +79,56 @@ _ARGTYPES = {
     "shortwave_dedd": [_I] * 5 + [_VP] * 13 + [_D] * 7 + [_I] + [_VP] * 3,
     "evp_fused": [_I] * 4 + [_VP] * 7 + [_I] + [_D] * 8 + [_VP] * 5
     + [_IP, _VP, _VP, _VP],
-    "remap_flux_edge": [_I] * 5 + [_IP, _IP] + [_VP] * 11,
+    "remap_flux_edge": [_I] * 5 + [_IP, _IP] + [_VP] * 10,
 }
 
 
 class CudaKernel:
     """One kernel, exported as ``<name>_f32``/``<name>_f64`` by the source
     ``csrc/<source>.cu`` (by default ``<name>.cu``): its build, its
-    library, and the count of launches made through its wrapper."""
+    library, and the count of launches made through its wrapper.
 
-    def __init__(self, name: str, source: str | None = None):
+    ``defines`` are preprocessor macros of the build (``-D<k>=<v>``); a
+    kernel built with some has a library of its own, named after them
+    (``variant``)."""
+
+    def __init__(self, name: str, source: str | None = None,
+                 defines: dict[str, int] | None = None):
         self.name = name
         self.source = _SRC_DIR / f"{source or name}.cu"
+        self.defines = dict(defines or {})
         self.launches = 0
         self.build_log = ""      # ptxas's report of the last build
         self._lib = None
+        self._counter = self     # the kernel whose launches this one counts
+        self._variants: dict[tuple, CudaKernel] = {}
+
+    def variant(self, **defines: int) -> "CudaKernel":
+        """This kernel built with the macros ``defines`` into its own
+        library, ``lib<source>_<k><v>...so`` with ``k`` the last part of
+        each macro's name in lower case (``DEDD_NI=8, DEDD_NS=3``:
+        ``libshortwave_dedd_ni8_ns3.so``). Its launches count on this
+        kernel."""
+        key = tuple(sorted(defines.items()))
+        if key not in self._variants:
+            v = CudaKernel(self.name, self.source.stem, dict(key))
+            v._counter = self
+            self._variants[key] = v
+        return self._variants[key]
+
+    def variants(self) -> list["CudaKernel"]:
+        """The variants made so far."""
+        return list(self._variants.values())
 
     @property
     def library(self) -> Path:
-        return build_dir() / f"lib{self.source.stem}.so"
+        tag = "".join(f"_{k.rsplit('_', 1)[-1].lower()}{v}"
+                      for k, v in self.defines.items())
+        return build_dir() / f"lib{self.source.stem}{tag}.so"
 
     def build_command(self, out: Path | None = None) -> list[str]:
-        return [_nvcc(), *NVCC_FLAGS, "--resource-usage", "-o",
+        return [_nvcc(), *NVCC_FLAGS, "--resource-usage",
+                *(f"-D{k}={v}" for k, v in self.defines.items()), "-o",
                 str(out or self.library), str(self.source)]
 
     def headers(self) -> list[Path]:
@@ -141,7 +171,7 @@ class CudaKernel:
             msg = getattr(lib, f"{self.name}_error_string")(err)
             raise RuntimeError(f"{self.name}: CUDA error {err}: "
                                f"{msg.decode()}")
-        self.launches += 1
+        self._counter.launches += 1
 
 
 KERNELS = {k.name: k for k in (
@@ -149,7 +179,7 @@ KERNELS = {k.name: k for k in (
     CudaKernel("remap_flux_both", source="remap_tiles"),
     CudaKernel("shortwave_dedd"),
     CudaKernel("evp_fused", source="evp_resident"),
-    CudaKernel("remap_flux_edge"))}
+    CudaKernel("remap_flux_edge", source="remap_tiles"))}
 
 
 @contextlib.contextmanager
@@ -173,7 +203,7 @@ def build_all(kernels=None) -> float:
     this process and renamed into place, so a process that loads it never
     sees a part-written file. Returns the wall seconds taken."""
     ks = list(KERNELS.values()) if kernels is None else list(kernels)
-    ks = list({k.source: k for k in ks}.values())     # one build per source
+    ks = list({k.library: k for k in ks}.values())    # one build per library
     build_dir().mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     tmp = {k: k.library.with_name(f"{k.library.name}.{os.getpid()}.tmp")
@@ -191,8 +221,9 @@ def build_all(kernels=None) -> float:
         else:
             os.replace(tmp[k], k.library)
         for other in KERNELS.values():
-            if other.source == k.source:
-                other.build_log = out
+            for o in (other, *other.variants()):
+                if o.library == k.library:
+                    o.build_log = out
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return time.perf_counter() - t0
@@ -441,6 +472,23 @@ def _tracer_table(name, tracer_type, parent):
             (ctypes.c_int * ntrace)(*[int(q) for q in parent]))
 
 
+def _check_remap(name, mmE2, tmE2, hmE2, tracer_type, parent, ny, nx):
+    """Check the fields and the tracer table of the remap kernels; returns
+    (device, dtype, ncat, ntrace, the table's ctypes arrays)."""
+    device, dtype = _cuda_device(mmE2)
+    ncat, ntrace = tmE2.shape[0], tmE2.shape[1]
+    _check("mmE2", mmE2, (ncat, ny + 4, nx + 4), dtype, device)
+    _check("tmE2", tmE2, (ncat, ntrace, ny + 4, nx + 4), dtype, device)
+    _check("hmE2", hmE2, (ny + 4, nx + 4), dtype, device)
+    ttype, par = _tracer_table(name, tracer_type, parent)
+    keys = [(t, q if t >= 2 else -1) for t, q in zip(tracer_type, parent)]
+    if keys != sorted(keys) or any(t >= 2 and not 0 <= q < nt
+                                   for nt, (t, q) in enumerate(keys)):
+        raise ValueError(f"{name} takes a class-sorted stack, parents "
+                         "first (remap.tracer_table)")
+    return device, dtype, ncat, ntrace, ttype, par
+
+
 def remap_flux_both(*, mmE2, tmE2, hmE2, geomN, geomE, tracer_type, parent,
                     ny: int, nx: int):
     """Launch csrc/remap_tiles.cu: reconstruction + transport integrals of
@@ -452,19 +500,10 @@ def remap_flux_both(*, mmE2, tmE2, hmE2, geomN, geomE, tracer_type, parent,
     (6, nyr, nxr), qx, qy (6, 3, nyr, nxr)) for the north (ny+1, nx) and
     east (ny, nx+1) edges. Returns (fn_mflx, fn_mtflx, fe_mflx,
     fe_mtflx)."""
-    device, dtype = _cuda_device(mmE2)
-    ncat, ntrace = tmE2.shape[0], tmE2.shape[1]
-    _check("mmE2", mmE2, (ncat, ny + 4, nx + 4), dtype, device)
-    _check("tmE2", tmE2, (ncat, ntrace, ny + 4, nx + 4), dtype, device)
-    _check("hmE2", hmE2, (ny + 4, nx + 4), dtype, device)
+    device, dtype, ncat, ntrace, ttype, par = _check_remap(
+        "remap_flux_both", mmE2, tmE2, hmE2, tracer_type, parent, ny, nx)
     _check_geom("north", geomN, ny + 1, nx, dtype, device)
     _check_geom("east", geomE, ny, nx + 1, dtype, device)
-    ttype, par = _tracer_table("remap_flux_both", tracer_type, parent)
-    keys = [(t, q if t >= 2 else -1) for t, q in zip(tracer_type, parent)]
-    if keys != sorted(keys) or any(t >= 2 and not 0 <= q < nt
-                                   for nt, (t, q) in enumerate(keys)):
-        raise ValueError("remap_flux_both takes a class-sorted stack, "
-                         "parents first (remap.tracer_table)")
     out = (torch.empty((ncat, ny + 1, nx), dtype=dtype, device=device),
            torch.empty((ncat, ntrace, ny + 1, nx), dtype=dtype,
                        device=device),
@@ -480,30 +519,82 @@ def remap_flux_both(*, mmE2, tmE2, hmE2, geomN, geomE, tracer_type, parent,
 
 def remap_flux_edge(*, edge: str, mmE2, tmE2, hmE2, geom, tracer_type,
                     parent, ny: int, nx: int):
-    """Launch csrc/remap_flux_edge.cu: reconstruction + transport
-    integrals of ONE edge set (``edge`` "north": (ny+1, nx) edges; "east":
-    (ny, nx+1)), all categories. Takes what
-    ``remap_flux_both`` takes with one geometry set. Returns (mflx
+    """Launch the one-edge mode of csrc/remap_tiles.cu (entry
+    ``remap_flux_edge``): reconstruction + transport integrals of ONE edge
+    set (``edge`` "north": (ny+1, nx) edges; "east": (ny, nx+1)), all
+    categories, in one launch on ``remap_flux_both``'s grid. Takes what
+    ``remap_flux_both`` takes with one geometry set; its fluxes equal that
+    set's half of ``remap_flux_both`` bit for bit. Returns (mflx
     (ncat, nyr, nxr), mtflx (ncat, ntrace, nyr, nxr))."""
-    device, dtype = _cuda_device(mmE2)
     if edge not in ("north", "east"):
         raise ValueError(f"edge must be 'north' or 'east', not {edge!r}")
-    ncat, ntrace = tmE2.shape[0], tmE2.shape[1]
-    _check("mmE2", mmE2, (ncat, ny + 4, nx + 4), dtype, device)
-    _check("tmE2", tmE2, (ncat, ntrace, ny + 4, nx + 4), dtype, device)
-    _check("hmE2", hmE2, (ny + 4, nx + 4), dtype, device)
+    device, dtype, ncat, ntrace, ttype, par = _check_remap(
+        "remap_flux_edge", mmE2, tmE2, hmE2, tracer_type, parent, ny, nx)
     nyr, nxr = (ny + 1, nx) if edge == "north" else (ny, nx + 1)
     _check_geom(edge, geom, nyr, nxr, dtype, device)
-    ttype, par = _tracer_table("remap_flux_edge", tracer_type, parent)
-    recon = torch.empty((ncat, 3 + 3 * ntrace, ny + 2, nx + 2), dtype=dtype,
-                        device=device)
     out = (torch.empty((ncat, nyr, nxr), dtype=dtype, device=device),
            torch.empty((ncat, ntrace, nyr, nxr), dtype=dtype, device=device))
     KERNELS["remap_flux_edge"].call(
         dtype, int(edge == "east"), ncat, ntrace, ny, nx, ttype, par,
         _ptr(mmE2), _ptr(tmE2), _ptr(hmE2), *[_ptr(t) for t in geom],
-        _ptr(recon), *[_ptr(t) for t in out])
+        *[_ptr(t) for t in out])
     return out
+
+
+# kernel C's block (csrc/shortwave_dedd.cu): NT threads, the NTABV doubles
+# of dedd.kernel_tables and one slot of lane_values<NI, NS>() per thread
+DEDD_THREADS, DEDD_TABLE_VALUES = 128, 678
+DEDD_DEFAULT_LAYERS = ((4, 1), (7, 1))
+
+
+def dedd_lane_values(nilyr: int, nslyr: int) -> int:
+    """Values of one lane's slot of kernel C: the adding arrays (6 x
+    (klev+2)) and the outputs (11 + nslyr + 2 nilyr + 1)."""
+    return 6 * (nslyr + nilyr + 3) + 11 + nslyr + 2 * nilyr + 1
+
+
+def dedd_smem_bytes(nilyr: int, nslyr: int, itemsize: int,
+                    smem_optin: int | None = None) -> int:
+    """Shared memory of one block of kernel C for these layer counts and
+    value size; raises where it exceeds ``smem_optin``, the bytes a block
+    may use on the card."""
+    smem = DEDD_TABLE_VALUES * 8 + \
+        dedd_lane_values(nilyr, nslyr) * DEDD_THREADS * itemsize
+    if smem_optin is not None and smem > smem_optin:
+        raise ValueError(
+            f"shortwave_dedd at nilyr={nilyr}, nslyr={nslyr} with "
+            f"{itemsize}-byte values needs {smem} B of shared memory per "
+            f"block (the table and {DEDD_THREADS} lanes of "
+            f"{dedd_lane_values(nilyr, nslyr)} values), more than the "
+            f"{smem_optin} B a block may use on this card")
+    return smem
+
+
+def dedd_kernel(nilyr: int, nslyr: int) -> CudaKernel:
+    """Kernel C for these layer counts: the default library for (4, 1) and
+    (7, 1), else the pair's own (``-DDEDD_NI=nilyr -DDEDD_NS=nslyr``,
+    ``libshortwave_dedd_ni<nilyr>_ns<nslyr>.so``, built at first use)."""
+    if nilyr < 1 or nslyr < 1:
+        raise ValueError(f"shortwave_dedd needs nilyr >= 1 and nslyr >= 1, "
+                         f"not nilyr={nilyr}, nslyr={nslyr}")
+    base = KERNELS["shortwave_dedd"]
+    if (nilyr, nslyr) in DEDD_DEFAULT_LAYERS:
+        return base
+    return base.variant(DEDD_NI=int(nilyr), DEDD_NS=int(nslyr))
+
+
+def dedd_blocks_per_sm(nilyr: int, nslyr: int, dtype: torch.dtype) -> int:
+    """Resident blocks per SM of kernel C for these layer counts and dtype
+    on the current card (its cooperative grid is that times the SMs)."""
+    lib = dedd_kernel(nilyr, nslyr).lib()
+    fn = lib.shortwave_dedd_blocks_per_sm
+    fn.argtypes, fn.restype = [_I, _I, _I, _IP], ctypes.c_int
+    blocks = ctypes.c_int()
+    err = fn(nilyr, nslyr, int(dtype == torch.float64), ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"shortwave_dedd_blocks_per_sm: CUDA error {err}: "
+                           f"{lib.shortwave_dedd_error_string(err).decode()}")
+    return blocks.value
 
 
 def shortwave_dedd(*, nilyr: int, nslyr: int, aicen, vicen, vsnon, Tsfcn,
@@ -511,7 +602,9 @@ def shortwave_dedd(*, nilyr: int, nslyr: int, aicen, vicen, vsnon, Tsfcn,
                    R_ice=0.0, R_pnd=0.0, R_snw=1.5, dT_mlt=1.5,
                    rsnw_mlt=1500.0, kalg=0.6, hs0=0.03, hs1=0.03,
                    pndaspect=0.8, pond_scheme="cesm"):
-    """Launch csrc/shortwave_dedd.cu: the delta-Eddington column of every
+    """Launch csrc/shortwave_dedd.cu (built for this ``(nilyr, nslyr)``,
+    ``dedd_kernel``; a pair whose block exceeds the card's shared memory is
+    refused): the delta-Eddington column of every
     (category, cell), one cooperative launch (a scan that zero-fills the
     unlit columns and lists the lit ones, then the lit columns in groups of
     ten from the list). aicen..hpnd: (ncat, ny, nx); the forcing planes
@@ -522,9 +615,8 @@ def shortwave_dedd(*, nilyr: int, nslyr: int, aicen, vicen, vsnon, Tsfcn,
     from cice5_tpu_torch.models.radiation import dedd
     device, dtype = _cuda_device(aicen)
     ncat, ny, nx = aicen.shape
-    if (nilyr, nslyr) not in ((4, 1), (7, 1)):
-        raise ValueError("shortwave_dedd is built for nslyr=1 and nilyr 4 "
-                         f"or 7, not nilyr={nilyr}, nslyr={nslyr}")
+    kernel = dedd_kernel(nilyr, nslyr)
+    dedd_smem_bytes(nilyr, nslyr, dtype.itemsize, device_limits(device)[1])
     cat = dict(aicen=aicen, vicen=vicen, vsnon=vsnon, Tsfcn=Tsfcn,
                apnd=apnd, hpnd=hpnd)
     frc = dict(coszen=coszen, fnidr=fnidr, swvdr=swvdr, swvdf=swvdf,
@@ -540,7 +632,7 @@ def shortwave_dedd(*, nilyr: int, nslyr: int, aicen, vicen, vsnon, Tsfcn,
     # the kernel's four counters (zeroed by the kernel's entry on the
     # stream) and its list of lit columns
     work = torch.empty(4 + ncat * ny * nx, dtype=torch.int32, device=device)
-    KERNELS["shortwave_dedd"].call(
+    kernel.call(
         dtype, ncat, ny, nx, nilyr, nslyr,
         *[_ptr(t) for t in cat.values()], *[_ptr(t) for t in frc.values()],
         _ptr(tab), rsnw_nm, float(rsnw_mlt), float(dT_mlt), float(kalg),

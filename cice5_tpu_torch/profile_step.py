@@ -9,7 +9,8 @@ tripole seam, on ``synth_gx1_grid``), the same with topographic ponds
 (``gx1_topo``), on a T-fold seam with the transport conservation and
 monotonicity checks (``gx1_tfold``), with EAP rheology and the
 per-category mechred diagnostics (``gx1_eap``), with the aerosol, brine
-and skeletal-BGC tracers (``gx1_bgc``: 39 tracers), the BL99 model with
+and skeletal-BGC tracers (``gx1_bgc``: 39 tracers), with CESM2's 8 ice
+and 3 snow layers (``cesm2_layers``: 27 tracers), the BL99 model with
 upwind transport (``bl99_upwind``), CICE's gx3 test configuration (``gx3``: 116x100, nilyr=7,
 open north, on ``synth_gx1_grid``'s mesh at that shape, the arrays that
 chip_smoke writes to its gx3 grid files), the ACCESS-OM 0.25-degree one
@@ -70,12 +71,11 @@ from cice5_tpu_torch.driver.model import Model
 from cice5_tpu_torch.grid import synth_gx1_grid
 
 # device kernel name -> wrapper; the EVP engine (csrc/evp_resident.cu)
-# runs evp_sweep, or evp_fused on the fused path; remap_recon and
-# remap_flux are the single-edge kernel's (csrc/remap_flux_edge.cu)
+# runs evp_sweep, or evp_fused on the fused path; remap_tiles runs
+# remap_flux_both on every path (its one-edge mode, remap_flux_edge, on
+# none)
 OWN_KERNELS = {"evp_resident": "evp_sweep",
                "remap_tiles": "remap_flux_both",
-               "remap_recon": "remap_flux_edge",
-               "remap_flux": "remap_flux_edge",
                "shortwave_dedd": "shortwave_dedd"}
 
 
@@ -115,6 +115,7 @@ CONFIGS = {
     "gx1_tfold": gx1_tfold_config,
     "gx1_eap": gx1_eap_config,
     "gx1_bgc": gx1_bgc_config,
+    "cesm2_layers": lambda: gx1_parity_config(nilyr=8, nslyr=3),
     "bl99_upwind": lambda: _with(bench_easy_config(),
                                  dyn=dict(advection="upwind")),
     "gx3": gx3_config,

@@ -2,10 +2,11 @@
 options, one definition for every check that runs them.
 
 Each runs the BL99 + CCSM3 model (gx3's dynamics and slab ocean) on a
-24x16 global mesh, ndte=8, with one option on. The tests hold the port's
-step on them against the JAX package's (``tests/torch_option_sets.py``),
-and ``chip_smoke.py`` holds the card against the CPU on the same
-configurations.
+24x16 global mesh, ndte=8, with one option on; the layer sets run the
+gx1-parity physics there with CESM2's 8 ice and 3 snow layers. The tests
+hold the port's step on them against the JAX package's
+(``tests/torch_option_sets.py``), and ``chip_smoke.py`` holds the card
+against the CPU on the same configurations.
 """
 from __future__ import annotations
 
@@ -102,3 +103,16 @@ def tracer_option_sets() -> dict:
                                           tr_brine=True, skl_bgc=True,
                                           **PONDS)),
     }
+
+
+def layer_option_sets() -> dict:
+    """{name: ModelConfig} of the sea-ice column of CESM2 (CICE 5.1.2 with
+    8 ice and 3 snow layers; Bailey et al. 2020, JAMES): the gx1-parity
+    physics (mushy thermo, dEdd, level ponds, iage/FY/lvl) at
+    ``nilyr=8, nslyr=3`` on the tripole mesh, and the same under BL99
+    thermo, whose snow rows differ."""
+    cfg = with_(C.gx1_parity_config(nilyr=8, nslyr=3, dtype="float64",
+                                    accum_dtype="float64"),
+                dyn=dict(ndte=NDTE)).replace(grid=grid("tripole"))
+    return {"cesm2_layers": cfg,
+            "cesm2_layers_bl99": with_(cfg, thermo=dict(ktherm=1))}

@@ -3,14 +3,18 @@
 The port's plain version (``dedd.shortwave_dEdd_plain``, all categories
 at once: the reference the CUDA kernel ``shortwave_dedd`` is held against
 on the GPU) against the JAX package's vmapped ``shortwave_dEdd`` (run op
-by op: its jit compile alone takes ~35 s on a CPU), at nilyr 4 and 7 with
-level ponds, on inputs that hold lit and unlit columns (ice-free cells,
-coszen <= 0, no sunlight) and bare, snow and pond surfaces. Each output
+by op: its jit compile alone takes ~35 s on a CPU), at (nilyr, nslyr) =
+(4, 1), (7, 1), CESM2's (8, 3) and (4, 3) with level ponds, on inputs
+that hold lit and unlit columns (ice-free cells, coszen <= 0, no
+sunlight) and bare, snow and pond surfaces. Each output
 field, and each layer of the layered ones, agrees on its own scale to
 1e-11. The JAX Pallas kernel ``shortwave_dEdd_tiled`` in interpret mode
 (block_rows=4) computes the same function; that comparison is marked slow
 (~40 s of compile per layer count) and holds to 1e-9, the JAX paths'
-own difference."""
+own difference. At 8/3 the port's generic one-surface path
+(``dedd.compute_dEdd``, which the JAX package's tests use as the oracle of
+``shortwave_dEdd``) is the per-surface oracle of the plain version, and
+is itself held against the JAX ``compute_dEdd``."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -58,8 +62,8 @@ def _inputs(seed=7):
     return cat, frc
 
 
-def _jax_vmapped(cat, frc, nilyr, scheme):
-    kw = dict(nilyr=nilyr, nslyr=1, pond_scheme=scheme, **PARAMS,
+def _jax_vmapped(cat, frc, nilyr, scheme, nslyr=1):
+    kw = dict(nilyr=nilyr, nslyr=nslyr, pond_scheme=scheme, **PARAMS,
               **{k: jnp.asarray(v) for k, v in frc.items()})
     return jax.vmap(lambda a, v, s, t, p, h: jdedd.shortwave_dEdd(
         aicen=a, vicen=v, vsnon=s, Tsfcn=t, apnd=p, hpnd=h, **kw))(
@@ -67,9 +71,9 @@ def _jax_vmapped(cat, frc, nilyr, scheme):
                                         "apnd", "hpnd")))
 
 
-def _port(cat, frc, nilyr, scheme):
+def _port(cat, frc, nilyr, scheme, nslyr=1):
     return tdedd.shortwave_dEdd_ncat(
-        nilyr=nilyr, nslyr=1, pond_scheme=scheme, **PARAMS,
+        nilyr=nilyr, nslyr=nslyr, pond_scheme=scheme, **PARAMS,
         **{k: torch.as_tensor(v) for k, v in {**cat, **frc}.items()})
 
 
@@ -84,13 +88,20 @@ def _compare(ref, got, rtol=RTOL):
             assert_close(a, b, rtol, name, floor=1e-12)
 
 
-@pytest.mark.parametrize("nilyr", [4, 7])
-def test_shortwave_dEdd_matches_jax(nilyr):
+# (nilyr, nslyr): the kernel's default build, CESM2's column and more snow
+# layers than a thin ice column's ice layers
+LAYERS = [pytest.param(4, 1, id="4"), pytest.param(7, 1, id="7"),
+          pytest.param(8, 3, id="8-3"), pytest.param(4, 3, id="4-3")]
+
+
+@pytest.mark.parametrize("nilyr,nslyr", LAYERS)
+def test_shortwave_dEdd_matches_jax(nilyr, nslyr):
     cat, frc = _inputs()
     kernels.reset_launch_counts()
-    got = _port(cat, frc, nilyr, "lvl")
+    got = _port(cat, frc, nilyr, "lvl", nslyr)
     assert kernels.launch_counts()["shortwave_dedd"] == 0
-    ref = _jax_vmapped(cat, frc, nilyr, "lvl")
+    assert got.Sswabsn.shape[1] == nslyr and got.Iswabsn.shape[1] == nilyr
+    ref = _jax_vmapped(cat, frc, nilyr, "lvl", nslyr)
     _compare(ref, got)
     # the unlit columns are exact zeros; the lit ones carry sunlight
     for x in got:
@@ -166,4 +177,70 @@ def test_compute_dEdd_matches_jax(srftyp):
                                       for k, v in d.items()})
     for name in ref._fields:
         assert_close(getattr(ref, name), getattr(got, name), RTOL, name,
+                     floor=1e-12)
+
+
+def _pure_surface(case, nilyr, nslyr):
+    """Inputs on which every lit column is one surface ("bare": no snow or
+    ponds, "snow": deep cold snow, "pond": deep ponds on bare ice), and
+    the port's compute_dEdd of that surface on them, as
+    tests/test_dedd.py's TestDedupFastPathEquivalence builds it."""
+    cat, frc = _inputs(11)
+    if case == "snow":
+        cat["vsnon"] = cat["aicen"] * 0.3
+        cat["Tsfcn"] = np.full_like(cat["aicen"], -15.0)
+    else:
+        cat["vsnon"] = np.zeros_like(cat["aicen"])
+    cat["apnd"] = np.full_like(cat["aicen"], 1.0 if case == "pond" else 0.0)
+    cat["hpnd"] = np.full_like(cat["aicen"], 0.3 if case == "pond" else 0.0)
+    srf = ("bare", "snow", "pond").index(case)
+    T = {k: torch.as_tensor(v) for k, v in {**cat, **frc}.items()}
+    fs, hs, rsnw = tdedd.set_snow(T["aicen"], T["vsnon"], T["Tsfcn"],
+                                  R_snw=1.5, rsnw_mlt=1500.0, dT_mlt=1.5,
+                                  hs0=0.0)
+    hs_eff = (torch.clamp(hs, min=1e-4) if srf == 1
+              else torch.zeros_like(hs))
+    hp = T["hpnd"] if srf == 2 else torch.zeros_like(hs)
+    hi = torch.clamp(T["vicen"] / torch.clamp(T["aicen"], min=1e-11),
+                     min=1e-11)
+    one = dict(nilyr=nilyr, nslyr=nslyr, srftyp=srf, kalg=PARAMS["kalg"],
+               **{k: torch.broadcast_to(T[k], hs.shape) for k in (
+                   "coszen", "fnidr", "swvdr", "swvdf", "swidr", "swidf")})
+    return cat, frc, one, dict(hs=hs_eff, rsnw=rsnw, hi=hi, hp=hp)
+
+
+@pytest.mark.parametrize("case", ["bare", "snow", "pond"])
+def test_compute_dEdd_is_the_per_surface_oracle(case):
+    """At CESM2's 8 ice and 3 snow layers, on columns of one surface, the
+    plain version (shared layer properties, the three surfaces mixed)
+    equals the port's generic one-surface path (``compute_dEdd``) on
+    every lit column, to 1e-11 of each field's scale; and that path
+    equals the JAX package's ``compute_dEdd`` on the same inputs."""
+    nilyr, nslyr = 8, 3
+    cat, frc, one, col = _pure_surface(case, nilyr, nslyr)
+    got = _port(cat, frc, nilyr, "lvl", nslyr)
+    lit = got.fswsfcn != 0
+    assert int(lit.sum()) > 10
+    fs = got.snowfracn[lit]
+    assert bool((fs == (1.0 if case == "snow" else 0.0)).all())
+    ref = tdedd.compute_dEdd(**one, **col)
+    pairs = (("alvdrn", ref.avdr), ("alidfn", ref.aidf),
+             ("fswsfcn", ref.fsfc), ("fswintn", ref.fint),
+             ("fswthrun", ref.fthru))
+    for name, want in pairs:
+        assert_close(want[lit], getattr(got, name)[lit], RTOL, name,
+                     floor=1e-12)
+    for name, want in (("Iswabsn", ref.Iabs), ("fswpenln", ref.fthrul),
+                       ("Sswabsn", ref.Sabs)):
+        mine = getattr(got, name)
+        for k in range(want.shape[0]):
+            assert_close(want[k][lit], mine[:, k][lit], RTOL,
+                         f"{name}[{k}]", floor=1e-12)
+    if case == "snow":
+        assert float(ref.Sabs.abs().max()) > 0.0
+    jref = jdedd.compute_dEdd(**{
+        k: jnp.asarray(v.numpy()) if torch.is_tensor(v) else v
+        for k, v in {**one, **col}.items()})
+    for name in jref._fields:
+        assert_close(getattr(jref, name), getattr(ref, name), RTOL, name,
                      floor=1e-12)

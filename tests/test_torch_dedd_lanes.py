@@ -8,7 +8,9 @@ a time and solve them, three lanes per column (one per spectral band).
 ``compaction`` below runs that bookkeeping with the warps interleaved in
 a seeded random order, and ``band_split`` forms the outputs from the
 three bands' adding solutions as the column's band-0 lane does, surface
-after surface; both are held against the plain version here. The kernel itself is held
+after surface, at (nilyr, nslyr) 4/1, 7/1 and CESM2's 8/3; both are held
+against the plain version here, with the size of a lane's shared-memory
+slot (``kernels.dedd_lane_values``). The kernel itself is held
 against the plain version on the card (``tests/test_torch_kernels.py``,
 ``chip_smoke.py``).
 """
@@ -108,7 +110,7 @@ def test_compaction_solves_each_lit_column_once(warps, seed):
     assert 1 <= len(groups[-1]) <= NGRP
 
 
-def band_split(kw, nilyr, scheme):
+def band_split(kw, nilyr, scheme, nslyr=1):
     """shortwave_dEdd's outputs formed as kernel C forms them: the adding
     solution of each surface is taken band by band (a lane each), and the
     column's band-0 lane gathers bands 1 and 2 at every interface, forms
@@ -125,8 +127,8 @@ def band_split(kw, nilyr, scheme):
         return orig(**a)
     dedd._partition_sol = capture
     try:
-        ref = dedd.shortwave_dEdd(nilyr=nilyr, nslyr=1, pond_scheme=scheme,
-                                  **PARAMS, **kw)
+        ref = dedd.shortwave_dEdd(nilyr=nilyr, nslyr=nslyr,
+                                  pond_scheme=scheme, **PARAMS, **kw)
     finally:
         dedd._partition_sol = orig
     # the surface fractions, as shortwave_dEdd sets them up
@@ -137,7 +139,7 @@ def band_split(kw, nilyr, scheme):
                             hs0=0.03, hs1=0.03, pndaspect=0.8)
     fp = torch.minimum(fp, 1.0 - fs)
     fi = torch.clamp(1.0 - fs - fp, min=0.0)
-    nslyr, klev = 1, 1 + nilyr + 1
+    klev = nslyr + nilyr + 1
     nout = 11 + nslyr + 2 * nilyr + 1
     w2 = 0.67 + (0.78 - 0.67) * (1.0 - kw["fnidr"])
     w3 = 1.0 - w2
@@ -179,18 +181,56 @@ def band_split(kw, nilyr, scheme):
     return acc, ref
 
 
-@pytest.mark.parametrize("nilyr", [4, 7])
+# the layer counts of the kernel's default build, and CESM2's 8 ice and 3
+# snow layers (a library of its own)
+LAYERS = [pytest.param(4, 1, id="4"), pytest.param(7, 1, id="7"),
+          pytest.param(8, 3, id="8-3")]
+
+
+@pytest.mark.parametrize("nilyr,nslyr", LAYERS)
 @pytest.mark.parametrize("scheme", ["lvl", "cesm", "topo"])
-def test_band_split_partition_equals_plain(nilyr, scheme):
+def test_band_split_partition_equals_plain(nilyr, nslyr, scheme):
     """In float64 the band-split combination of kernel C gives the plain
-    version's 14 outputs bit for bit on every lit column."""
+    version's 11 + nslyr + 2 nilyr + 1 outputs bit for bit on every lit
+    column, every snow layer's absorption among them."""
     kw = dedd_case()
-    got, ref = band_split(kw, nilyr, scheme)
+    got, ref = band_split(kw, nilyr, scheme, nslyr)
     lit = lit_columns(kw).reshape(NCAT, NY, NX)
     planes = [ref.alvdrn, ref.alvdfn, ref.alidrn, ref.alidfn, ref.fswsfcn,
               ref.fswintn, ref.fswthrun, *ref.Sswabsn, *ref.Iswabsn,
               *ref.fswpenln, ref.albicen, ref.albsnon, ref.albpndn,
               ref.snowfracn]
-    assert len(planes) == len(got)
+    assert len(planes) == len(got) == 11 + nslyr + 2 * nilyr + 1
+    if nslyr > 1:
+        assert all(float(p[lit].abs().max()) > 0.0 for p in ref.Sswabsn)
     for q, (r, g) in enumerate(zip(planes, got)):
         assert torch.equal(r[lit], torch.broadcast_to(g, r.shape)[lit]), q
+
+
+@pytest.mark.parametrize("nilyr,nslyr", LAYERS)
+def test_lane_slot_fits_the_card(nilyr, nslyr):
+    """A lane's slot of kernel C (csrc lane_values: the adding arrays, 6 x
+    (klev+2), and the outputs) and the block's shared memory: 115 values
+    and 123,184 B in float64 at CESM2's 8/3, within the H100's 232,448 B
+    a block may use."""
+    from cice5_tpu_torch.ops import kernels
+    klev = nslyr + nilyr + 1
+    nout = 11 + nslyr + 2 * nilyr + 1
+    values = 6 * (klev + 2) + nout
+    assert kernels.dedd_lane_values(nilyr, nslyr) == values
+    for itemsize in (4, 8):
+        smem = kernels.dedd_smem_bytes(nilyr, nslyr, itemsize, 232448)
+        assert smem == 678 * 8 + 128 * itemsize * values
+    assert kernels.dedd_smem_bytes(8, 3, 8) == 123184
+
+
+def test_lane_slot_too_large_is_refused():
+    """A pair whose block exceeds the card's shared memory raises, naming
+    the limit: 20 ice and 5 snow layers need 235,824 B in float64 (and
+    fit in float32)."""
+    from cice5_tpu_torch.ops import kernels
+    assert kernels.dedd_smem_bytes(20, 5, 4, 232448) == 120624
+    with pytest.raises(ValueError, match="232448 B a block may use"):
+        kernels.dedd_smem_bytes(20, 5, 8, 232448)
+    with pytest.raises(ValueError, match="nslyr >= 1"):
+        kernels.dedd_kernel(4, 0)

@@ -472,17 +472,21 @@ def test_remap_tiles_skip_writes_exact_zeros(cuda_device, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("nilyr", [4, 7])
+@pytest.mark.parametrize("nilyr,nslyr", [pytest.param(4, 1, id="4"),
+                                         pytest.param(7, 1, id="7"),
+                                         pytest.param(8, 3, id="8-3")])
 @pytest.mark.parametrize("scheme", ["lvl", "cesm", "topo"])
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
                                        (torch.float32, 5e-5)])
-def test_dedd_lanes_match_plain(cuda_device, nilyr, scheme, dtype, tol):
+def test_dedd_lanes_match_plain(cuda_device, nilyr, nslyr, scheme, dtype,
+                                tol):
     """Kernel C (compacted lit columns, three lanes per column) within the
-    plain version's bounds for nilyr 4 and 7 and each pond setup, every
-    field and layer on its own scale, with exact zeros off the lit
+    plain version's bounds for (nilyr, nslyr) 4/1, 7/1 (the default
+    library) and CESM2's 8/3 (a library of its own) and each pond setup,
+    every field and layer on its own scale, with exact zeros off the lit
     columns."""
     kw = {k: v.to(cuda_device) for k, v in dedd_case(dtype=dtype).items()}
-    kw.update(nilyr=nilyr, nslyr=1, pond_scheme=scheme)
+    kw.update(nilyr=nilyr, nslyr=nslyr, pond_scheme=scheme)
     assert _dedd_rel(kw) <= tol
     out = dedd.shortwave_dEdd_ncat(**kw)
     netsw = kw["swvdr"] + kw["swvdf"] + kw["swidr"] + kw["swidf"]
@@ -492,3 +496,16 @@ def test_dedd_lanes_match_plain(cuda_device, nilyr, scheme, dtype, tol):
     for x in out:
         assert bool(((x if x.dim() == 3 else x.movedim(1, 0))[..., ~lit]
                      == 0).all())
+
+
+@pytest.mark.gpu
+def test_dedd_layers_beyond_shared_memory_are_refused(cuda_device):
+    """20 ice and 5 snow layers need more shared memory per block than the
+    card has in float64: the wrapper raises, naming the limit, before any
+    build or launch; it never takes the plain version."""
+    kw = {k: v.to(cuda_device)
+          for k, v in dedd_case(dtype=torch.float64).items()}
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="a block may use on this card"):
+        dedd.shortwave_dEdd_ncat(nilyr=20, nslyr=5, pond_scheme="lvl", **kw)
+    assert kernels.launch_counts()["shortwave_dedd"] == 0

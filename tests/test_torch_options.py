@@ -17,7 +17,9 @@ aerosols, brine + skeletal BGC under mushy thermo, the constant piston
 velocity with a subset of the BGC tracers, every auxiliary tracer at
 once on a U-fold, with first_ice and the aerosol and BGC fluxes, primary
 production and algal growth compared too, and each reference shown to
-have its tracers at work.
+have its tracers at work; and CESM2's column (``O.LAYER_SETS``: the
+gx1-parity physics with 8 ice and 3 snow layers, under mushy and under
+BL99 thermo), the first sets with several snow layers.
 
 Each runs two steps of the port's ``Model`` on the 24x16 mesh, ndte=8,
 from the state the JAX package warmed up by one step, with rain on the

@@ -13,7 +13,8 @@ zero-layer thermo, calc_Tsfc=False under BL99 and mushy; the T-fold
 seam, EAP alone, on the T-fold and with the mechred diagnostics, upwind
 transport, the transport checks, dynamics without transport; the
 aerosol, brine and skeletal-BGC tracers, with their fluxes to the
-ocean), from the recorded
+ocean; CESM2's 8 ice and 3 snow layers under mushy and BL99 thermo, C
+from its own library), from the recorded
 warmed-up state in float64: two steps through the kernels on the card
 within 3e-8 of each field's scale of the plain versions on the CPU
 (tracers as conserved amounts, stresses 1e-5), the graph rollout equal to

@@ -283,8 +283,9 @@ def test_kernel_rebuilds_when_its_source_or_a_header_is_newer(tmp_path,
                                                                monkeypatch):
     """A library older than its .cu or than a csrc header the .cu includes
     is rebuilt; the two EVP kernels share one source and evp_point.cuh,
-    and the merged remap kernel is built from remap_tiles.cu, apart from
-    the single-edge one."""
+    and both remap kernels are built from remap_tiles.cu; kernel C has a
+    library of its own for each pair of layer counts besides (4, 1) and
+    (7, 1), built with the pair's macros."""
     import os
     monkeypatch.setenv("CICE5_TORCH_BUILD_DIR", str(tmp_path))
     d, a = kernels.KERNELS["evp_fused"], kernels.KERNELS["evp_sweep"]
@@ -293,8 +294,15 @@ def test_kernel_rebuilds_when_its_source_or_a_header_is_newer(tmp_path,
     assert d.library == a.library
     assert kernels.KERNELS["remap_flux_both"].library.name == \
         "libremap_tiles.so"
-    assert kernels.KERNELS["remap_flux_edge"].library.name == \
-        "libremap_flux_edge.so"
+    assert kernels.KERNELS["remap_flux_edge"].library == \
+        kernels.KERNELS["remap_flux_both"].library
+    c = kernels.KERNELS["shortwave_dedd"]
+    assert kernels.dedd_kernel(4, 1) is c is kernels.dedd_kernel(7, 1)
+    c83 = kernels.dedd_kernel(8, 3)
+    assert c83 is kernels.dedd_kernel(8, 3) and c83.source == c.source
+    assert c83.library.name == "libshortwave_dedd_ni8_ns3.so"
+    assert c.library.name == "libshortwave_dedd.so"
+    assert c83.needs_build() and c83 in c.variants()
     assert d.needs_build()                       # no library yet
     header = d.headers()[0].stat().st_mtime
     newest = max(header, d.source.stat().st_mtime)

@@ -1,4 +1,4 @@
-"""The tile plan and the schedule of the remap flux kernel B
+"""The tile plan and the schedule of the remap flux kernels B and E
 (``cice5_tpu_torch/csrc/remap_tiles.cu``), on the CPU.
 
 The kernel cuts the edge points into tiles (``ops/remap_tiles.py:plan``),
@@ -6,11 +6,13 @@ one block per (category, tile): it skips a tile whose raw mass window
 holds no ice, rebuilds the reconstruction of one tracer after another on
 the tile's one-ring window from its raw window, keeps the reconstruction
 of every parent in a slot until its dependents are done, and integrates
-each tracer's north and east fluxes from the window. ``tiled_flux`` below
-runs that schedule block by block in plain PyTorch, with the plain
-version's own formulas; it must equal ``remap.remap_flux_plain`` bit for
-bit. The kernel itself is held against the plain version, and against
-kernel E (the first version's device code), on the card
+each tracer's north and east fluxes from the window; kernel E, its
+one-edge mode, integrates one of the two sets on the same blocks.
+``tiled_flux`` below runs that schedule block by block in plain PyTorch,
+with the plain version's own formulas; it must equal
+``remap.remap_flux_plain`` bit for bit, and in the one-edge mode
+``remap.remap_flux_edge_plain``. The kernels themselves are held against
+the plain versions, and E against B's half, on the card
 (``tests/test_torch_kernels.py``, ``chip_smoke.py``).
 """
 import dataclasses
@@ -108,14 +110,16 @@ def _class_maps(ta, donor, gs, parent_rc=None, grand_rc=None, views=None):
     return maps(pts * tc_p + ptx * tx_p + pty * ty_p, None, None)
 
 
-def tiled_flux(args, plan=None):
+def tiled_flux(args, plan=None, edge=None):
     """remap_flux_both's function run as csrc/remap_tiles.cu schedules it,
     block by block in plain PyTorch: the skip on the raw mass window, the
     mass reconstruction, then one tracer after another rebuilt on the
     tile's one-ring window from its raw window (a parent's reconstruction
     kept in its slot for its dependents) and integrated over the tile's
-    north and east edges. Returns the four flux arrays and the number of
-    blocks that skipped."""
+    north and east edges, or with ``edge`` ("north" or "east") over that
+    set's alone (the one-edge mode, kernel E). Returns the four flux
+    arrays (with ``edge``, that set's two) and the number of blocks that
+    skipped."""
     geomN, geomE, mmE2, tmE2, hmE2, tt, par, ny, nx = args
     ncat, ntrace = tmE2.shape[:2]
     dtype = mmE2.dtype
@@ -150,6 +154,8 @@ def tiled_flux(args, plan=None):
         # PyTorch's reductions (whose order depends on the position).
         sets = []
         for east, geom, fo, to in ((False, geomN, 0, 1), (True, geomE, 2, 3)):
+            if edge is not None and east != (edge == "east"):
+                continue
             rows, cols = plan.edges(b, east)
             if not rows or not cols:
                 continue
@@ -236,6 +242,8 @@ def tiled_flux(args, plan=None):
                 out[s["to"]][c, t][s["tile"]] = acc[c][s["tile"]]
             if slot[t] < 0:
                 del tc, tx, ty           # only the slots outlive a tracer
+    if edge is not None:
+        return tuple(out[2:] if edge == "east" else out[:2]), skipped
     return tuple(out), skipped
 
 
@@ -294,4 +302,25 @@ def test_tiled_schedule_equals_plain(grid_kind, dtype):
     assert skipped > 0
     for r, g in zip(ref, got):
         assert torch.equal(r, g)
+    assert float(ref[1].abs().max()) > 0.0
+
+
+@pytest.mark.parametrize("edge", ["north", "east"])
+@pytest.mark.parametrize("grid_kind", ["open", "tripole"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_one_edge_schedule_equals_plain(edge, grid_kind, dtype):
+    """Kernel E's schedule (the one-edge mode of remap_tiles.cu: B's blocks
+    and pipeline, one edge set integrated) in plain PyTorch equals
+    remap_flux_edge_plain bit for bit, and so the half of that set of
+    remap_flux_plain (which B's schedule equals), with the pond chain, the
+    skipped blocks and both grids."""
+    args = remap_case(grid_kind, dtype)
+    geom = args[0] if edge == "north" else args[1]
+    ref = trm.remap_flux_edge_plain(edge, geom, *args[2:])
+    got, skipped = tiled_flux(args, edge=edge)
+    assert skipped > 0
+    both = trm.remap_flux_plain(*args)
+    half = both[:2] if edge == "north" else both[2:]
+    for r, g, h in zip(ref, got, half):
+        assert torch.equal(r, g) and torch.equal(g, h)
     assert float(ref[1].abs().max()) > 0.0

@@ -15,7 +15,11 @@ skeletal BGC; EVP and EAP; float64):
   as oceanmixed without the slab-ocean records, and a tracer file that
   ends early raise;
 - a dump of the gx1-parity model (24x16) after one step restored into a
-  fresh Model continues bit for bit.
+  fresh Model continues bit for bit;
+- at CESM2's 8 ice and 3 snow layers the dump carries sice001..008,
+  qice001..008 and qsno001..003, its bytes equal the JAX package's, both
+  read it back bit for bit, and a dump of the ``cesm2_layers`` set's
+  model continues bit for bit.
 """
 import dataclasses
 import os
@@ -40,8 +44,8 @@ NY, NX = 12, 16
 CORE = "iced.1997-01-02-00000"
 
 
-def _cfg(kdyn=1, dtype="float64"):
-    cfg = rect_config(ny=NY, nx=NX)
+def _cfg(kdyn=1, dtype="float64", nilyr=7, nslyr=1):
+    cfg = rect_config(ny=NY, nx=NX).replace(nilyr=nilyr, nslyr=nslyr)
     return cfg.replace(
         tracers=dataclasses.replace(
             cfg.tracers, tr_iage=True, tr_FY=True, tr_lvl=True,
@@ -52,10 +56,11 @@ def _cfg(kdyn=1, dtype="float64"):
         dtype=dtype, accum_dtype=dtype)
 
 
-def _setup(kdyn=1, seed=3):
+def _setup(kdyn=1, seed=3, **layers):
     """(port cfg, port tr, port State, JAX cfg, JAX tr, JAX State): a
-    State with every field and tracer slot set from a seed."""
-    cfg = _cfg(kdyn)
+    State with every field and tracer slot set from a seed (``layers``:
+    nilyr, nslyr of the configuration)."""
+    cfg = _cfg(kdyn, **layers)
     tr = build_tracer_registry(cfg)
     rng = np.random.default_rng(seed)
     z = zeros_state(cfg, tr, device="cpu")
@@ -296,3 +301,54 @@ def test_a_v5_dump_continues_the_parity_run_exactly(tmp_path):
         if f.name != "mlt_onset":
             assert torch.equal(getattr(a, f.name), getattr(b, f.name)), \
                 f.name
+
+
+def test_cesm2_layers_dump_bytes_and_round_trip(tmp_path):
+    """CESM2's 8 ice and 3 snow layers: the core dump holds the layer
+    records in CICE's order, the port's files equal the JAX package's
+    byte for byte, and each package reads the dump back to the State it
+    came from in every field the dump carries."""
+    cfg, tr, st, jcfg, jtr, jst = _setup(nilyr=8, nslyr=3, seed=5)
+    assert (cfg.nilyr, cfg.nslyr) == (8, 3)
+    names = [n for n, _ in T._core_fields(cfg, tr, oceanmixed=True)]
+    layer = [n for n in names if n[:4] in ("sice", "qice", "qsno")]
+    assert layer == ([f"sice{k:03d}" for k in range(1, 9)]
+                     + [f"qice{k:03d}" for k in range(1, 9)]
+                     + ["qsno001", "qsno002", "qsno003"])
+    kw = dict(istep=48, time=172800.0, oceanmixed=True)
+    (tmp_path / "t").mkdir()
+    (tmp_path / "j").mkdir()
+    tp = T.write_restart_v5(st, str(tmp_path / "t" / CORE), cfg, tr, **kw)
+    jp = J.write_restart_v5(jst, str(tmp_path / "j" / CORE), jcfg, jtr,
+                            **kw)
+    _same_files(tmp_path / "t", tmp_path / "j")
+    tst, _ = T.read_restart_v5(tp[0], cfg, tr, device="cpu")
+    jst2, _ = J.read_restart_v5(tp[0], jcfg, jtr)
+    _state_equal(_np(st), tst, CORE_FIELDS)
+    _state_equal(_np(jst2), tst, [f.name for f in
+                                  dataclasses.fields(State)])
+
+
+def test_a_v5_dump_continues_the_cesm2_layers_run_exactly(tmp_path):
+    """The ``cesm2_layers`` set (gx1-parity physics at 8 ice and 3 snow
+    layers, 24x16, float64): one step from its recorded warmed-up state,
+    a v5 dump, a fresh Model restored from it; the next step equals the
+    original's at 0.0 in every State field the dump carries."""
+    import torch_option_sets as O
+    from test_torch_options import port_inputs, port_model
+    ref = O.load_reference("cesm2_layers")
+    m = port_model("cesm2_layers")
+    st, f = port_inputs(ref)
+    st, _ = m.step(st, f)
+    p = str(tmp_path / CORE)
+    T.write_restart_v5(st, p, m.cfg, m.tr, istep=O.ISTEP + 2,
+                       time=3600.0 * (O.ISTEP + 2))
+    m2 = port_model("cesm2_layers")
+    st2, meta = T.read_restart_v5(p, m2.cfg, m2.tr, device="cpu")
+    assert meta["istep"] == O.ISTEP + 2
+    a, _ = m.step(st, f)
+    b, _ = m2.step(st2, f)
+    for fl in dataclasses.fields(State):
+        if fl.name != "mlt_onset":
+            assert torch.equal(getattr(a, fl.name), getattr(b, fl.name)), \
+                fl.name

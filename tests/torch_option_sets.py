@@ -12,7 +12,8 @@ the BL99 model on a T-fold seam, EAP rheology alone, on a T-fold seam
 and with the per-category mechred diagnostics on a U-fold seam, upwind
 transport, the transport conservation and monotonicity checks, and
 dynamics without transport; and the aerosol, brine and skeletal-BGC
-tracers (``TRACER_SETS``). All run on the 24x16 synthetic global mesh of
+tracers (``TRACER_SETS``); and CESM2's column of 8 ice and 3 snow
+layers under mushy and under BL99 thermo (``LAYER_SETS``). All run on the 24x16 synthetic global mesh of
 test_torch_parity_step.py, ndte=8, float64, with rain on the ice (a
 pond's "no fresh water" branch then never rests on rounding noise).
 
@@ -40,6 +41,7 @@ from cice5_tpu_torch import small_sets as S
 from cice5_tpu_torch.small_sets import (BGC_SUBSET_OFF, DEDD, DYN_STATE,
                                         MUSHY, PONDS, TRACER_DIAG,
                                         TRACER_STATE, dyn_option_sets,
+                                        layer_option_sets,
                                         tracer_option_sets)
 import torch_port_util as U
 
@@ -103,6 +105,7 @@ def option_sets() -> dict:
                                                     **MUSHY)),
         **dyn_option_sets(),
         **tracer_option_sets(),
+        **layer_option_sets(),
     }
 
 
@@ -116,6 +119,9 @@ DYN_SETS = tuple(dyn_option_sets())
 # the tracer sets record TRACER_STATE and TRACER_DIAG too
 # (make_reference_tracers)
 TRACER_SETS = tuple(tracer_option_sets())
+
+# the sets with more than one snow layer
+LAYER_SETS = tuple(layer_option_sets())
 
 
 def grid_arrays():

@@ -39,7 +39,11 @@ toolkit. Phases (any failure exits non-zero):
    cost and one grid barrier's cost. The times of A, B, C and D in the
    kernels line are such replays' device times (one call, argument
    packing included); the eager times, which include the host's launch
-   gaps, are printed beside them.
+   gaps, are printed beside them. A (on the gx1 tripole inputs) and D (on
+   the BL99 inputs) run again with the revised EVP's parameters
+   (``revised_cap``: the step's own ``evp_params`` with
+   ``revised_evp=True``, brlx from the grid's smallest spacing, revp=1),
+   held at the same bounds, A with its plan and cost split.
 3. Check the whole paths against the plain paths on small inputs: two
    float64 steps on the GPU (kernels) and on the CPU (plain versions)
    from one warmed-up state, for the BL99 model (with the EVP sweep, and
@@ -115,9 +119,11 @@ toolkit. Phases (any failure exits non-zero):
    ``bl99_options calc_Tsfc=False:``). Then A, B and C against their
    plain versions on inputs captured from gx3 and from gx1_topo, float64
    and float32 (C's float32 held to the plain float32's accuracy against
-   float64), and every option set of tests/test_torch_options.py small
-   (24x16, float64) on the card against the CPU within 3e-8 of scale,
-   with its graph rollout equal to the eager step at 0.0.
+   float64), and every column option set of
+   ``cice5_tpu_torch/small_sets.py`` (the sets tests/test_torch_options.py
+   holds against the JAX step; 24x16, float64) on the card against the
+   CPU within 3e-8 of scale, with its graph rollout equal to the eager
+   step at 0.0.
 9. The dynamics and transport options (``dynamics_phase``) at 384x320,
    ndte=120, float32: the gx1-parity model on a T-fold seam (tripoleT)
    with the transport conservation and monotonicity checks
@@ -135,7 +141,8 @@ toolkit. Phases (any failure exits non-zero):
    (``gx1_tfold:``, ``gx1_eap:``, ``bl99_upwind:``). Then A against
    ``subcycle_sweep`` on inputs captured from gx1_tfold (float64 and
    float32, ndte 1 and 120, the shared and the forced device branch, the
-   latter at 0.0), with its plan, per-subcycle cost and graph-replay time;
+   latter at 0.0), with its plan, per-subcycle cost and graph-replay time,
+   also with the revised EVP's parameters;
    B against its plain version on the same inputs; and every dynamics
    option set of ``cice5_tpu_torch/small_sets.py`` (24x16, float64) on the
    card against the CPU within 3e-8 of scale, the EAP structure tensor
@@ -196,7 +203,25 @@ toolkit. Phases (any failure exits non-zero):
    beyond DEDD_F32_TOL), with C's time, bound and resident blocks per SM;
    the small float64 ``cesm2_layers`` sets (mushy and BL99) on the card
    against the CPU. One ``cesm2_layers:`` JSON line.
-13. The multi-GPU path (``sharded_phase``), in spawned processes
+13. The revised EVP and dynamics subcycling (``evp_options_phase``) at
+   384x320, float32, ndte=120, each through ``Model.rollout`` (5 steps
+   after 2) with the bench.py guards, the launch counters set to 0 just
+   before and read just after, peak memory and the graph rollout against
+   the eager step at 0.0: ``gx1_revp`` (gx1-parity with
+   ``revised_evp=True``: A, B and C once per step) and ``gx1_ndtd2``
+   (gx1-parity with ``ndtd=2``: A and B twice per step, C once), each with
+   its ms per step and peak memory beside gx1-parity's, driven the same
+   way just before them (``gx1_parity_beside``); and ``bl99_fused_revp``
+   (the BL99 model at 384x320 with the fused EVP and the revised EVP: D
+   12 times and B once per step); one JSON line each
+   (``gx1_parity_beside:``, ``gx1_revp:``, ``gx1_ndtd2:``,
+   ``bl99_fused_revp:``). Then every namelist option set of
+   ``cice5_tpu_torch/small_sets.py`` (24x16, float64) on the card against
+   the CPU within 3e-8 of scale (stresses 1e-5), from the frozen open sea
+   of its reference where it has one and with the fields its option
+   drives (``small_sets.FLAG_DRIVES``) compared too, with its graph
+   rollout equal to the eager step at 0.0.
+14. The multi-GPU path (``sharded_phase``), in spawned processes
    (``chip_smoke.py --sharded-rank`` / ``--nccl-rank``) whose output is
    printed here: 4 gloo ranks sharing the card on a 2x2 mesh run the
    gx1-parity model at 384x320 (float32, ndte=120, a 192x160 tile per
@@ -212,12 +237,13 @@ toolkit. Phases (any failure exits non-zero):
    reductions and a 1x1-mesh step against ``Model``'s eager step at 0.0.
    One ``sharded:`` JSON line; four processes on one card are a
    correctness run, not a multi-GPU speed.
-14. Print one JSON line with every kernel (launches from the gx1-parity
+15. Print one JSON line with every kernel (launches from the gx1-parity
    main path, the fused kernel's from the fused path, and each path's
    launches per step, the sharded path's per rank; times on the
-   gx1-parity inputs, the fused kernel's on the BL99 ones; A's T-fold,
-   B's gx1_bgc and cesm2_layers and C's cesm2_layers launches and times
-   beside, E's beside B's on the same inputs), then the card line, then
+   gx1-parity inputs, the fused kernel's on the BL99 ones; A's T-fold
+   and revised-EVP (gx1 tripole, T-fold), D's revised-EVP, B's gx1_bgc
+   and cesm2_layers and C's cesm2_layers launches and times beside, E's
+   beside B's on the same inputs), then the card line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 """
 from __future__ import annotations
@@ -465,13 +491,48 @@ def evp_bound(kw, ndte):
             f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP")
 
 
-def evp_fused_phase(cap64, cap32):
+def revised_cap(captured):
+    """The EVP sweep arguments (p, ndte, topo, kw) of ``capture``'s result
+    with the parameters that the step passes with ``revised_evp=True``
+    (``driver.step.evp_params``: Bouillon et al. 2013, CICE 5.1's
+    ice_dyn_shared.F90:230-240; brlx from the grid's smallest ocean
+    spacing and revp=1) in place of the classic ones."""
+    from cice5_tpu_torch.driver.step import evp_params
+    from cice5_tpu_torch.small_sets import with_
+    grid, args, _, cfg = captured
+    _, ndte, topo, kw = args["evp"]
+    p = evp_params(with_(cfg, dyn=dict(revised_evp=True)), grid, topo)
+    return p, ndte, topo, kw
+
+
+def revised_evp_phase(cap64, cap32, label):
+    """Kernel A with the revised EVP's parameters (``revised_cap``) on the
+    inputs of ``label`` that ``capture`` returned, float64 and float32:
+    ``evp_phase`` (against subcycle_sweep at the classic run's bounds,
+    and the forced device-memory branch at 0.0) and ``evp_costs`` (plan,
+    cost split, the CUDA graph replay bit-equal to the eager call).
+    Returns evp_phase's result with the replay's ms as ``ms`` and the
+    eager ms beside."""
+    rev64, rev32 = revised_cap(cap64), revised_cap(cap32)
+    classic = cap32[1]["evp"][0]
+    print(f"evp_sweep {label} revised EVP: brlx {rev32[0].brlx:.6e} (classic "
+          f"{classic.brlx:.6e}), revp {rev32[0].revp}, arlx1i "
+          f"{rev32[0].arlx1i:.6e}", flush=True)
+    a = evp_phase(rev64, rev32, f"{label} revised EVP")
+    a["eager_ms"], a["ms"] = a["ms"], evp_costs(rev32,
+                                                f"{label} revised EVP")
+    a["brlx"] = rev32[0].brlx
+    return a
+
+
+def evp_fused_phase(cap64, cap32, label="BL99"):
     """Kernel D (evp_fused, ndte/kchunk cooperative launches of kchunk
     subcycles) against its plain version fused_sweep_plain (nwin=4
     Y-windows) and against kernel A on the same captured inputs of the
-    open-boundary BL99 grid, each output against its own scale. D is the
-    same function as A run by the same kernel (csrc/evp_resident.cu), so it
-    is held with A's bounds and must equal A bit for bit."""
+    open-boundary BL99 grid (``label``: with the revised EVP's parameters
+    too), each output against its own scale. D is the same function as A
+    run by the same kernel (csrc/evp_resident.cu), so it is held with A's
+    bounds and must equal A bit for bit."""
     import torch
     from cice5_tpu_torch.models.dynamics import evp as tevp
     from cice5_tpu_torch.ops import check
@@ -490,7 +551,7 @@ def evp_fused_phase(cap64, cap32):
         torch.cuda.synchronize()
         fp, rp, ep = check.worst(check.field_errors(plain, got))
         fa, ra, ea = check.worst(check.field_errors(a, got))
-        print(f"evp_fused BL99 {tag} kchunk={kchunk}: vs fused_sweep_plain "
+        print(f"evp_fused {label} {tag} kchunk={kchunk}: vs fused_sweep_plain "
               f"max abs diff {ep:.3e}, worst field {fp}: rel diff {rp:.3e}; "
               f"vs evp_sweep max abs diff {ea:.3e}, worst field {fa}: rel "
               f"diff {ra:.3e} (bound {tol:.0e} x the field's scale)")
@@ -499,7 +560,8 @@ def evp_fused_phase(cap64, cap32):
         if not (rp <= tol and ra <= tol and ea == 0.0):
             bad.append(tag)
     if bad:
-        fail(f"evp_fused disagrees with its plain version or evp_sweep: {bad}")
+        fail(f"evp_fused disagrees with its plain version or evp_sweep "
+             f"({label}): {bad}")
     p, ndte, topo, kw = cap32
     sw = dict(kchunk=10, nwin=4, **kw)
     ms = cuda_time_ms(lambda: tfused.fused_sweep(p, ndte, topo, **sw),
@@ -513,7 +575,7 @@ def evp_fused_phase(cap64, cap32):
     ga_ms, _ = graph_ms(lambda: tevp.evp_sweep(p, ndte, topo, **kw), reps=20)
     ny, nx = kw["uvel"].shape
     bound_ms, bound_by, what = evp_bound(kw, ndte)
-    print(f"evp_fused BL99 f32 ndte={ndte} kchunk=10 at {ny}x{nx}: kernel "
+    print(f"evp_fused {label} f32 ndte={ndte} kchunk=10 at {ny}x{nx}: kernel "
           f"{ms:.3f} ms ({ndte // 10} launches), in a CUDA graph {g_ms:.4f} "
           f"ms; plain {plain_ms:.3f} ms; evp_sweep on the same inputs "
           f"{a_ms:.3f} ms, in a CUDA graph {ga_ms:.4f} ms; bound "
@@ -1813,27 +1875,28 @@ def build_bl99():
     return m, m.init_state(ice_mask=m.grid.tmask), m.forcing_at(0)
 
 
-def build_bl99_fused():
+def build_bl99_fused(**dyn):
     """The BL99 + CCSM3 model with the fused EVP sweep
-    (evp_algorithm="pallas", kernel D: ndte/10 launches per step)."""
-    import dataclasses
+    (evp_algorithm="pallas", kernel D: ndte/10 launches per step) and the
+    dynamics fields ``dyn`` changed."""
     from cice5_tpu_torch.config import bench_easy_config
     from cice5_tpu_torch.driver.model import Model
+    from cice5_tpu_torch.small_sets import with_
     cfg = bench_easy_config()            # 320x384, float32, ndte=120
-    m = Model(cfg.replace(dyn=dataclasses.replace(cfg.dyn,
-                                                  evp_algorithm="pallas")))
+    m = Model(with_(cfg, dyn=dict(dyn, evp_algorithm="pallas")))
     return m, m.init_state(ice_mask=m.grid.tmask), m.forcing_at(0)
 
 
 def capture(build_model, dtype):
     """(grid, kernel arguments of one step at the main path's shapes after
     a warm-up step (velocities and stresses non-zero), the form-drag Cw
-    plane of the state that step started from)."""
+    plane of the state that step started from, the model's config)."""
     from cice5_tpu_torch.ops import check
     from cice5_tpu_torch.driver.step import step as step_fn
     m, st, f = build_model(dtype)
     st, _ = step_fn(st, f, *m.step_args)
-    return m.grid, check.capture_kernel_args(m, st, f)[1], drag_plane(m, st)
+    return (m.grid, check.capture_kernel_args(m, st, f)[1],
+            drag_plane(m, st), m.cfg)
 
 
 def drag_plane(m, st):
@@ -1959,7 +2022,8 @@ def option_path(label, m, st, nsteps, expect, drive="rollout", cm=None,
     ``expect[name]`` launches per step), the bench.py guards, and the
     graph rollout against the eager step at 0.0 (``graph_phase``). Prints
     the path's line and one JSON line, with ``report(model, state,
-    diag)``'s entries added. Returns the launches per step."""
+    diag)``'s entries added. Returns that line (the launches per step of
+    each kernel launched under "launches_per_step")."""
     import torch
     from cice5_tpu_torch.ops import kernels
     cfg = m.cfg
@@ -1996,7 +2060,7 @@ def option_path(label, m, st, nsteps, expect, drive="rollout", cm=None,
     cells = cfg.grid.nx * cfg.grid.ny
     through = {"run": "Model.run", "rollout": "Model.rollout"}[drive] \
         if cm is None else "CoupledModel.run"
-    per_step = {k: v / nsteps for k, v in launches.items() if v}
+    per_step = {k: v // nsteps for k, v in launches.items() if v}
     print(f"main path {label} on {card_line()}: {cfg.grid.ny}x{cfg.grid.nx} "
           f"{cfg.dtype} ndte={cfg.dyn.ndte} nilyr={cfg.nilyr} ktherm="
           f"{cfg.thermo.ktherm} calc_Tsfc={cfg.thermo.calc_Tsfc}, through "
@@ -2019,7 +2083,7 @@ def option_path(label, m, st, nsteps, expect, drive="rollout", cm=None,
     if report is not None:
         line.update(report(m, st, diag))
     print(f"{label}: " + json.dumps(line), flush=True)
-    return {k: v // nsteps for k, v in launches.items()}
+    return line
 
 
 def fresh_path():
@@ -2111,56 +2175,16 @@ def option_kernels(label, build_model, scheme=None):
           f"({bound[2]})", flush=True)
 
 
-def small_option_configs():
-    """{label: float64 config} of the small GPU-vs-CPU runs: the option
-    sets of tests/test_torch_options.py on a 24x16 global mesh (land on
-    the tripole seam), ndte=8."""
-    import dataclasses
-    from cice5_tpu_torch import config as C
-    r = dataclasses.replace
-    kw = dict(dtype="float64", accum_dtype="float64")
-    grid = lambda ns: C.GridConfig(
-        nx=16, ny=24, ew_boundary="cyclic", ns_boundary=ns,
-        grid_type="tripole" if ns == "tripole" else "displaced_pole")
-    dyn = C.DynConfig(kdyn=1, ndte=8, advection="remap", kstrength=1,
-                      krdg_partic=1, krdg_redist=1, mu_rdg=3.0, Cf=17.0)
-    base = C.ModelConfig(grid=grid("open"), dyn=dyn,
-                         forcing=C.ForcingConfig(oceanmixed_ice=True,
-                                                 natmiter=5),
-                         time=C.TimeConfig(dt=3600.0), **kw)
-    dedd = C.gx3_config().shortwave
-    ponds = dict(hs0=0.0, hs1=0.03, hp1=0.01, dpscale=1e-3, rfracmin=0.15,
-                 rfracmax=1.0, pndaspect=0.8)
-    mushy = dict(ktherm=2, dSdt_slow_mode=-5.0e-8)
-    gx3 = C.gx3_config(**kw)
-    tp1 = C.tp1_config(**kw)
-    return {
-        "gx3": gx3.replace(grid=grid("open"), dyn=r(gx3.dyn, ndte=8)),
-        "tp1": tp1.replace(grid=grid("tripole"), dyn=r(tp1.dyn, ndte=8)),
-        "cesm ponds bl99": base.replace(shortwave=dedd, tracers=C.TracerConfig(
-            tr_pond_cesm=True, **ponds)),
-        "cesm ponds mushy": base.replace(
-            shortwave=dedd, thermo=r(base.thermo, **mushy),
-            tracers=C.TracerConfig(tr_pond_cesm=True, **ponds)),
-        "topo ponds bl99": base.replace(shortwave=dedd, tracers=C.TracerConfig(
-            tr_pond_topo=True, **ponds)),
-        "topo ponds mushy": base.replace(
-            shortwave=dedd, thermo=r(base.thermo, **mushy),
-            tracers=C.TracerConfig(tr_pond_topo=True, **ponds)),
-        "frzpnd cesm": base.replace(shortwave=dedd, tracers=C.TracerConfig(
-            tr_lvl=True, tr_pond_lvl=True, frzpnd="cesm", **ponds)),
-        "ktherm=0": base.replace(thermo=r(base.thermo, ktherm=0)),
-        "calc_Tsfc=False": base.replace(thermo=r(base.thermo,
-                                                 calc_Tsfc=False)),
-    }
-
-
-def small_option_check(label, cfg, extra=(), diag_extra=()):
+def small_option_check(label, cfg, extra=(), diag_extra=(),
+                       frozen_sea=False):
     """One option set through the kernels on the GPU against the plain
     versions on the CPU: 24x16 float64, ndte=8, a northern-summer noon
-    with rain on the ice, ponds seeded where there is ice, one warm-up
-    step on the CPU, then two steps on each device, within 3e-8 of each
-    field's scale (tracers as conserved amounts; the StepDiag fields
+    with rain on the ice, ponds seeded where there is ice (with
+    ``frozen_sea`` the open ocean under air below freezing starts at its
+    freezing point, as the flag sets' references do), one warm-up step on
+    the CPU, then two steps on each device, within 3e-8 of each field's
+    scale (tracers as conserved amounts; the State fields ``extra`` too,
+    the stresses among them within 1e-5; the StepDiag fields
     ``diag_extra`` each entry of its leading axis on its own scale); and
     on the GPU the graph rollout against the eager step at 0.0."""
     import torch
@@ -2184,6 +2208,9 @@ def small_option_check(label, cfg, extra=(), diag_extra=()):
     if not cfg.thermo.calc_Tsfc:
         f = f.replace(**{k: torch.as_tensor(v) for k, v in
                          coupler_fluxes(cfg, seed=11).items()})
+    if frozen_sea:
+        cold = (f.Tair < 273.15 + f.Tf) & mc.grid.tmask
+        st = st.replace(sst=torch.where(cold, f.Tf, st.sst))
     st, _ = mc.step(st, f)
     ref, ref_d = mc.rollout(st, f, 2)
     got, got_d = mg.rollout(st.to("cuda"), f.to("cuda"), 2)
@@ -2196,7 +2223,10 @@ def small_option_check(label, cfg, extra=(), diag_extra=()):
              f"{int(ref_d.transport_mono_bad)} on the CPU")
     graph_against_eager(mg, st.to("cuda"), f.to("cuda"),
                         f"small float64 {label} run")
-    names = ("aicen", "vicen", "vsnon", "uvel", "vvel", "sst") + extra
+    stress = tuple(k for k in extra
+                   if k in ("stressp", "stressm", "stress12"))
+    names = ("aicen", "vicen", "vsnon", "uvel", "vvel", "sst") + tuple(
+        k for k in extra if k not in stress)
     amount = lambda s: tracer_weights(tr, s.aicen, s.vicen, s.vsnon,
                                       s.trcrn) * s.trcrn
     r = {k: getattr(ref, k) for k in names}
@@ -2222,6 +2252,16 @@ def small_option_check(label, cfg, extra=(), diag_extra=()):
     if not rel <= 3e-8:
         fail(f"small {label} run: {field} on the GPU differs from the CPU "
              f"by {rel:.3e} of its scale (> 3e-8)")
+    if stress:
+        field, rel, err = check.worst(check.field_errors(
+            {k: getattr(ref, k) for k in stress},
+            {k: getattr(got, k) for k in stress}))
+        print(f"small float64 {label} run: stresses max abs diff "
+              f"{err:.3e}; worst {field}: rel diff {rel:.3e} (bound 1e-5 x "
+              f"the field's scale)", flush=True)
+        if not rel <= 1e-5:
+            fail(f"small {label} run: {field} on the GPU differs from the "
+                 f"CPU by {rel:.3e} of its scale (> 1e-5)")
 
 
 def options_phase():
@@ -2231,9 +2271,11 @@ def options_phase():
     (``Model.rollout``) and with the coupler's surface fluxes
     (calc_Tsfc=False, ``CoupledModel`` with NumPy fluxes each step);
     kernels A, B and C on the gx3 and gx1_topo inputs; the small float64
-    GPU-vs-CPU run of every option set."""
+    GPU-vs-CPU run of every column option set of
+    ``cice5_tpu_torch/small_sets.py``."""
     import tempfile
     import torch
+    from cice5_tpu_torch import small_sets
     from cice5_tpu_torch.driver.coupled import CoupledModel
     from cice5_tpu_torch.driver.model import Model
     abc = dict(evp_sweep=1, remap_flux_both=1, shortwave_dedd=1)
@@ -2270,7 +2312,7 @@ def options_phase():
                 dict(evp_sweep=1, remap_flux_both=1), cm=cm)
     del m, cm
     fresh_path()
-    for label, cfg in small_option_configs().items():
+    for label, cfg in small_sets.column_option_sets().items():
         small_option_check(label, cfg)
 
 
@@ -2304,8 +2346,10 @@ def dynamics_phase():
     PyTorch kernels per step), the BL99 model with upwind transport
     (``bl99_upwind``, ``Model.rollout``: A once per step, B never); A
     against ``subcycle_sweep`` and B against its plain version on the
-    T-fold inputs; the small float64 GPU-vs-CPU run of each dynamics
-    option set. Returns ({path: launches per step}, A's T-fold result)."""
+    T-fold inputs, A also with the revised EVP's parameters
+    (``revised_evp_phase``); the small float64 GPU-vs-CPU run of each
+    dynamics option set. Returns ({path: launches per step}, A's T-fold
+    result, A's revised T-fold result)."""
     import dataclasses
     import tempfile
     import numpy as np
@@ -2342,7 +2386,8 @@ def dynamics_phase():
         fail("gx1_tfold: not on a T-fold seam")
     launches["gx1_tfold"] = option_path(
         "gx1_tfold", m, st, 5, dict(evp_sweep=1, remap_flux_both=1,
-                                    shortwave_dedd=1), report=checks)
+                                    shortwave_dedd=1),
+        report=checks)["launches_per_step"]
     del m, st
     caps = {dt: capture(build(gx1_tfold_config), dt)
             for dt in ("float64", "float32")}
@@ -2352,6 +2397,7 @@ def dynamics_phase():
                   "gx1_tfold")
     a["eager_ms"], a["ms"] = a["ms"], evp_costs(caps["float32"][1]["evp"],
                                                 "gx1_tfold")
+    a_rev = revised_evp_phase(caps["float64"], caps["float32"], "gx1_tfold")
     remap_phase(caps["float64"][1]["remap"], caps["float32"][1]["remap"],
                 caps["float64"][0], caps["float32"][0], "gx1_tfold",
                 f32_update="accuracy")
@@ -2389,7 +2435,7 @@ def dynamics_phase():
             "gx1_eap", m, st, 4, dict(remap_flux_both=1, shortwave_dedd=1),
             drive="run", report=eap_report, run_kw=dict(
                 history=hist.HistoryStream(fields, freq="1", freq_n=4),
-                history_dir=tmp))
+                history_dir=tmp))["launches_per_step"]
     del m, st
 
     fresh_path()
@@ -2398,13 +2444,13 @@ def dynamics_phase():
                                                   advection="upwind")))
     launches["bl99_upwind"] = option_path(
         "bl99_upwind", m, m.init_state(ice_mask=m.grid.tmask), 5,
-        dict(evp_sweep=1))
+        dict(evp_sweep=1))["launches_per_step"]
     del m
     fresh_path()
     for label, cfg in small_sets.dyn_option_sets().items():
         small_option_check(label, cfg,
                            small_sets.DYN_STATE if cfg.dyn.kdyn == 2 else ())
-    return launches, a
+    return launches, a, a_rev
 
 
 def tracer_health(m, st, label):
@@ -2513,7 +2559,7 @@ def tracer_phase():
                                       shortwave_dedd=1),
             drive="run", report=bgc_report, run_kw=dict(
                 history=hist.HistoryStream(fields, freq="1", freq_n=4),
-                history_dir=tmp))}
+                history_dir=tmp))["launches_per_step"]}
     del m, st
     caps = {dt: capture(build, dt) for dt in ("float64", "float32")}
     ntrace = caps["float32"][1]["remap"][3].shape[1]
@@ -3345,7 +3391,7 @@ def cesm2_layers_phase():
             dict(evp_sweep=1, remap_flux_both=1, shortwave_dedd=1),
             drive="run", report=report, run_kw=dict(
                 history=hist.HistoryStream(fields, freq="1", freq_n=4),
-                history_dir=f"{tmp}/history"))}
+                history_dir=f"{tmp}/history"))["launches_per_step"]}
     del m, st
     fresh_path()
     caps = {dt: capture(build_cesm2_layers, dt)
@@ -3359,6 +3405,94 @@ def cesm2_layers_phase():
     for label, cfg in small_sets.layer_option_sets().items():
         small_option_check(label, cfg)
     return launches, c, b
+
+
+def build_gx1_option(**sections):
+    """``gx1_parity_config()`` on synth_gx1_grid (384x320, float32,
+    ndte=120) with the fields of its sections ``sections`` changed
+    (``small_sets.with_``), the default 70N/60S ice edge, forcing of step
+    0."""
+    from cice5_tpu_torch.config import gx1_parity_config
+    from cice5_tpu_torch.driver.model import Model
+    from cice5_tpu_torch.grid import synth_gx1_grid
+    from cice5_tpu_torch.small_sets import with_
+    cfg = with_(gx1_parity_config(), **sections)
+    m = Model(cfg, grid=synth_gx1_grid(cfg, device="cuda"))
+    return m, m.init_state(), m.forcing_at(0)
+
+
+def evp_options_phase():
+    """The revised EVP and dynamics subcycling at full width (384x320,
+    float32, ndte=120), each through ``Model.rollout`` with the bench.py
+    guards (``option_path``: 5 timed steps after 2, launch counters set
+    to 0 just before and read just after, graph rollout against the eager
+    step at 0.0): ``gx1_revp``, gx1-parity with ``revised_evp=True``
+    (Bouillon et al. 2013, CICE 5.1's ice_dyn_shared.F90:230; A, B and C
+    once per step), and ``gx1_ndtd2``, gx1-parity with ``ndtd=2`` (two
+    dynamics, transport and ridging passes of dt/2 per step: A and B
+    twice, C once), each with its ms per step and peak memory beside
+    gx1-parity's, which runs first the same way (``gx1_parity_beside``);
+    ``bl99_fused_revp``, the BL99 + CCSM3 model with the fused EVP and
+    the revised EVP (D 12 times and B once per step); then the small
+    float64 GPU-vs-CPU run of each namelist option set of
+    ``cice5_tpu_torch/small_sets.py``, from the frozen open sea where the
+    tests start from it and with the fields its option drives compared
+    too. Returns {path: launches per step}."""
+    from cice5_tpu_torch import small_sets
+    from cice5_tpu_torch.driver.step import _min_spacing
+    abc = dict(evp_sweep=1, remap_flux_both=1, shortwave_dedd=1)
+    ref = None
+    launches = {}
+    for label, sections, expect in (
+            ("gx1_parity_beside", {}, abc),
+            ("gx1_revp", dict(dyn=dict(revised_evp=True)), abc),
+            ("gx1_ndtd2", dict(time=dict(ndtd=2)),
+             dict(evp_sweep=2, remap_flux_both=2, shortwave_dedd=1))):
+        fresh_path()
+        m, st, _ = build_gx1_option(**sections)
+
+        def beside(m, st, diag):
+            out = dict(ndtd=m.cfg.time.ndtd,
+                       revised_evp=m.cfg.dyn.revised_evp)
+            if ref is not None:
+                out.update(gx1_parity_ms_per_step=ref["ms_per_step"],
+                           gx1_parity_peak_memory_bytes=ref[
+                               "peak_memory_bytes"])
+            if m.cfg.dyn.revised_evp:
+                out["xmin_m"] = _min_spacing(m.grid, m.topo)
+            return out
+
+        line = option_path(label, m, st, 5, expect, report=beside)
+        del m, st
+        if ref is None:
+            ref = line
+            continue
+        launches[label] = line["launches_per_step"]
+        print(f"{label} beside gx1-parity: {line['ms_per_step']:.3f} "
+              f"against {ref['ms_per_step']:.3f} ms/step "
+              f"({line['ms_per_step'] / ref['ms_per_step']:.3f}x), peak "
+              f"device memory {line['peak_memory_bytes'] / 2**30:.3f} "
+              f"against {ref['peak_memory_bytes'] / 2**30:.3f} GiB",
+              flush=True)
+    fresh_path()
+    m, st, _ = build_bl99_fused(revised_evp=True)
+    launches["bl99_fused_revp"] = option_path(
+        "bl99_fused_revp", m, st, 5, dict(evp_fused=12, remap_flux_both=1),
+        report=lambda m, st, diag: dict(
+            revised_evp=True,
+            xmin_m=_min_spacing(m.grid, m.topo)))["launches_per_step"]
+    del m, st
+    fresh_path()
+    for label, cfg in small_sets.flag_option_sets().items():
+        drives = small_sets.FLAG_DRIVES.get(label, ())
+        small_option_check(
+            label, cfg,
+            extra=tuple(k[len("out/"):] for k in drives
+                        if k.startswith("out/")),
+            diag_extra=tuple(k[len("diag/"):] for k in drives
+                             if k.startswith("diag/")),
+            frozen_sea=label in small_sets.FROZEN_SEA)
+    return launches
 
 
 def main():
@@ -3399,6 +3533,9 @@ def main():
                 caps["float64"][0], caps["float32"][0], "BL99")
     # slice 3: kernel D on the same open-boundary inputs, E beside B
     d = evp_fused_phase(caps["float64"][1]["evp"], caps["float32"][1]["evp"])
+    d_rev = evp_fused_phase(*(revised_cap(caps[dt])
+                              for dt in ("float64", "float32")),
+                            label="BL99 revised EVP")
     formdrag_evp_phase(caps["float64"][1]["evp"], caps["float32"][1]["evp"],
                        caps["float64"][2], caps["float32"][2], "BL99",
                        fused=True)
@@ -3415,6 +3552,8 @@ def main():
                   "gx1 tripole")
     a["eager_ms"], a["ms"] = a["ms"], evp_costs(caps["float32"][1]["evp"],
                                                 "gx1 tripole")
+    a_rev = revised_evp_phase(caps["float64"], caps["float32"],
+                              "gx1 tripole")
     formdrag_evp_phase(caps["float64"][1]["evp"], caps["float32"][1]["evp"],
                        caps["float64"][2], caps["float32"][2], "gx1 tripole",
                        fused=False)
@@ -3443,12 +3582,13 @@ def main():
     run_phase()
     auscom_025_phase(gx1_peak)
     options_phase()
-    by_path, a_tfold = dynamics_phase()
+    by_path, a_tfold, a_tfold_rev = dynamics_phase()
     bgc_launches, b_bgc = tracer_phase()
     by_path.update(bgc_launches)
     by_path.update(file_forcing_phase())
     cesm2_launches, c_layers, b_layers = cesm2_layers_phase()
     by_path.update(cesm2_launches)
+    by_path.update(evp_options_phase())
     sharded_launches, tile = sharded_phase()
     by_path.update(sharded_launches)
     by_path.update({"gx1-parity": {k: v // 10 for k, v in launches.items()},
@@ -3468,7 +3608,21 @@ def main():
              tfold=dict(launches=by_path["gx1_tfold"]["evp_sweep"] * 5,
                         max_abs_err=a_tfold["err"], ms=a_tfold["ms"],
                         plain_ms=a_tfold["plain_ms"],
-                        bound_ms=a_tfold["bound_ms"])),
+                        bound_ms=a_tfold["bound_ms"]),
+             # the revised EVP's parameters on the gx1 tripole inputs (its
+             # launches from the gx1_revp path) and on the T-fold ones
+             revised=dict(
+                 launches=by_path["gx1_revp"]["evp_sweep"] * 5,
+                 max_abs_err=a_rev["err"], ms=a_rev["ms"],
+                 eager_ms=a_rev["eager_ms"], plain_ms=a_rev["plain_ms"],
+                 bound_ms=a_rev["bound_ms"], bound_by=a_rev["bound_by"],
+                 brlx=a_rev["brlx"],
+                 tfold=dict(max_abs_err=a_tfold_rev["err"],
+                            ms=a_tfold_rev["ms"],
+                            plain_ms=a_tfold_rev["plain_ms"],
+                            bound_ms=a_tfold_rev["bound_ms"],
+                            brlx=a_tfold_rev["brlx"])),
+             ndtd2=dict(launches=by_path["gx1_ndtd2"]["evp_sweep"] * 5)),
         dict(name="remap_flux_both", route="cuda",
              source="cice5_tpu_torch/csrc/remap_tiles.cu",
              replaces="cice5_tpu/ops/pallas/remap_flux.py:163",
@@ -3506,7 +3660,15 @@ def main():
              launches=fused["evp_fused"], max_abs_err=d["err"],
              ms=d["ms"], plain_ms=d["plain_ms"], bound_ms=d["bound_ms"],
              bound_by=d["bound_by"], library_ms=None,
-             launches_per_step_by_path=per_path("evp_fused")),
+             launches_per_step_by_path=per_path("evp_fused"),
+             # the revised EVP's parameters on the BL99 inputs (its
+             # launches from the bl99_fused_revp path)
+             revised=dict(launches=by_path["bl99_fused_revp"]["evp_fused"]
+                          * 5, max_abs_err=d_rev["err"],
+                          ms=d_rev["ms"], eager_ms=d_rev["eager_ms"],
+                          plain_ms=d_rev["plain_ms"],
+                          bound_ms=d_rev["bound_ms"],
+                          bound_by=d_rev["bound_by"])),
         # no main path calls the single-edge kernel (0 launches on each);
         # its time beside B's on the same inputs
         dict(name="remap_flux_edge", route="cuda",

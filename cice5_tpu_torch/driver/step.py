@@ -175,6 +175,19 @@ def _min_spacing(grid: Grid, topo: Topology) -> float:
     return hit[1]
 
 
+def evp_params(cfg: ModelConfig, grid: Grid,
+               topo: Topology) -> dyn.EVPParams:
+    """The EVP parameters of one dynamics subcycle of dt/ndtd: the revised
+    EVP's (brlx from the grid's smallest ocean spacing, revp=1) with
+    ``revised_evp``, else the classic ones."""
+    dt_dyn = cfg.time.dt / cfg.time.ndtd
+    kw = dict(cosw=cfg.dyn.cosw, sinw=cfg.dyn.sinw, e_ratio=cfg.dyn.e_ratio)
+    if cfg.dyn.revised_evp:
+        return dyn.EVPParams.revised(dt_dyn, cfg.dyn.ndte,
+                                     _min_spacing(grid, topo), **kw)
+    return dyn.EVPParams.classic(dt_dyn, cfg.dyn.ndte, **kw)
+
+
 def _layers(trcrn, i0, n):
     """trcrn[:, i0:i0+n] as a layer-first (n, ncat, ...) stack."""
     return trcrn[:, i0:i0 + n].movedim(1, 0)
@@ -740,15 +753,7 @@ def step(state: State, forcing: Forcing, grid: Grid, cfg: ModelConfig,
     dagedtt = (age_mid - _mean_age(state.aicen, state.trcrn)) / dt
     if cfg.dyn.kdyn >= 1:
         dt_dyn = dt / cfg.time.ndtd
-        if cfg.dyn.revised_evp:
-            xmin = _min_spacing(grid, topo)
-            p = dyn.EVPParams.revised(dt_dyn, cfg.dyn.ndte, xmin,
-                                      cosw=cfg.dyn.cosw, sinw=cfg.dyn.sinw,
-                                      e_ratio=cfg.dyn.e_ratio)
-        else:
-            p = dyn.EVPParams.classic(dt_dyn, cfg.dyn.ndte,
-                                      cosw=cfg.dyn.cosw, sinw=cfg.dyn.sinw,
-                                      e_ratio=cfg.dyn.e_ratio)
+        p = evp_params(cfg, grid, topo)
         for _ in range(cfg.time.ndtd):
             agg = itd.aggregate(tr, aicen, vicen, vsnon, trcrn)
             if cfg.dyn.kstrength == 1:

@@ -1,10 +1,11 @@
-"""Small float64 configurations of the dynamics, transport and tracer
-options, one definition for every check that runs them.
+"""Small float64 configurations of the port's options, one definition
+for every check that runs them.
 
-Each runs the BL99 + CCSM3 model (gx3's dynamics and slab ocean) on a
-24x16 global mesh, ndte=8, with one option on; the layer sets run the
-gx1-parity physics there with CESM2's 8 ice and 3 snow layers. The tests
-hold the port's step on them against the JAX package's
+Each runs on a 24x16 global mesh, ndte=8: gx3's and tp1's physics, and
+the BL99 + CCSM3 model (gx3's dynamics and slab ocean) with one column,
+dynamics, transport, tracer or namelist option on; the layer sets run
+the gx1-parity physics there with CESM2's 8 ice and 3 snow layers. The
+tests hold the port's step on them against the JAX package's
 (``tests/torch_option_sets.py``), and ``chip_smoke.py`` holds the card
 against the CPU on the same configurations.
 """
@@ -57,12 +58,124 @@ def with_(cfg, **sections):
                           for k, v in sections.items()})
 
 
+def column_option_sets() -> dict:
+    """{name: ModelConfig} of the standalone configurations and the column
+    options: gx3's and tp1's physics on a displaced-pole and a tripole
+    grid, the BL99 model on a tripole seam, mushy thermo without dEdd,
+    dEdd without ponds, each of iage, FY and lvl alone, CESM and
+    topographic ponds under BL99 and mushy thermo, the CESM refreezing of
+    level ponds, zero-layer thermo, and the coupler's surface fluxes
+    (calc_Tsfc=False) under BL99 and mushy thermo."""
+    f64 = dict(dtype="float64", accum_dtype="float64")
+    gx3 = with_(C.gx3_config(**f64), dyn=dict(ndte=NDTE))
+    tp1 = with_(C.tp1_config(**f64), dyn=dict(ndte=NDTE))
+    b = bl99()
+    return {
+        "gx3": gx3.replace(grid=grid("open")),
+        "tp1": tp1.replace(grid=grid("tripole")),
+        "bl99_ccsm3_tripole": bl99("tripole"),
+        "mushy_ccsm3": with_(b, thermo=MUSHY),
+        "dedd_no_ponds": with_(b, shortwave=DEDD),
+        "iage": with_(b, tracers=dict(tr_iage=True)),
+        "FY": with_(b, tracers=dict(tr_FY=True)),
+        "lvl": with_(b, tracers=dict(tr_lvl=True)),
+        "cesm_ponds_bl99": with_(b, shortwave=DEDD,
+                                 tracers=dict(tr_pond_cesm=True, **PONDS)),
+        "cesm_ponds_mushy": with_(b, thermo=MUSHY, shortwave=DEDD,
+                                  tracers=dict(tr_pond_cesm=True, **PONDS)),
+        "topo_ponds_bl99": with_(b, shortwave=DEDD,
+                                 tracers=dict(tr_pond_topo=True, **PONDS)),
+        "topo_ponds_mushy": with_(b, thermo=MUSHY, shortwave=DEDD,
+                                  tracers=dict(tr_pond_topo=True, **PONDS)),
+        "frzpnd_cesm": level_ponds(),
+        "zerolayer": with_(b, thermo=dict(ktherm=0)),
+        "calc_tsfc_off_bl99": with_(b, thermo=dict(calc_Tsfc=False)),
+        "calc_tsfc_off_mushy": with_(b, thermo=dict(calc_Tsfc=False,
+                                                    **MUSHY)),
+    }
+
+
+def level_ponds() -> C.ModelConfig:
+    """The BL99 model with dEdd and level ponds refreezing as CESM does
+    (``frzpnd="cesm"``)."""
+    return with_(bl99(), shortwave=DEDD, tracers=dict(
+        tr_lvl=True, tr_pond_lvl=True, frzpnd="cesm", **PONDS))
+
+
+def flag_option_sets() -> dict:
+    """{name: ModelConfig} of the namelist options that ``check_supported``
+    accepts and no other set turns on, each on the BL99 model (the
+    ``bl99`` set) with one option changed: MU71 conductivity, the
+    delta-function ITD, Hibler strength, two dynamics subcycles per step,
+    the constant-coefficient boundary layer, the revised EVP, an ellipse
+    aspect ratio of 1.5, a 25-degree ocean turning angle, the WMO category
+    bounds, linear ridging participation and Hibler redistribution,
+    constant albedos, the frazil's ocean fluxes, SST restoring with a
+    one-day time scale, closed east-west and north-south boundaries, and
+    the pond water kept from the ocean on the level-pond model
+    (``frzpnd_cesm``)."""
+    b = bl99()
+    return {
+        "bl99": b,
+        "mu71": with_(b, thermo=dict(conduct="MU71")),
+        "kitd0": b.replace(kitd=0),
+        "hibler_strength": with_(b, dyn=dict(kstrength=0)),
+        "ndtd2": with_(b, time=dict(ndtd=2)),
+        "atmbndy_const": with_(b, forcing=dict(atmbndy="constant")),
+        "revised_evp": with_(b, dyn=dict(revised_evp=True)),
+        "e_ratio": with_(b, dyn=dict(e_ratio=1.5)),
+        # an ocean turning angle of 25 degrees
+        "turning_angle": with_(b, dyn=dict(cosw=0.9063, sinw=0.4226)),
+        "kcatbound2": b.replace(kcatbound=2),
+        "rdg_linear": with_(b, dyn=dict(krdg_partic=0, krdg_redist=0)),
+        "albedo_const": with_(b, shortwave=dict(albedo_type="constant")),
+        "update_ocn_f": with_(b, forcing=dict(update_ocn_f=True)),
+        "mpond_fresh": with_(level_ponds(), forcing=dict(l_mpond_fresh=True)),
+        "restore_sst": with_(b, forcing=dict(restore_sst=True, trestore=1)),
+        # the global mesh as a closed basin: the halo gives an open
+        # boundary the same zero ghosts, in both packages
+        "closed_basin": with_(b, grid=dict(ew_boundary="closed",
+                                           ns_boundary="closed")),
+    }
+
+
+# each flag set's base set, and the fields that its option drives (the
+# State's "out/<name>" and StepDiag's "diag/<name>"): the option's JAX
+# reference differs from its base's in one of them, and the card is held
+# against the CPU on them
+FLAG_BASE = {name: "frzpnd_cesm" if name == "mpond_fresh" else "bl99"
+             for name in flag_option_sets() if name != "bl99"}
+FLAG_DRIVES = {
+    "mu71": ("diag/fcondtop", "diag/congel", "diag/Tsfc"),
+    "kitd0": ("out/aicen", "out/vicen"),
+    "hibler_strength": ("diag/strength",),
+    "ndtd2": ("out/uvel", "out/vvel", "diag/dardg1dt"),
+    "atmbndy_const": ("diag/fsens", "diag/flat", "diag/Tref"),
+    "revised_evp": ("out/uvel", "out/vvel"),
+    "e_ratio": ("out/stressm", "out/stress12"),
+    "turning_angle": ("out/uvel", "out/vvel", "out/strocnxT"),
+    "kcatbound2": ("out/aicen", "out/vicen"),
+    "rdg_linear": ("diag/dardg1dt", "diag/opening", "out/aicen"),
+    "albedo_const": ("diag/albice", "diag/alvdr"),
+    "update_ocn_f": ("diag/fresh", "diag/fsalt"),
+    "mpond_fresh": ("diag/fresh",),
+    "restore_sst": ("out/sst",),
+    "closed_basin": ("out/uvel", "out/vvel", "out/aicen"),
+}
+assert set(FLAG_DRIVES) == set(FLAG_BASE)
+# the flag sets on the BL99 model start with the open ocean under air
+# below freezing at its freezing point: the 24x16 mesh otherwise forms no
+# frazil in three steps, and update_ocn_f acts on the frazil alone
+FROZEN_SEA = tuple(n for n in flag_option_sets()
+                   if n == "bl99" or FLAG_BASE.get(n) == "bl99")
+
+
 def dyn_option_sets() -> dict:
     """{name: ModelConfig} of the dynamics and transport options, each on
     the BL99 model: a T-fold seam, EAP alone, on a T-fold seam and with
     the per-category mechred diagnostics on a U-fold seam, upwind
-    transport, the transport conservation and monotonicity checks, and
-    dynamics without transport."""
+    transport, the transport conservation and monotonicity checks,
+    dynamics without transport, and the chunked EVP on one device."""
     b = bl99()
     return {
         # remap_kernel="pallas": the JAX reference runs the Pallas remap
@@ -78,6 +191,9 @@ def dyn_option_sets() -> dict:
                                               monotonicity_check=True),
                                   tracers=dict(tr_iage=True)),
         "dyn_no_transport": with_(b, dyn=dict(advection="none")),
+        # K=4 subcycles per margin exchange: two chunks of ndte=8
+        "evp_chunked": with_(b, dyn=dict(evp_algorithm="chunked",
+                                         evp_chunk=4)),
         "eap_tfold": with_(bl99("tripoleT"),
                            dyn=dict(kdyn=2, remap_kernel="pallas")),
     }
@@ -86,9 +202,10 @@ def dyn_option_sets() -> dict:
 def tracer_option_sets() -> dict:
     """{name: ModelConfig} of the aerosol, brine and skeletal-BGC tracers:
     aerosols under BL99, brine + BGC under mushy thermo, the constant
-    piston velocity with a subset of the BGC tracers, and every auxiliary
-    tracer at once on a U-fold seam (aerosols, brine, BGC, topo ponds,
-    iage, FY and lvl)."""
+    piston velocity with a subset of the BGC tracers, the nutrient
+    subsets (growth on ammonium alone without silicate, and without
+    ammonium or chlorophyll), and every auxiliary tracer at once on a
+    U-fold seam (aerosols, brine, BGC, topo ponds, iage, FY and lvl)."""
     b = bl99()
     return {
         "aero": with_(b, tracers=dict(tr_aero=True, n_aero=3)),
@@ -96,6 +213,10 @@ def tracer_option_sets() -> dict:
                            tracers=dict(tr_brine=True, skl_bgc=True)),
         "bgc_constant": with_(b, tracers=dict(
             skl_bgc=True, bgc_flux_type="constant", **BGC_SUBSET_OFF)),
+        "bgc_ammonium_only": with_(b, tracers=dict(
+            skl_bgc=True, tr_bgc_Nit_sk=False, tr_bgc_Sil_sk=False)),
+        "bgc_no_ammonium": with_(b, tracers=dict(
+            skl_bgc=True, tr_bgc_Am_sk=False, tr_bgc_chl_sk=False)),
         "tracers_all": with_(bl99("tripole"), shortwave=DEDD,
                              tracers=dict(tr_aero=True, n_aero=2,
                                           tr_iage=True, tr_FY=True,
@@ -116,3 +237,10 @@ def layer_option_sets() -> dict:
                 dyn=dict(ndte=NDTE)).replace(grid=grid("tripole"))
     return {"cesm2_layers": cfg,
             "cesm2_layers_bl99": with_(cfg, thermo=dict(ktherm=1))}
+
+
+def option_sets() -> dict:
+    """{name: ModelConfig} of every small set."""
+    return {**column_option_sets(), **dyn_option_sets(),
+            **tracer_option_sets(), **layer_option_sets(),
+            **flag_option_sets()}

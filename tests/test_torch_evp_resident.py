@@ -399,3 +399,70 @@ def test_tiled_schedule_matches_jax_sweep_resident_on_the_tfold():
                                 **kw)
     assert not torch.equal(ufold[0][-2:], plain[0][-2:])
     assert float(plain[0][-2:].abs().max()) > 0.0
+
+
+def _revised():
+    """The revised EVP's parameters (Bouillon et al. 2013) for the sweep
+    inputs of ``_sweep_inputs``: dt 3600 s, ndte=3, xmin the grid's 20 km
+    spacing."""
+    p = tdyn.EVPParams.revised(3600.0, 3, 20000.0)
+    assert p.revp == 1.0 and p.brlx > 100.0 * 3
+    return p
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("ns,n_sm,branch", [
+    ("open", 6, None),
+    ("tripole", 6, None),
+    ("tripole", 9, "device"),
+    ("tripoleT", 6, None)])
+def test_tiled_schedule_with_the_revised_evp_equals_subcycle_sweep(
+        dtype, ns, n_sm, branch):
+    """The revised EVP's parameters (brlx from the smallest spacing, ~700
+    times the classic dt/dte here, and revp=1, which adds the step's
+    initial velocity to the momentum update) through the kernel's
+    schedule: bit for bit the plain sweep on a 37x53 grid in ragged tiles,
+    ndte=3, on an open north and on both seams; and they change the
+    result."""
+    classic, topo, kw = _sweep_inputs(37, 53, "cyclic", ns, dtype)
+    p = _revised()
+    plan = tile_plan(37, 53, kw["uvel"].dtype, n_sm, H100["smem_optin"],
+                     branch)
+    assert plan.ntiles > 1
+    ref = tevp.subcycle_sweep(p, 3, topo, **kw)
+    got = tiled_sweep(p, 3, topo, plan, **kw)
+    for name, a, b in zip(("u", "v", "stress", "divu", "shear", "rdg_conv",
+                           "rdg_shear", "prs_sig", "strintx", "strinty"),
+                          _flat(ref), _flat(got)):
+        assert torch.equal(a, b), name
+    old = tevp.subcycle_sweep(classic, 3, topo, **kw)
+    assert float((old[0] - ref[0]).abs().max()) > 1e-3 * float(
+        ref[0].abs().max())
+
+
+def test_tiled_schedule_matches_jax_sweep_resident_with_the_revised_evp():
+    """The revised EVP on the tripole seam: the kernel's schedule against
+    the Pallas kernel it replaces (interpret mode) on the port's sweep
+    inputs of a 16x32 grid with a random stress, and bit for bit against
+    the port's plain sweep."""
+    ndte = 3
+    _, topo, kw = _sweep_inputs(16, 32, "cyclic", "tripole", "float64",
+                                seed=5)
+    p = _revised()
+    jkw = {k: ({kk: jnp.asarray(vv.numpy()) for kk, vv in v.items()}
+               if isinstance(v, dict) else
+               v if isinstance(v, float) else jnp.asarray(v.numpy()))
+           for k, v in kw.items()}
+    jp = jdyn.EVPParams.revised(3600.0, ndte, 20000.0)
+    assert dataclasses.asdict(jp) == dataclasses.asdict(p)
+    ref = sweep_resident(jp, ndte, JTopology(ew="cyclic", ns="tripole"),
+                         **jkw, interpret=True)
+    plan = tile_plan(16, 32, torch.float64, 6, H100["smem_optin"])
+    got = tiled_sweep(p, ndte, topo, plan, **kw)
+    plain = tevp.subcycle_sweep(p, ndte, topo, **kw)
+    for name, a, b, c in zip(("u", "v", "stress", "divu", "shear",
+                              "rdg_conv", "rdg_shear", "prs_sig", "strintx",
+                              "strinty"),
+                             _flat(ref), _flat(got), _flat(plain)):
+        assert torch.equal(b, c), name
+        assert_close(a, b, 1e-11, name, floor=1e-12)

@@ -163,6 +163,28 @@ def test_prepare_forcing_matches_jax(atm, units, given):
         assert_close(ref[k], got[k], 1e-12, k)
 
 
+def test_prepare_forcing_without_calc_strair_matches_jax():
+    """calc_strair=False: the wind is taken as the dataset gives it, not
+    rotated onto the grid (ice_forcing.F90:1653-1677), in both packages;
+    on a grid with a rotation the two choices differ."""
+    a = _fields(2)
+    keys = ("Tair", "fsw", "cldf", "Qa", "rhoa", "uatm", "vatm", "ANGLET",
+            "hm")
+    kw = dict(atm_data_type="ncar", precip_units="mm_per_month",
+              days_per_year=365)
+    ref = J.prepare_forcing(**{k: jnp.asarray(a[k]) for k in keys},
+                            calc_strair=False, **kw)
+    got = T.prepare_forcing(**{k: torch.from_numpy(a[k]) for k in keys},
+                            calc_strair=False, **kw)
+    assert sorted(ref) == sorted(got)
+    for k in ref:
+        assert_close(ref[k], got[k], 1e-12, k)
+    np.testing.assert_array_equal(got["uatm"].numpy(), a["uatm"])
+    rotated = T.prepare_forcing(**{k: torch.from_numpy(a[k]) for k in keys},
+                                **kw)
+    assert not torch.equal(rotated["uatm"], got["uatm"])
+
+
 # ---------------------------------------------------------------------
 # the NCAR and Large-Yeager trees
 # ---------------------------------------------------------------------

@@ -41,6 +41,7 @@ from cice5_tpu_torch.io import restart as trestart
 from cice5_tpu_torch.io import timers as ttimers
 from cice5_tpu_torch.models import restoring as trestoring
 from cice5_tpu_torch.parallel import Topology
+from cice5_tpu_torch.small_sets import BGC_SUBSET_OFF
 from cice5_tpu_torch.state import build_tracer_registry
 import torch_option_sets as O
 import torch_port_util as U
@@ -344,7 +345,7 @@ def test_catalog_of_the_tracer_options_matches_jax(what):
            "skl_bgc": cfg.replace(tracers=r(cfg.tracers, skl_bgc=True)),
            "skl_bgc_subset": cfg.replace(tracers=r(
                cfg.tracers, skl_bgc=True, bgc_flux_type="constant",
-               **O.BGC_SUBSET_OFF)),
+               **BGC_SUBSET_OFF)),
            "gx1_bgc": parity.replace(tracers=r(
                parity.tracers, tr_aero=True, n_aero=3, tr_brine=True,
                skl_bgc=True))}[what]

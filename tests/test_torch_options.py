@@ -19,7 +19,10 @@ once on a U-fold, with first_ice and the aerosol and BGC fluxes, primary
 production and algal growth compared too, and each reference shown to
 have its tracers at work; and CESM2's column (``O.LAYER_SETS``: the
 gx1-parity physics with 8 ice and 3 snow layers, under mushy and under
-BL99 thermo), the first sets with several snow layers.
+BL99 thermo), the first sets with several snow layers; and the namelist
+options no other set turns on (``O.FLAG_SETS``), each the BL99 model
+with one option changed, whose references are shown to move from their
+base set's in a field the option drives.
 
 Each runs two steps of the port's ``Model`` on the 24x16 mesh, ndte=8,
 from the state the JAX package warmed up by one step, with rain on the
@@ -166,6 +169,22 @@ def test_tracer_reference_shows_its_tracers_at_work(name):
         assert np.abs(fbri - 1.0).max() > 1e-4
     if tc.tr_brine or tc.skl_bgc:
         assert set(np.unique(js["first_ice"])) == {0.0, 1.0}
+
+
+@pytest.mark.parametrize("name", sorted(O.FLAG_BASE))
+def test_flag_reference_shows_its_option_at_work(name):
+    """A namelist option that moves nothing holds nothing: in the recorded
+    JAX references, the set's fields that its option drives
+    (``O.FLAG_DRIVES``) differ from its base set's by more than the
+    comparison tolerance in at least one of them."""
+    ref, base = O.load_reference(name), O.load_reference(O.FLAG_BASE[name])
+    moved = {}
+    for k in O.FLAG_DRIVES[name]:
+        a, b = ref[k].astype(float), base[k].astype(float)
+        tol = 1e-5 if k.split("/")[1] in O.STRESS + O.DIAG_EVP else 3e-8
+        moved[k] = float(np.abs(a - b).max()) / max(
+            float(np.abs(a).max()), 1.0) / tol
+    assert max(moved.values()) > 1.0, moved
 
 
 @pytest.mark.parametrize("name", SETS)

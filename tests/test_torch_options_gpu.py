@@ -11,15 +11,19 @@ mushy without dEdd, dEdd without ponds, iage, FY and lvl alone, CESM and
 topographic ponds under BL99 and mushy, the CESM pond refreezing,
 zero-layer thermo, calc_Tsfc=False under BL99 and mushy; the T-fold
 seam, EAP alone, on the T-fold and with the mechred diagnostics, upwind
-transport, the transport checks, dynamics without transport; the
+transport, the transport checks, dynamics without transport, the
+chunked EVP on one device (its plain loop, no kernel A); the
 aerosol, brine and skeletal-BGC tracers, with their fluxes to the
 ocean; CESM2's 8 ice and 3 snow layers under mushy and BL99 thermo, C
-from its own library), from the recorded
+from its own library; each namelist option of ``O.FLAG_SETS`` on the
+BL99 model, the revised EVP and ndtd=2 through kernel A), from the recorded
 warmed-up state in float64: two steps through the kernels on the card
 within 3e-8 of each field's scale of the plain versions on the CPU
-(tracers as conserved amounts, stresses 1e-5), the graph rollout equal to
-the eager step at 0.0, and kernel A (EVP sets), B (remap sets) and C
-(dEdd sets) launched once per step.
+(tracers as conserved amounts, stresses 1e-5; with the StepDiag fields
+that a flag set's option drives), the graph rollout equal to
+the eager step at 0.0, and kernel A (EVP sets) and B (remap sets)
+launched once per dynamics subcycle (ndtd per step) and C (dEdd sets)
+once per step.
 """
 import dataclasses
 
@@ -56,10 +60,12 @@ def test_set_on_the_card_matches_the_cpu(cuda_device, name):
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     dedd = mc.cfg.shortwave.shortwave == "dEdd"
-    evp = mc.cfg.dyn.kdyn == 1           # EAP has no hand-written kernel
+    # EAP has no hand-written kernel, and the chunked EVP is the plain loop
+    evp = mc.cfg.dyn.kdyn == 1 and mc.cfg.dyn.evp_algorithm != "chunked"
     remap = mc.cfg.dyn.advection == "remap"
-    assert counts == dict(evp_sweep=O.NSTEPS if evp else 0,
-                          remap_flux_both=O.NSTEPS if remap else 0,
+    ndyn = O.NSTEPS * mc.cfg.time.ndtd   # dynamics subcycles of the run
+    assert counts == dict(evp_sweep=ndyn if evp else 0,
+                          remap_flux_both=ndyn if remap else 0,
                           shortwave_dedd=O.NSTEPS if dedd else 0,
                           evp_fused=0, remap_flux_edge=0)
     sg = sg.to("cpu")
@@ -76,6 +82,11 @@ def test_set_on_the_card_matches_the_cpu(cuda_device, name):
         assert_close(wc[:, it], wg[:, it], 3e-8, f"trcrn[{it}]", floor=1e-6)
     for k in O.TRACER_DIAG if name in O.TRACER_SETS else ():
         assert_close(getattr(dc, k), getattr(dg, k).cpu(), 3e-8, k)
+    # the StepDiag fields that a flag set's option drives
+    for k in O.FLAG_DRIVES.get(name, ()):
+        if k.startswith("diag/"):
+            k = k[len("diag/"):]
+            assert_close(getattr(dc, k), getattr(dg, k).cpu(), 3e-8, k)
 
 
 @pytest.mark.gpu

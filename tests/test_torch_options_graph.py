@@ -27,3 +27,26 @@ def test_set_step_as_captured_equals_eager(name):
                                guard=graph.HostSyncs(strict=True))
     assert _equal(want[0], got[0]) == [] and _equal(want[1], got[1]) == []
     assert len(passes) >= 2 and sum(passes) >= 1
+
+
+def test_revised_evp_reads_its_xmin_once_per_grid_before_any_capture():
+    """The revised EVP's xmin (the ocean minimum of dxt and dyt) is read
+    from the device once per grid (``step._min_spacing``). On a fresh
+    grid the step as captured refuses that read; after one eager step,
+    as ``StepGraph`` runs before it captures, the step as captured reads
+    nothing and equals the eager step."""
+    from cice5_tpu_torch.driver import step as step_mod
+    ref = O.load_reference("revised_evp")
+    m = port_model("revised_evp")
+    st, f = port_inputs(ref)
+    with pytest.raises(graph.HostSyncError) as e:
+        _as_captured(step_fn, st, f, *m.step_args, k=1,
+                     guard=graph.HostSyncs(strict=True))
+    assert any(t.name == "_min_spacing" for t in e.traceback)
+    want = step_fn(st, f, *m.step_args)
+    assert step_mod._MIN_SPACING[id(m.grid.dxt)][1] == float(
+        m.grid.dxt[m.grid.tmask].min().minimum(
+            m.grid.dyt[m.grid.tmask].min()))
+    got, _ = _as_captured(step_fn, st, f, *m.step_args, k=1,
+                          guard=graph.HostSyncs(strict=True))
+    assert _equal(want[0], got[0]) == [] and _equal(want[1], got[1]) == []

@@ -341,6 +341,33 @@ def test_constants_calendar_orbit_match_jax():
         tuple(torbital.shr_orb_params(1950))
 
 
+@pytest.mark.parametrize("days_per_year,use_leap_years",
+                         [(365, True), (360, False), (360, True)])
+def test_leap_and_360_day_calendars_match_jax(days_per_year,
+                                              use_leap_years):
+    """The calendars a namelist can ask for besides the no-leap default
+    (``time.use_leap_years``, ``days_per_year``), as the Model builds
+    them, against the JAX package's across the leap year 1996 and its
+    seams: every date field equal."""
+    cfg = tconfig.rect_config(ny=6, nx=6)
+    cfg = cfg.replace(time=dataclasses.replace(
+        cfg.time, year_init=1995, days_per_year=days_per_year,
+        use_leap_years=use_leap_years))
+    tc = Model(cfg, device="cpu").calendar
+    jc = jcalendar.Calendar(1995, days_per_year, use_leap_years)
+    leap = days_per_year == 365 and use_leap_years
+    assert tc.use_leap_years == leap
+    for day in (0, 364, 365, 424, 425, 730, 731, 1095, 1096, 1460):
+        for istep in (24 * day, 24 * day + 23):
+            assert dataclasses.asdict(jc.info(istep, 3600.0)) == \
+                dataclasses.asdict(tc.info(istep, 3600.0)), istep
+    if days_per_year == 365:
+        # Feb 29 1996 exists only in the leap calendar
+        d = tc.info(24 * (365 + 59), 3600.0)
+        assert (d.year, d.month, d.mday) == ((1996, 2, 29) if leap
+                                             else (1996, 3, 1))
+
+
 def test_tensorclass_to_and_replace():
     m = Model(tconfig.bench_easy_config(ny=6, nx=6, ndte=2), device="cpu")
     st = m.init_state()

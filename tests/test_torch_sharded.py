@@ -340,6 +340,34 @@ def test_sharded_model_matches_one_device(mesh_run, one_device, name):
                                       got[f"{name}/state/vicen"])
 
 
+def test_revised_evp_sharded_equals_one_device(recorded, tmp_path):
+    """The revised EVP on the 2x2 mesh: every rank's xmin (its tile's
+    ocean minimum of dxt and dyt, all-reduced) is the global one, and two
+    steps of the basin from its recorded state equal the one-device
+    Model's at 0.0 in every State field, with state_bad 0."""
+    from cice5_tpu_torch.driver.step import _min_spacing
+    ranks = worker.launch(tmp_path, dict(mesh=[2, 2], tasks=["revised"],
+                                         reference=str(REFERENCE)))["revised"]
+    part = lambda pre: worker.recorded(recorded, f"rect/{pre}")
+    m = Model(worker.case_config("rect_revised"), device="cpu",
+              grid=convert.grid_from_arrays(part("grid"), device="cpu"))
+    assert m.cfg.dyn.revised_evp
+    st = convert.state_from_arrays(part("st0"), device="cpu")
+    for k in range(2):
+        st, diag = m.step(st, convert.forcing_from_arrays(part(f"f{k}"),
+                                                           device="cpu"))
+    xmin = _min_spacing(m.grid, m.topo)
+    for got in ranks:
+        assert float(got["xmin"]) == xmin
+        for k, v in convert.to_numpy(st).items():
+            np.testing.assert_array_equal(got[f"state/{k}"], v, err_msg=k)
+        assert int(got["diag/state_bad"]) == 0
+    # the revised EVP is at work: the classic step moves the ice otherwise
+    classic = _one_device_step(recorded, "rect")[0]
+    assert np.abs(classic["uvel"] - convert.to_numpy(st)["uvel"]).max() \
+        > 1e-8
+
+
 @pytest.mark.parametrize("mesh_run, name", [(m, n) for n, m in JAX_RUNS],
                          indirect=["mesh_run"],
                          ids=[f"{n}-{m[0]}x{m[1]}" for n, m in JAX_RUNS])

@@ -10,10 +10,22 @@ thermo, and the coupler's surface fluxes (calc_Tsfc=False) under BL99
 and mushy thermo; and the dynamics and transport options (``DYN_SETS``):
 the BL99 model on a T-fold seam, EAP rheology alone, on a T-fold seam
 and with the per-category mechred diagnostics on a U-fold seam, upwind
-transport, the transport conservation and monotonicity checks, and
-dynamics without transport; and the aerosol, brine and skeletal-BGC
+transport, the transport conservation and monotonicity checks,
+dynamics without transport, and the chunked EVP on one device; and the
+aerosol, brine and skeletal-BGC
 tracers (``TRACER_SETS``); and CESM2's column of 8 ice and 3 snow
-layers under mushy and under BL99 thermo (``LAYER_SETS``). All run on the 24x16 synthetic global mesh of
+layers under mushy and under BL99 thermo (``LAYER_SETS``); and the
+namelist options no other set turns on, each the BL99 model (the
+``bl99`` set) with one option changed (``FLAG_SETS``: MU71
+conductivity, the delta-function ITD, Hibler strength, ndtd=2, the
+constant boundary layer, the revised EVP, e_ratio, the ocean turning
+angle, kcatbound=2, linear ridging, constant albedos, update_ocn_f,
+l_mpond_fresh on the level ponds, SST restoring, closed boundaries in
+place of the cyclic east-west and the open north one; those on the
+BL99 model start with the open ocean under air below freezing at its
+freezing point, ``make_reference_flags``, so that frazil forms). The
+definitions are ``cice5_tpu_torch/small_sets.py``'s, which
+chip_smoke.py runs too. All run on the 24x16 synthetic global mesh of
 test_torch_parity_step.py, ndte=8, float64, with rain on the ice (a
 pond's "no fresh water" branch then never rests on rounding noise).
 
@@ -36,13 +48,10 @@ from pathlib import Path
 
 import numpy as np
 
-from cice5_tpu_torch import config as C
 from cice5_tpu_torch import small_sets as S
-from cice5_tpu_torch.small_sets import (BGC_SUBSET_OFF, DEDD, DYN_STATE,
-                                        MUSHY, PONDS, TRACER_DIAG,
-                                        TRACER_STATE, dyn_option_sets,
-                                        layer_option_sets,
-                                        tracer_option_sets)
+from cice5_tpu_torch.small_sets import (
+    DYN_STATE, FLAG_BASE, FLAG_DRIVES, FROZEN_SEA, TRACER_DIAG, TRACER_STATE,
+    dyn_option_sets, flag_option_sets, layer_option_sets, tracer_option_sets)
 import torch_port_util as U
 
 OPTIONS_REFERENCE = Path(__file__).with_name("test_torch_options.npz")
@@ -70,43 +79,8 @@ DIAG_EVP = ("strintx", "strinty", "prs_sig")
 DIAG_FLAGS = ("state_bad", "therm_converged")
 
 
-_grid, _bl99, _with = S.grid, S.bl99, S.with_
-
-
-def option_sets() -> dict:
-    """{name: the port's ModelConfig of the set}."""
-    gx3 = C.gx3_config(dtype="float64", accum_dtype="float64")
-    gx3 = _with(gx3, dyn=dict(ndte=NDTE)).replace(grid=_grid("open"))
-    tp1 = C.tp1_config(dtype="float64", accum_dtype="float64")
-    tp1 = _with(tp1, dyn=dict(ndte=NDTE)).replace(grid=_grid("tripole"))
-    b = _bl99()
-    return {
-        "gx3": gx3,
-        "tp1": tp1,
-        "bl99_ccsm3_tripole": _bl99("tripole"),
-        "mushy_ccsm3": _with(b, thermo=MUSHY),
-        "dedd_no_ponds": _with(b, shortwave=DEDD),
-        "iage": _with(b, tracers=dict(tr_iage=True)),
-        "FY": _with(b, tracers=dict(tr_FY=True)),
-        "lvl": _with(b, tracers=dict(tr_lvl=True)),
-        "cesm_ponds_bl99": _with(b, shortwave=DEDD,
-                                 tracers=dict(tr_pond_cesm=True, **PONDS)),
-        "cesm_ponds_mushy": _with(b, thermo=MUSHY, shortwave=DEDD,
-                                  tracers=dict(tr_pond_cesm=True, **PONDS)),
-        "topo_ponds_bl99": _with(b, shortwave=DEDD,
-                                 tracers=dict(tr_pond_topo=True, **PONDS)),
-        "topo_ponds_mushy": _with(b, thermo=MUSHY, shortwave=DEDD,
-                                  tracers=dict(tr_pond_topo=True, **PONDS)),
-        "frzpnd_cesm": _with(b, shortwave=DEDD, tracers=dict(
-            tr_lvl=True, tr_pond_lvl=True, frzpnd="cesm", **PONDS)),
-        "zerolayer": _with(b, thermo=dict(ktherm=0)),
-        "calc_tsfc_off_bl99": _with(b, thermo=dict(calc_Tsfc=False)),
-        "calc_tsfc_off_mushy": _with(b, thermo=dict(calc_Tsfc=False,
-                                                    **MUSHY)),
-        **dyn_option_sets(),
-        **tracer_option_sets(),
-        **layer_option_sets(),
-    }
+# {name: the port's ModelConfig of the set}
+option_sets = S.option_sets
 
 
 # the extra fields the dynamics sets record (make_reference_dyn): the
@@ -122,6 +96,13 @@ TRACER_SETS = tuple(tracer_option_sets())
 
 # the sets with more than one snow layer
 LAYER_SETS = tuple(layer_option_sets())
+
+# the namelist options, each set with one option changed from its base
+# set (FLAG_BASE), the recorded fields that option drives (FLAG_DRIVES):
+# its reference must differ from the base's in one of them
+# (test_flag_reference_shows_its_option_at_work), and the sets that start
+# from the frozen open sea (FROZEN_SEA, ``make_reference_flags``)
+FLAG_SETS = tuple(flag_option_sets())
 
 
 def grid_arrays():
@@ -284,12 +265,42 @@ def make_reference_tracers(name) -> dict:
         STATE, DIAG, seed_state = saved
 
 
+def freeze_open_sea(st, forcing, grid):
+    """The JAX State ``st`` with the SST at the freezing point in the
+    ocean cells whose air is below it."""
+    import jax.numpy as jnp
+    cold = (forcing.Tair < 273.15 + forcing.Tf) & grid.tmask
+    return st.replace(sst=jnp.where(cold, forcing.Tf, st.sst))
+
+
+def make_reference_flags(name) -> dict:
+    """``make_reference`` of a flag set: the same recipe, from an initial
+    state whose open ocean under air below freezing starts at its
+    freezing point for the sets of FROZEN_SEA."""
+    from cice5_tpu.driver.model import Model as JModel
+    orig = JModel.init_state
+
+    def init_state(self, *args, **kw):
+        st = orig(self, *args, **kw)
+        if name not in FROZEN_SEA:
+            return st
+        return freeze_open_sea(st, self.forcing_at(ISTEP), self.grid)
+
+    JModel.init_state = init_state
+    try:
+        return make_reference(name)
+    finally:
+        JModel.init_state = orig
+
+
 def record(name) -> dict:
     """The reference of any set, as ``__main__`` records it."""
     if name in DYN_SETS:
         return make_reference_dyn(name)
     if name in TRACER_SETS:
         return make_reference_tracers(name)
+    if name in FLAG_SETS:
+        return make_reference_flags(name)
     return make_reference(name)
 
 
@@ -321,6 +332,10 @@ def reference_key(name) -> str:
         for fn in (seed_tracer_state, make_reference_tracers):
             h.update(inspect.getsource(fn).encode())
         h.update(repr((TRACER_STATE, TRACER_DIAG)).encode())
+    if name in FLAG_SETS:
+        for fn in (freeze_open_sea, make_reference_flags):
+            h.update(inspect.getsource(fn).encode())
+        h.update(repr(name in FROZEN_SEA).encode())
     return h.hexdigest()
 
 

@@ -103,7 +103,8 @@ def case_config(name):
     (tests/test_sharded_model.py's 16x32 basin, ndte=15), "tripole"
     (gx1-parity on a 24x16 tripole grid, ndte=8), and the run cases
     "small" (the basin at 8x16) and "small_restore" (that with an open
-    east-west boundary and ice restoring)."""
+    east-west boundary and ice restoring), and "rect_revised" (the basin
+    with the revised EVP)."""
     from cice5_tpu_torch import config as C
     r = dataclasses.replace
     if name == "tripole":
@@ -114,7 +115,8 @@ def case_config(name):
     small = name.startswith("small")
     cfg = C.rect_config(ny=8 if small else 16, nx=16 if small else 32,
                         dtype="float64", accum_dtype="float64")
-    cfg = cfg.replace(dyn=r(cfg.dyn, ndte=15))
+    cfg = cfg.replace(dyn=r(cfg.dyn, ndte=15,
+                            revised_evp=name == "rect_revised"))
     if name == "small_restore":
         cfg = cfg.replace(grid=r(cfg.grid, ew_boundary="open"),
                           forcing=r(cfg.forcing, restore_ice=True,
@@ -154,6 +156,30 @@ def task_model(spec, out):
             out[f"{name}/diag/{k}"] = np.asarray(v)
         for k, v in traffic.items():
             out[f"{name}/traffic/{k}"] = np.array(v)
+
+
+def task_revised(spec, out):
+    """The "rect" case's recorded state and forcings under the revised EVP
+    ("rect_revised"): two steps of ShardedModel, gathered, and the
+    revised EVP's xmin (the ocean minimum of dxt and dyt) as this rank
+    computes it for its tile."""
+    from cice5_tpu_torch.driver.sharded import ShardedModel
+    from cice5_tpu_torch.driver.step import _min_spacing
+    z = np.load(spec["reference"])
+    grid = convert.grid_from_arrays(recorded(z, "rect/grid"), device="cpu")
+    sm = ShardedModel(case_config("rect_revised"),
+                      mesh_shape=tuple(spec["mesh"]), grid=grid, device="cpu")
+    st = sm.put(convert.state_from_arrays(recorded(z, "rect/st0"),
+                                          device="cpu"))
+    for k in range(2):
+        st, diag = sm.step(st, sm.put(convert.forcing_from_arrays(
+            recorded(z, f"rect/f{k}"), device="cpu")))
+    gst, gd = sm.gather((st, diag))
+    for k, v in convert.to_numpy(gst).items():
+        out[f"state/{k}"] = v
+    for k, v in gd._asdict().items():
+        out[f"diag/{k}"] = np.asarray(v)
+    out["xmin"] = np.array(_min_spacing(sm.tile_grid, sm.topo))
 
 
 def task_run(spec, out):
@@ -222,7 +248,7 @@ def task_evp(spec, out):
 
 
 TASKS = {"halo": task_halo, "model": task_model, "run": task_run,
-         "evp": task_evp}
+         "evp": task_evp, "revised": task_revised}
 
 
 def main(argv):
